@@ -1,0 +1,20 @@
+"""Architecture registry of the port.
+
+``get_config(name, reduced=False)`` resolves an arch id (dash or underscore
+form).  Only the archs whose model family the port runs are registered;
+every other id raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from repro_torch.configs import granite_8b
+from repro_torch.models.config import ModelConfig
+
+_PORTED = {"granite_8b": granite_8b}
+
+
+def get_config(name: str, *, reduced: bool = False) -> ModelConfig:
+    mod = _PORTED.get(name.replace("-", "_").replace(".", "_"))
+    if mod is None:
+        raise NotImplementedError(f"{name}: not yet ported")
+    return mod.REDUCED if reduced else mod.CONFIG

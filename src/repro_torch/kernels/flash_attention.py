@@ -1,0 +1,61 @@
+"""Blocked exact attention on the card (wrapper of ``csrc/flash_attention.cu``).
+
+Replaces the TPU kernel ``src/repro/kernels/flash_attention.py``
+(``_flash_kernel`` / ``flash_attention``).  Bound on the H100: operations at
+prompt lengths.  This first kernel computes with f32 FMAs from shared memory
+(one CTA per 64-query block, head and sequence, a loop over 32-key tiles that
+stops at the causal diagonal, GQA by pointer arithmetic, masked tails in
+place of padding); tensor-core products are later work.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+HEAD_DIMS = (16, 32, 64, 128)
+
+launches = 0  # kernel launches since the last reset (see ops.reset_launch_counts)
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Sk, KV, D)
+    v: torch.Tensor,  # (B, Sk, KV, D)
+    *,
+    causal: bool = True,
+    softmax_scale: float | None = None,
+) -> torch.Tensor:
+    global launches
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash kernel needs q, k, v on one CUDA device, got {q.device}, {k.device}, {v.device}")
+    if q.dtype not in _build.DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash kernel takes f32 or bf16 q, k, v of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash kernel needs q (B,Sq,H,D), k = v (B,Sk,KV,D), got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, sq, h, d = q.shape
+    _, sk, kv, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != d or kv == 0 or h % kv or d not in HEAD_DIMS or sk == 0:
+        raise ValueError(f"flash kernel: unsupported shapes q {tuple(q.shape)}, k {tuple(k.shape)} (D in {HEAD_DIMS}, H % KV == 0)")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash kernel needs contiguous q, k, v")
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    out = torch.empty_like(q)
+    fn = _build.function(
+        "flash_attention",
+        "flash_attention_launch",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    )
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, sq, sk, h, kv, d, scale, int(causal), _build.DTYPES[q.dtype], q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check("flash_attention", err)
+    launches += 1
+    return out

@@ -1,0 +1,108 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, its
+entry points default to CUDA and refuse to fall back to the CPU, and a
+kernel asked for on a CPU tensor raises."""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import decode_attention, flash_attention, ops, rmsnorm  # noqa: E402
+from repro_torch.models import bridge  # noqa: E402
+from repro_torch.models import transformer as TF  # noqa: E402
+from repro_torch.device import resolve_device  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+CFG = get_config("granite-8b", reduced=True)
+
+
+def _imported_roots(path: pathlib.Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_nothing_of_repro(path):
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "flax", "optax"}
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda: resolve_device(),
+        lambda: TF.init_params(CFG, 0),
+        lambda: TF.init_caches(CFG, 1, 8),
+        lambda: bridge.params_from_numpy({"w": np.zeros(3, np.float32)}),
+    ],
+    ids=["resolve_device", "init_params", "init_caches", "params_from_numpy"],
+)
+def test_entry_points_default_to_cuda_and_raise_without_it(call):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+
+
+def test_explicit_cpu_device_runs():
+    assert resolve_device("cpu").type == "cpu"
+    assert TF.init_caches(CFG, 1, 8, device="cpu")["layers"]["k"].device.type == "cpu"
+
+
+def _cpu_args():
+    q = torch.zeros(1, 4, 4, 16)
+    kv = torch.zeros(1, 4, 2, 16)
+    cache = torch.zeros(1, 2, 8, 16)
+    return {
+        "rmsnorm": (ops.rmsnorm, (torch.zeros(2, 16), torch.ones(16))),
+        "flash_attention": (ops.flash_attention, (q, kv, kv)),
+        "decode_attention": (
+            ops.decode_attention,
+            (torch.zeros(1, 4, 16), cache, cache, torch.ones(1, dtype=torch.int32)),
+        ),
+    }
+
+
+@pytest.mark.parametrize("name", ["rmsnorm", "flash_attention", "decode_attention"])
+def test_kernel_impl_on_cpu_tensor_raises(name):
+    fn, args = _cpu_args()[name]
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(*args, impl="kernel")
+    with ops.use_impl("kernel"), pytest.raises(ValueError, match="CUDA"):
+        fn(*args)
+    fn(*args)  # auto on a CPU tensor: the plain version
+
+
+@pytest.mark.parametrize(
+    "wrapper,args",
+    [
+        (rmsnorm.fused_rmsnorm, (torch.zeros(2, 16), torch.ones(16))),
+        (flash_attention.flash_attention, (torch.zeros(1, 4, 4, 16),) + (torch.zeros(1, 4, 2, 16),) * 2),
+        (decode_attention.decode_attention,
+         (torch.zeros(1, 4, 16),) + (torch.zeros(1, 2, 8, 16),) * 2 + (torch.ones(1, dtype=torch.int32),)),
+    ],
+    ids=["rmsnorm", "flash_attention", "decode_attention"],
+)
+def test_kernel_wrappers_refuse_cpu_tensors(wrapper, args):
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        wrapper(*args)
+    assert ops.launch_counts() == before
+
+
+def test_unknown_impl_raises():
+    with pytest.raises(ValueError):
+        ops.rmsnorm(torch.zeros(2, 4), torch.ones(4), impl="pallas")
+    with pytest.raises(ValueError):
+        with ops.use_impl("fast"):
+            pass

@@ -1,0 +1,174 @@
+"""The port's kernels: plain versions against the JAX Pallas kernels, and (on
+a card) the CUDA kernels against their plain versions.
+
+On the CPU ``ops.*`` take the plain versions (``repro_torch.kernels.ref``);
+they are held against the Pallas kernels run with ``interpret=True`` at a
+subset of tests/test_kernels.py's shapes.  The ``cuda``-marked tests run the
+hand-written kernels on the card and skip elsewhere.  Tolerances are the
+reference's own: f32 3e-5, bf16 2e-2.
+
+JAX is imported only by the tests that need it, so that the ``cuda`` tests
+also run on a machine without JAX:
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
+"""
+
+import types
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+TOL = {"f32": dict(atol=3e-5, rtol=3e-5), "bf16": dict(atol=2e-2, rtol=2e-2)}
+
+FLASH_SHAPES = [  # b, sq, sk, h, kv, d
+    (2, 64, 64, 4, 2, 32),  # GQA 2:1
+    (1, 48, 32, 6, 3, 128),  # uneven blocks, D 128
+]
+DECODE_SHAPES = [(2, 128, 8, 2, 32), (2, 96, 8, 1, 128)]  # b, s, h, kv, d
+RMS_SHAPES = [(4, 7, 64), (130, 256)]
+
+
+def _inputs(seed, shapes, dt, device="cpu"):
+    """(numpy f32 arrays, the same as torch tensors of dtype ``dt``)."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    return arrs, [torch.from_numpy(a).to(device=device, dtype=DTYPES[dt]) for a in arrs]
+
+
+def _close(got, want, dt):
+    want = want.float().cpu().numpy() if isinstance(want, torch.Tensor) else np.asarray(want)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want, **TOL[dt])
+
+
+@pytest.fixture(scope="module")
+def pallas():
+    """The JAX Pallas kernels (run in interpret mode) and a converter of numpy
+    inputs to JAX arrays of a given dtype; the results come back as f32 numpy."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels.decode_attention import decode_attention
+    from repro.kernels.flash_attention import flash_attention
+    from repro.kernels.rmsnorm import fused_rmsnorm
+
+    def run(fn, arrs, dt, *args, **kw):
+        jd = {"f32": jnp.float32, "bf16": jnp.bfloat16}[dt]
+        out = fn(*[jnp.asarray(a, dtype=jd) for a in arrs], *args, interpret=True, **kw)
+        return np.asarray(out.astype(jnp.float32))
+
+    return types.SimpleNamespace(
+        jnp=jnp, run=run, rmsnorm=fused_rmsnorm, flash=flash_attention, decode=decode_attention
+    )
+
+
+def _lengths(seed, b, s):
+    return np.random.default_rng(seed).integers(1, s + 1, size=b).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (CPU) against the Pallas kernels (interpret mode)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", RMS_SHAPES)
+def test_rmsnorm_plain_matches_pallas(pallas, shape, dt):
+    arrs, (xt, wt) = _inputs(0, [shape, shape[-1:]], dt)
+    want = pallas.run(pallas.rmsnorm, arrs, dt, block_n=16)
+    _close(ops.rmsnorm(xt, wt), want, dt)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d", FLASH_SHAPES)
+def test_flash_plain_matches_pallas(pallas, b, sq, sk, h, kv, d, causal, dt):
+    arrs, (qt, kt, vt) = _inputs(1, [(b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)], dt)
+    want = pallas.run(pallas.flash, arrs, dt, causal=causal, block_q=32, block_k=32)
+    _close(ops.flash_attention(qt, kt, vt, causal=causal), want, dt)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b,s,h,kv,d", DECODE_SHAPES)
+def test_decode_plain_matches_pallas(pallas, b, s, h, kv, d, dt):
+    arrs, (qt, kt, vt) = _inputs(2, [(b, h, d), (b, kv, s, d), (b, kv, s, d)], dt)
+    lens = _lengths(3, b, s)
+
+    def decode(q, k, v, **kw):
+        return pallas.decode(q, k, v, pallas.jnp.asarray(lens), **kw)
+
+    want = pallas.run(decode, arrs, dt, block_s=32)
+    _close(ops.decode_attention(qt, kt, vt, torch.from_numpy(lens)), want, dt)
+
+
+def test_ops_auto_on_cpu_is_the_plain_version():
+    _, (q, k, v) = _inputs(4, [(1, 16, 4, 8), (1, 16, 2, 8), (1, 16, 2, 8)], "f32")
+    assert torch.equal(
+        ops.flash_attention(q, k, v), ops.flash_attention(q, k, v, impl="ref")
+    )
+    with ops.use_impl("ref"):
+        assert torch.equal(ops.flash_attention(q, k, v), ref.flash_attention_ref(q, k, v))
+
+
+def test_launch_counts_reset():
+    ops.reset_launch_counts()
+    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0}
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels against their plain versions (on the card only)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels run only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", RMS_SHAPES + [(3, 5, 7, 16), (5, 13)])
+def test_rmsnorm_kernel_matches_plain(cuda, shape, dt):
+    _, (x, w) = _inputs(5, [shape, shape[-1:]], dt, cuda)
+    _close(ops.rmsnorm(x, w, impl="kernel"), ref.rmsnorm_ref(x, w), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize(
+    "b,sq,sk,h,kv,d",
+    FLASH_SHAPES + [(1, 100, 100, 8, 8, 64), (2, 128, 256, 4, 1, 16), (1, 300, 300, 32, 8, 128)],
+)
+def test_flash_kernel_matches_plain(cuda, b, sq, sk, h, kv, d, causal, dt):
+    _, (q, k, v) = _inputs(6, [(b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)], dt, cuda)
+    got = ops.flash_attention(q, k, v, causal=causal, impl="kernel")
+    _close(got, ref.flash_attention_ref(q, k, v, causal=causal), dt)
+    got = ops.flash_attention(q, k, v, causal=causal, softmax_scale=0.3, impl="kernel")
+    _close(got, ref.flash_attention_ref(q, k, v, causal=causal, softmax_scale=0.3), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b,s,h,kv,d", DECODE_SHAPES + [(3, 100, 4, 4, 64), (1, 256, 16, 8, 16)])
+def test_decode_kernel_matches_plain(cuda, b, s, h, kv, d, dt):
+    _, (q, k, v) = _inputs(7, [(b, h, d), (b, kv, s, d), (b, kv, s, d)], dt, cuda)
+    lens = torch.from_numpy(_lengths(8, b, s)).to(cuda)
+    got = ops.decode_attention(q, k, v, lens, impl="kernel")
+    _close(got, ref.decode_attention_ref(q, k, v, lens), dt)
+
+
+@pytest.mark.cuda
+def test_decode_kernel_ignores_rows_past_length(cuda):
+    _, (q, k, v) = _inputs(9, [(2, 4, 16), (2, 2, 64, 16), (2, 2, 64, 16)], "f32", cuda)
+    lens = torch.tensor([10, 20], dtype=torch.int32, device=cuda)
+    out1 = ops.decode_attention(q, k, v, lens, impl="kernel")
+    past = torch.arange(64, device=cuda)[None, None, :, None] >= lens[:, None, None, None].long()
+    out2 = ops.decode_attention(
+        q, torch.where(past, 99.0, k), torch.where(past, -99.0, v), lens, impl="kernel"
+    )
+    torch.testing.assert_close(out1, out2, atol=1e-6, rtol=0)
