@@ -7,8 +7,9 @@ Run from the root of a checkout.  Phases, each of which must pass:
 
   1. build    the three hand-written kernels from src/repro_torch/kernels/csrc
   2. kernels  each kernel against its plain PyTorch version at the serving
-              path's shapes and a ragged shape, in bf16 and f32, timed beside
-              its plain version, one PyTorch library call and its bound
+              path's shapes and ragged ones, in bf16 and f32, timed beside its
+              plain version, one PyTorch library call and its bound (decode
+              attention with a cold L2, as the path finds it)
   3. parity   granite-8b at full width, 2 layers: the kernel path and the plain
               path agree over a 512-token prefill and 16 decode steps (f32:
               equal token ids; bf16: as close to the f32 run as the plain path)
@@ -16,14 +17,16 @@ Run from the root of a checkout.  Phases, each of which must pass:
               InstanceEngine (4 slots, max_seq 1024) answers 8 requests of 512
               prompt tokens and 32 new tokens; launch counts must match the path
   5. live     cooperative_forward equals train_forward for k in {0, 1, 18, 36}
-  6. profile  torch.profiler over 3 full-batch decode steps: device time by
-              kernel and the share of the step the card is busy
+  6. profile  torch.profiler over 3 full-batch decode steps and over one idle
+              512-token prefill: device time by kernel, the share of the step
+              or of the TTFT the card is busy, and the attention kernels'
+              launches per step / prefill
 
 It prints one JSON ``kernels`` line and the card's name and power limit before
 its last line, which is ``{"ok": true, "device": {...}}``.  It exits non-zero,
 printing no result, without a CUDA device or outside a checkout.  With
 ``--log-dir`` it also writes the nvcc logs, every measurement and the
-decode-step trace there.
+decode-step and prefill traces there.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # dense tensor-core bf16; f32 without tensor cores
 TOL = {"f32": 3e-5, "bf16": 2e-2}  # tests/test_kernels.py:16-17
+COLD_BYTES = 128e6  # rotating input copies of a cold timing: over 2.5x the H100's 50 MB L2
 SEED = 0
 
 KERNELS = {
@@ -83,26 +87,42 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def time_ms(torch, fns: dict, iters: int = 30) -> dict:
-    """Mean device ms per call of each fn, timed with CUDA events in turns
-    (a, b, c, c, b, a) after a warm-up.  A spin kernel keeps the card busy
-    while the host enqueues the calls, so that the events bracket the calls'
-    device time and not the host's launch rate."""
+def time_ms(torch, fns: dict, input_sets: list, iters: int = 30) -> dict:
+    """Mean device ms per call of each fn(*inputs), timed with CUDA events in
+    turns (a, b, c, c, b, a) after a warm-up; call i takes input_sets[i % n].
+    A spin kernel keeps the card busy while the host enqueues the calls, so
+    that the events bracket the calls' device time and not the host's launch
+    rate.
+
+    One input set times a kernel warm.  That is how the path finds rmsnorm
+    and flash attention: their inputs were written by the product just
+    before them, a few MB that sit in the 50 MB L2.  Decode attention is
+    given copies whose bytes together exceed twice the L2 (``cold_sets``),
+    because on the path each of the 36 layers reads its own cache (16.8 MB at
+    the serving shape, 604 MB per step), which comes from HBM."""
+    n = len(input_sets)
     for fn in fns.values():
-        for _ in range(3):
-            fn()
+        for i in range(max(3, n)):
+            fn(*input_sets[i % n])
     torch.cuda.synchronize()
     total = {k: 0.0 for k in fns}
     for name in list(fns) + list(fns)[::-1]:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(40_000_000)  # ~20 ms of device cycles, more than the enqueueing takes
         start.record()
-        for _ in range(iters):
-            fns[name]()
+        for i in range(iters):
+            fns[name](*input_sets[i % n])
         end.record()
         end.synchronize()
         total[name] += start.elapsed_time(end) / iters
     return {k: v / 2 for k, v in total.items()}
+
+
+def cold_sets(inputs) -> list:
+    """Copies of ``inputs`` whose bytes together reach COLD_BYTES, so that
+    cycling through them finds none of them in the L2."""
+    nbytes = sum(t.numel() * t.element_size() for t in inputs)
+    return [tuple(t.clone() for t in inputs) for _ in range(max(2, -(-int(COLD_BYTES) // nbytes)))]
 
 
 def bound(nbytes: float, flops: float, dt: str) -> tuple[float, str]:
@@ -150,12 +170,18 @@ def kernel_cases(torch, dt: str):
         ("flash_attention", "Sq=200 Sk=333 non-causal scale 0.05",
          lambda: (randn(2, 200, 32, 128), randn(2, 333, 8, 128), randn(2, 333, 8, 128)),
          {"causal": False, "softmax_scale": 0.05}),
+        ("flash_attention", "D=16 Sq=200 Sk=333 non-causal scale 0.05",
+         lambda: (randn(2, 200, 8, 16), randn(2, 333, 2, 16), randn(2, 333, 2, 16)),
+         {"causal": False, "softmax_scale": 0.05}),
         ("decode_attention", "main B=4 H=32 KV=8 S=1024 D=128",
          lambda: (randn(4, 32, 128), randn(4, 8, 1024, 128), randn(4, 8, 1024, 128),
                   lens(1, 300, 517, 1024)), {}),
         ("decode_attention", "ragged S=1000 lengths 1..999",
          lambda: (randn(3, 32, 128), randn(3, 8, 1000, 128), randn(3, 8, 1000, 128),
                   lens(999, 1, 129)), {}),
+        ("decode_attention", "lengths 0, S, 1, 65; n_rep 8; S=4096",
+         lambda: (randn(4, 64, 128), randn(4, 8, 4096, 128), randn(4, 8, 4096, 128),
+                  lens(0, 4096, 1, 65)), {}),
     ]
 
 
@@ -182,19 +208,20 @@ def work(name: str, inputs, kw, dt: str) -> tuple[float, float]:
 
 
 def library_call(torch, name: str, inputs, kw):
-    """One PyTorch call computing the same function (timed only, never used by
-    the port)."""
+    """One PyTorch call computing the same function, as a function of an
+    input set (timed only, never used by the port).  For decode attention the
+    mask is built once: the cold copies share the lengths' values."""
     F = torch.nn.functional
     if name == "rmsnorm":
-        x, w = inputs
-        return lambda: F.rms_norm(x, (x.shape[-1],), w, 1e-5)
+        return lambda x, w: F.rms_norm(x, (x.shape[-1],), w, 1e-5)
     if name == "flash_attention":
-        q, k, v = (t.transpose(1, 2) for t in inputs)
-        return lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=kw.get("causal", True), enable_gqa=True)
-    q, k, v, lengths = inputs
+        return lambda q, k, v: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=kw.get("causal", True), enable_gqa=True)
+    _, k, _, lengths = inputs
     mask = (torch.arange(k.shape[2], device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
-    return lambda: F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
+    return lambda q, k, v, _lengths: F.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
 
 
 def phase_kernels(torch, ops, ref) -> dict:
@@ -209,17 +236,24 @@ def phase_kernels(torch, ops, ref) -> dict:
             got = kernel_fn[name](*inputs, impl="kernel", **kw)
             torch.cuda.synchronize()
             want = plain_fn[name](*inputs, **kw)
+            if name == "decode_attention":
+                # a row of length 0 gives 0, as the TPU kernel's acc / max(l,
+                # 1e-30) does; the plain oracle averages V there
+                want[inputs[3] == 0] = 0
             err = max_err(torch, got, want, dt)
             row = {"kernel": name, "case": case, "dtype": dt, "max_abs_err": err}
             if case.startswith("main"):
+                sets = cold_sets(inputs) if name == "decode_attention" else [inputs]
                 times = time_ms(torch, {
-                    "plain": lambda: plain_fn[name](*inputs, **kw),
-                    "kernel": lambda: kernel_fn[name](*inputs, impl="kernel", **kw),
+                    "plain": lambda *a: plain_fn[name](*a, **kw),
+                    "kernel": lambda *a: kernel_fn[name](*a, impl="kernel", **kw),
                     "library": library_call(torch, name, inputs, kw),
-                })
+                }, sets)
                 nbytes, flops = work(name, inputs, kw, dt)
                 row.update(ms=times["kernel"], plain_ms=times["plain"],
-                           library_ms=times["library"], bytes=nbytes, flops=flops)
+                           library_ms=times["library"], bytes=nbytes, flops=flops,
+                           timed="cold" if len(sets) > 1 else "warm", copies=len(sets))
+                del sets
                 row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dt)
                 results[(name, dt)] = row
             log("[kernels] " + json.dumps(row))
@@ -402,30 +436,24 @@ def phase_live(torch, np, ops, TF, live, cfg, params) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: where a decode step's time goes
+# Phase 6: where a decode step's and a prefill's time goes
 # ---------------------------------------------------------------------------
 
 
-def phase_profile(torch, np, cfg, engine_mod, params, step_ms: float, log_dir: Path | None) -> dict:
-    """torch.profiler over 3 decode steps at a full batch (4 slots, 512-token
-    prompts): device time of the kernels by name, per step.  The busy share
-    is that device time over the unprofiled median step time of phase 4 (one
-    stream, so kernels do not overlap; the profiler's own cost lengthens the
-    profiled wall time, which is reported apart)."""
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def _traced(torch, fn, units: int, log_dir: Path | None, trace_name: str) -> tuple[list, float, dict]:
+    """torch.profiler over ``fn()``: (kernels as (device us, name, launches)
+    sorted by time, profiled wall ms per unit, the host's kernel-launch API
+    calls per unit: count and CPU ms, the profiler's cost included)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    eng = engine_mod.InstanceEngine(cfg, params, n_slots=4, max_seq=1024)
-    rng = np.random.default_rng(SEED + 3)
-    for i in range(4):
-        eng.submit(engine_mod.ServeRequest(i, rng.integers(0, cfg.vocab_size, 512).astype(np.int32), 64))
-    eng.step()
-    eng.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(3):
-            eng.step()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = sorted(
@@ -433,15 +461,60 @@ def phase_profile(torch, np, cfg, engine_mod, params, step_ms: float, log_dir: P
          if e.device_type != DeviceType.CPU and e.self_device_time_total > 0),
         reverse=True,
     )
-    device_ms = sum(k[0] for k in kernels) / 3e3
-    check(device_ms > 0, "profile: no device time recorded")
-    row = {"steps": 3, "profiled_wall_ms_per_step": wall_ms / 3, "device_ms_per_step": device_ms,
-           "unprofiled_step_ms": step_ms, "device_busy_share": device_ms / step_ms,
-           "top_kernels_ms_per_step": [[k[:90], round(us / 3e3, 4), n // 3] for us, k, n in kernels[:12]]}
-    log("[profile] " + json.dumps(row))
+    api = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU and e.key in LAUNCH_APIS]
+    host = {"launch_calls": sum(e.count for e in api) / units,
+            "launch_cpu_ms": sum(e.self_cpu_time_total for e in api) / (units * 1e3)}
     if log_dir is not None:
-        prof.export_chrome_trace(str(log_dir / "decode_steps_trace.json"))
-    return row
+        prof.export_chrome_trace(str(log_dir / trace_name))
+    return kernels, wall_ms / units, host
+
+
+def phase_profile(torch, np, cfg, engine_mod, params, step_ms: float, ttft_ms: float,
+                  log_dir: Path | None) -> dict:
+    """torch.profiler over 3 decode steps at a full batch (4 slots, 512-token
+    prompts) and over one idle 512-token prefill: device time of the kernels
+    by name, per step or per prefill.  The busy share is that device time
+    over phase 4's unprofiled median step time or idle TTFT (one stream, so
+    kernels do not overlap; the profiler's own cost lengthens the profiled
+    wall time, which is reported apart).  The host's time in the CUDA
+    kernel-launch calls shows how much of the step the eager enqueueing
+    costs (profiled, so an upper bound).  The decode step must launch the
+    decode-attention kernel once per layer, and the prefill the flash
+    kernel once per layer."""
+    L = cfg.n_layers
+    eng = engine_mod.InstanceEngine(cfg, params, n_slots=4, max_seq=1024)
+    rng = np.random.default_rng(SEED + 3)
+    for i in range(4):
+        eng.submit(engine_mod.ServeRequest(i, rng.integers(0, cfg.vocab_size, 512).astype(np.int32), 64))
+    eng.step()
+    eng.step()
+
+    def steps():
+        for _ in range(3):
+            eng.step()
+
+    prompt = rng.integers(0, cfg.vocab_size, 512).astype(np.int32)
+    rows = {}
+    for what, fn, units, ref_ms, attn in (
+        ("decode_step", steps, 3, step_ms, "decode_attention_kernel"),
+        ("prefill", lambda: eng.prefill_only(engine_mod.ServeRequest(-9, prompt, 1)), 1, ttft_ms,
+         "flash_fwd_sm90"),
+    ):
+        kernels, wall_ms, host = _traced(torch, fn, units, log_dir, f"{what}_trace.json")
+        device_ms = sum(k[0] for k in kernels) / (units * 1e3)
+        check(device_ms > 0, f"profile {what}: no device time recorded")
+        launches = sum(n for _, k, n in kernels if attn in k) / units
+        check(launches == L, f"profile {what}: {attn} launched {launches} times per unit, not {L}")
+        rows[what] = {
+            "units": units, "profiled_wall_ms": wall_ms, "device_ms": device_ms,
+            "unprofiled_ms": ref_ms, "device_busy_share": device_ms / ref_ms,
+            f"{attn}_launches": launches, "kernels_launched": sum(n for *_, n in kernels) / units,
+            "host_launch_calls": host["launch_calls"], "host_launch_cpu_ms": host["launch_cpu_ms"],
+            "top_kernels_ms": [[k[:90], round(us / (units * 1e3), 5), n / units]
+                               for us, k, n in kernels[:14]],
+        }
+        log(f"[profile] {what} " + json.dumps(rows[what]))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -489,7 +562,7 @@ def main(argv: list[str] | None = None) -> int:
     serve = phase_serve(torch, np, ops, TF, cfg, engine_mod, params)
     live_row = phase_live(torch, np, ops, TF, live, cfg, params)
     prof = phase_profile(torch, np, cfg, engine_mod, params, serve["decode_step_ms_median"],
-                         args.log_dir)
+                         serve["ttft_idle_ms"], args.log_dir)
 
     line = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():

@@ -8,6 +8,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cmath>
 #include <cstdint>
 
@@ -46,6 +47,27 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+// The dynamic-shared-memory opt-in of one kernel instantiation, recorded per
+// device: the attribute belongs to a (function, device) pair, so a launch on
+// a second card sets it there too.  Declare one `static SmemOptIn` beside
+// each instantiation's launch and call ensure() after cudaSetDevice(device).
+struct SmemOptIn {
+  static constexpr int kMaxDevices = 64;
+  std::atomic<int> bytes[kMaxDevices];  // the opt-in set on each device (0: none)
+
+  template <typename Kernel>
+  cudaError_t ensure(Kernel* kernel, int device, size_t need) {
+    if (need <= 48 * 1024) return cudaSuccess;  // the default needs no opt-in
+    if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+    if (bytes[device].load(std::memory_order_acquire) >= static_cast<int>(need))
+      return cudaSuccess;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(need));
+    if (err == cudaSuccess) bytes[device].store(static_cast<int>(need), std::memory_order_release);
+    return err;
+  }
+};
 
 }  // namespace rt
 

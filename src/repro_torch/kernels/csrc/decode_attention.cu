@@ -1,190 +1,348 @@
 // Single-token GQA decode attention over a padded (B, KV, S, D) cache for
-// Hopper (sm_90a), split along the sequence (flash-decoding).
+// Hopper (sm_90a): one launch, a thread-block cluster per (sequence, KV head).
 //
 // Replaces the TPU kernel src/repro/kernels/decode_attention.py
 // (_decode_kernel / decode_attention).  q (B, H, D), k/v (B, KV, S, D),
-// lengths (B,) int32; positions >= lengths[b] are masked; the output is
-// acc / max(l, 1e-30), so a row of length 0 gives 0.
+// lengths (B,) int32, clamped to [0, S]; positions >= the length are masked;
+// the output is acc / max(l, 1e-30), so a row of length 0 gives 0.
 //
-// Bound: bytes.  Every valid cache row is read once per step and takes 2*D
-// flops per query head.  The TPU grid (B, KV, S-blocks) walks S in order; on
-// the H100 B*KV blocks alone (32 at the serving batch) would leave most of the
-// 132 SMs idle, so the sequence is split across CTAs: one 128-thread CTA per
-// (128-position chunk, KV head, sequence).  Chunks at or past lengths[b] exit
-// at once.  In a CTA each thread scores one cache position for all n_rep query
-// heads sharing the KV head (each K row read once, with 16-byte loads), the
-// chunk's max and sum are block reductions, and the PV product runs with
-// threads along D (coalesced V rows).  Each chunk writes a partial
-// (max, sum, acc) in f32 to a scratch tensor the caller allocates; a second
-// small kernel combines the chunks of each (sequence, head).
-#include "common.cuh"
+// Bound on the H100: bytes.  Every valid cache row is read once per step and
+// takes 2*D flops per query head (about 2*n_rep flops per byte), so the
+// design keeps as many cache bytes in flight as it can and does the
+// arithmetic with FMAs from shared memory.  The TPU grid walks S in order per
+// (sequence, KV head); on the H100 that would be B*KV CTAs (32 at the serving
+// batch) for 132 SMs, so the sequence is split across the CTAs of a cluster
+// (flash-decoding) and merged inside the same launch:
+//
+// * Grid (cluster, KV, B) with a cluster of `cluster` CTAs along x (set at
+//   launch; the wrapper's decode_plan picks it and the chunk rows).  Chunk c
+//   (rows [c*CH, c*CH + CH) below the length) belongs to cluster rank
+//   c % cluster; a CTA walks its chunks in a 2-stage ring.
+// * In the cache a chunk of one (sequence, KV head) is one contiguous block,
+//   so thread 0 fetches a chunk's K and its V with one 1-D bulk copy each
+//   (cp.async.bulk), completing on an mbarrier.  Only the valid rows are
+//   copied (min(CH, len - s0) rows, from the device-side length), so the
+//   kernel reads the bytes the bound counts.
+// * Scores: threads along D (16-byte loads, conflict-free), n_rep partial
+//   dots per thread reduced across the row's lanes; each K row is read once
+//   for the n_rep query heads that share it.  Online softmax per head by
+//   one warp; PV with threads along D over the chunk's rows.
+// * Each CTA leaves its partial (m, l, acc[n_rep][D]) in its shared memory;
+//   after cluster.sync() the CTAs merge the partials through distributed
+//   shared memory, each rank a slice of the n_rep x D outputs, and write the
+//   output.  A CTA with no chunk below the length still reaches both cluster
+//   barriers, with an empty partial (m = -inf, l = 0).
+#include <cooperative_groups.h>
+
+#include "hopper.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int CH = 128;  // cache positions per chunk = threads per split CTA
-constexpr int NW = CH / 32;
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kStages = 2;
+constexpr int kMaxCluster = 8;  // the portable cluster size
 
 template <typename T, int D, int NREP>
-__global__ void __launch_bounds__(CH)
-    decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                        const T* __restrict__ vc, const int* __restrict__ lengths,
-                        float* __restrict__ part_acc, float* __restrict__ part_ml, int KV, int S,
-                        int n_split, float scale_log2) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int G = CH / D;  // position groups in the PV product
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+struct Shape {
+  static constexpr int VE = 16 / sizeof(T);  // elements per 16-byte load
+  static constexpr int TD = D / VE;          // threads along one row (2..32)
+  static constexpr int RPW = 32 / TD;        // rows per warp per pass
+  static constexpr int RP = kWarps * RPW;    // rows per CTA pass
+  static constexpr int G = kThreads / TD;    // row groups of the PV product
+  static constexpr int HPW = (NREP + kWarps - 1) / kWarps;  // softmax heads per warp
+  static_assert(TD >= 2 && TD <= 32, "unsupported head dim");
+
+  // Dynamic shared memory for chunks of `ch` rows: [K ring | V ring | scores
+  // (NREP x ch) | corr (NREP) | partial m, l (NREP each) | partial acc (NREP
+  // x D) | barriers].  The cross-warp reduction of acc (kWarps x NREP x D
+  // f32) reuses the ring once the chunks are done.
+  __host__ __device__ static size_t up16(size_t n) { return (n + 15) & ~static_cast<size_t>(15); }
+  __host__ __device__ static size_t chunk_bytes(int ch) {
+    return static_cast<size_t>(ch) * D * sizeof(T);
+  }
+  __host__ __device__ static size_t scores_off(int ch) {
+    const size_t ring = 2 * kStages * chunk_bytes(ch), red = kWarps * NREP * D * 4;
+    return ring > red ? ring : red;
+  }
+  __host__ __device__ static size_t corr_off(int ch) {
+    return up16(scores_off(ch) + static_cast<size_t>(NREP) * ch * 4);
+  }
+  // corr[8], then the partial's m[8] and l[8]
+  __host__ __device__ static size_t part_off(int ch) { return corr_off(ch) + 8 * 4; }
+  __host__ __device__ static size_t acc_off(int ch) { return part_off(ch) + 16 * 4; }
+  __host__ __device__ static size_t bar_off(int ch) { return acc_off(ch) + NREP * D * 4; }
+  __host__ __device__ static size_t smem(int ch) { return bar_off(ch) + 8 * 2 * kStages; }
+};
+
+template <typename T, int D, int NREP>
+__global__ void __launch_bounds__(kThreads)
+    decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+                            const T* __restrict__ vc, const int* __restrict__ lengths,
+                            T* __restrict__ out, int KV, int S, int CH, float scale_log2) {
+  using SH = Shape<T, D, NREP>;
+  using Vec = rt::Vec<T, SH::VE>;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  extern __shared__ __align__(16) uint8_t smem[];
+  T* kring = reinterpret_cast<T*>(smem);
+  T* vring = kring + static_cast<size_t>(kStages) * CH * D;
+  float* ps = reinterpret_cast<float*>(smem + SH::scores_off(CH));
+  float* corr_s = reinterpret_cast<float*>(smem + SH::corr_off(CH));
+  float* part_m = reinterpret_cast<float*>(smem + SH::part_off(CH));
+  float* part_l = part_m + 8;
+  float* part_acc = reinterpret_cast<float*>(smem + SH::acc_off(CH));
+  uint64_t* bar_k = reinterpret_cast<uint64_t*>(smem + SH::bar_off(CH));
+  uint64_t* bar_v = bar_k + kStages;
+
   const int len = min(max(lengths[b], 0), S);
-  const int s0 = split * CH;
-  if (s0 >= len) return;  // the combine kernel reads only chunks below the length
-
-  __shared__ float qs[NREP][D];
-  __shared__ float ps[NREP][CH];
-  __shared__ float accs[NREP][CH];
-  __shared__ float red[NREP][NW];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const T* qb = q + (static_cast<size_t>(b) * KV + kvh) * NREP * D;  // heads kvh*NREP + r
-  for (int i = tid; i < NREP * D; i += CH) qs[i / D][i % D] = rt::to_float(qb[i]) * scale_log2;
-  __syncthreads();
-
+  const int n_chunks = (len + CH - 1) / CH;
+  const int my_chunks = rank < n_chunks ? (n_chunks - rank + csize - 1) / csize : 0;
   const size_t head = (static_cast<size_t>(b) * KV + kvh) * S * D;
-  const int pos = s0 + tid;
-  const bool valid = pos < len;
-  float sc[NREP];
+
+  auto issue = [=](int i) {  // thread 0: chunk i of this CTA into stage i % kStages
+    const int s0 = (rank + i * csize) * CH;
+    const uint32_t bytes = static_cast<uint32_t>(min(CH, len - s0)) * D * sizeof(T);
+    const int st = i % kStages;
+    hp::mbar_expect_tx(&bar_k[st], bytes);
+    hp::bulk_load(kring + static_cast<size_t>(st) * CH * D, kc + head + static_cast<size_t>(s0) * D,
+                  bytes, &bar_k[st]);
+    hp::mbar_expect_tx(&bar_v[st], bytes);
+    hp::bulk_load(vring + static_cast<size_t>(st) * CH * D, vc + head + static_cast<size_t>(s0) * D,
+                  bytes, &bar_v[st]);
+  };
+
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      hp::mbar_init(&bar_k[st], 1);
+      hp::mbar_init(&bar_v[st], 1);
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int i = 0; i < kStages && i < my_chunks; ++i) issue(i);
+
+  // This thread's 16-byte column slice of every row, and the n_rep query
+  // heads of this KV head (scaled into the log2 domain) at those columns.
+  const int col = (tid % SH::TD) * SH::VE;
+  float qr[NREP][SH::VE];
+  const T* qh = q + (static_cast<size_t>(b) * KV + kvh) * NREP * D;
 #pragma unroll
-  for (int r = 0; r < NREP; ++r) sc[r] = 0.f;
-  if (valid) {
-    const rt::Vec<T, VEC>* krow =
-        reinterpret_cast<const rt::Vec<T, VEC>*>(kc + head + static_cast<size_t>(pos) * D);
-#pragma unroll 4
-    for (int i = 0; i < D / VEC; ++i) {
-      const rt::Vec<T, VEC> kv = krow[i];
+  for (int r = 0; r < NREP; ++r) {
+    const Vec v = *reinterpret_cast<const Vec*>(qh + r * D + col);
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        const float kf = rt::to_float(kv.e[e]);
+    for (int e = 0; e < SH::VE; ++e) qr[r][e] = rt::to_float(v.e[e]) * scale_log2;
+  }
+
+  float m_own[SH::HPW], l_own[SH::HPW];  // heads warp + kWarps*t
 #pragma unroll
-        for (int r = 0; r < NREP; ++r) sc[r] = fmaf(qs[r][i * VEC + e], kf, sc[r]);
+  for (int t = 0; t < SH::HPW; ++t) {
+    m_own[t] = -INFINITY;
+    l_own[t] = 0.f;
+  }
+  float acc[NREP][SH::VE];
+#pragma unroll
+  for (int r = 0; r < NREP; ++r)
+#pragma unroll
+    for (int e = 0; e < SH::VE; ++e) acc[r][e] = 0.f;
+
+  for (int i = 0; i < my_chunks; ++i) {
+    const int st = i % kStages;
+    const uint32_t parity = (i / kStages) & 1;
+    const int nv = min(CH, len - (rank + i * csize) * CH);
+    const T* ks = kring + static_cast<size_t>(st) * CH * D;
+    const T* vs = vring + static_cast<size_t>(st) * CH * D;
+
+    // scores of the chunk's rows for the n_rep heads
+    hp::mbar_wait(&bar_k[st], parity);
+    for (int base = 0; base < nv; base += SH::RP) {  // CTA-uniform trip count
+      const int row = base + warp * SH::RPW + lane / SH::TD;
+      const bool ok = row < nv;
+      float dot[NREP];
+#pragma unroll
+      for (int r = 0; r < NREP; ++r) dot[r] = 0.f;
+      if (ok) {
+        const Vec kv = *reinterpret_cast<const Vec*>(ks + row * D + col);
+#pragma unroll
+        for (int e = 0; e < SH::VE; ++e) {
+          const float kf = rt::to_float(kv.e[e]);
+#pragma unroll
+          for (int r = 0; r < NREP; ++r) dot[r] = fmaf(qr[r][e], kf, dot[r]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < NREP; ++r) {
+#pragma unroll
+        for (int o = SH::TD / 2; o > 0; o >>= 1) dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], o);
+      }
+      if (ok && lane % SH::TD == 0) {
+#pragma unroll
+        for (int r = 0; r < NREP; ++r) ps[r * CH + row] = dot[r];
       }
     }
-  }
+    __syncthreads();
 
-  float mx[NREP];
+    // online softmax over the chunk: warp w updates heads w, w + kWarps, ...
 #pragma unroll
-  for (int r = 0; r < NREP; ++r) {
-    sc[r] = valid ? sc[r] : -INFINITY;
-    const float w = rt::warp_max(sc[r]);
-    if (lane == 0) red[r][warp] = w;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < NREP; ++r) {
-    mx[r] = red[r][0];
-#pragma unroll
-    for (int w = 1; w < NW; ++w) mx[r] = fmaxf(mx[r], red[r][w]);
-  }
-  __syncthreads();  // red is reused for the sums
-#pragma unroll
-  for (int r = 0; r < NREP; ++r) {
-    const float p = valid ? exp2f(sc[r] - mx[r]) : 0.f;  // mx is finite: s0 < len
-    ps[r][tid] = p;
-    const float w = rt::warp_sum(p);
-    if (lane == 0) red[r][warp] = w;
-  }
-  __syncthreads();
+    for (int t = 0; t < SH::HPW; ++t) {
+      const int r = warp + kWarps * t;
+      if (r < NREP) {
+        float mx = -INFINITY;
+        for (int j = lane; j < nv; j += 32) mx = fmaxf(mx, ps[r * CH + j]);
+        mx = rt::warp_max(mx);  // finite: nv >= 1
+        const float m_new = fmaxf(m_own[t], mx);
+        const float corr = exp2f(m_own[t] - m_new);
+        float sum = 0.f;
+        for (int j = lane; j < nv; j += 32) {
+          const float p = exp2f(ps[r * CH + j] - m_new);
+          ps[r * CH + j] = p;
+          sum += p;
+        }
+        sum = rt::warp_sum(sum);
+        l_own[t] = l_own[t] * corr + sum;
+        m_own[t] = m_new;
+        if (lane == 0) corr_s[r] = corr;
+      }
+    }
+    __syncthreads();
 
-  const int d = tid % D, g = tid / D;
-  const int n_valid = min(CH, len - s0);
-  const T* vrow = vc + head + static_cast<size_t>(s0) * D + d;
-  float acc[NREP];
-#pragma unroll
-  for (int r = 0; r < NREP; ++r) acc[r] = 0.f;
-  for (int c = g; c < n_valid; c += G) {
-    const float vf = rt::to_float(vrow[static_cast<size_t>(c) * D]);
-#pragma unroll
-    for (int r = 0; r < NREP; ++r) acc[r] = fmaf(ps[r][c], vf, acc[r]);
-  }
-#pragma unroll
-  for (int r = 0; r < NREP; ++r) accs[r][tid] = acc[r];
-  __syncthreads();
-
-  const size_t part = (static_cast<size_t>(b) * KV + kvh) * n_split + split;
-  if (g == 0) {
+    // acc = acc * corr + P V, threads along D over the chunk's rows
+    hp::mbar_wait(&bar_v[st], parity);
 #pragma unroll
     for (int r = 0; r < NREP; ++r) {
-      float a = accs[r][d];
+      const float c = corr_s[r];
 #pragma unroll
-      for (int j = 1; j < G; ++j) a += accs[r][j * D + d];
-      part_acc[(part * NREP + r) * D + d] = a;
+      for (int e = 0; e < SH::VE; ++e) acc[r][e] *= c;
     }
-  }
-  if (tid == 0) {
+    for (int row = tid / SH::TD; row < nv; row += SH::G) {
+      const Vec vv = *reinterpret_cast<const Vec*>(vs + row * D + col);
+      float vf[SH::VE];
 #pragma unroll
-    for (int r = 0; r < NREP; ++r) {
-      float l = 0.f;
+      for (int e = 0; e < SH::VE; ++e) vf[e] = rt::to_float(vv.e[e]);
 #pragma unroll
-      for (int w = 0; w < NW; ++w) l += red[r][w];
-      part_ml[(part * NREP + r) * 2 + 0] = mx[r];
-      part_ml[(part * NREP + r) * 2 + 1] = l;
+      for (int r = 0; r < NREP; ++r) {
+        const float p = ps[r * CH + row];
+#pragma unroll
+        for (int e = 0; e < SH::VE; ++e) acc[r][e] = fmaf(p, vf[e], acc[r][e]);
+      }
     }
+    __syncthreads();  // stage st and the scores are free again
+    if (tid == 0 && i + kStages < my_chunks) issue(i + kStages);
   }
-}
 
-// One CTA of D threads per (KV head, sequence): merges the chunk partials of
-// the NREP query heads of that KV head.
-template <typename T, int D, int NREP>
-__global__ void __launch_bounds__(D)
-    decode_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-                          const int* __restrict__ lengths, T* __restrict__ out, int KV, int S,
-                          int n_split) {
-  const int kvh = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const int len = min(max(lengths[b], 0), S);
-  const int n_used = (len + CH - 1) / CH;
-  const size_t part0 = (static_cast<size_t>(b) * KV + kvh) * n_split;
+  // This CTA's partial: acc summed over the row groups (within a warp by
+  // shuffles, across warps through the idle ring), m and l per head.
 #pragma unroll
-  for (int r = 0; r < NREP; ++r) {
-    float m = -INFINITY;
-    for (int s = 0; s < n_used; ++s) m = fmaxf(m, part_ml[((part0 + s) * NREP + r) * 2]);
-    const float m_use = m == -INFINITY ? 0.f : m;
+  for (int r = 0; r < NREP; ++r)
+#pragma unroll
+    for (int e = 0; e < SH::VE; ++e)
+#pragma unroll
+      for (int o = SH::TD; o < 32; o <<= 1) acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], o);
+  float* red = reinterpret_cast<float*>(kring);  // kWarps x NREP x D, in the ring
+  if (lane < SH::TD) {
+#pragma unroll
+    for (int r = 0; r < NREP; ++r)
+#pragma unroll
+      for (int e = 0; e < SH::VE; ++e) red[(warp * NREP + r) * D + col + e] = acc[r][e];
+  }
+#pragma unroll
+  for (int t = 0; t < SH::HPW; ++t) {
+    const int r = warp + kWarps * t;
+    if (r < NREP && lane == 0) {
+      part_m[r] = m_own[t];
+      part_l[r] = l_own[t];
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < NREP * D; idx += kThreads) {
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) a += red[w * NREP * D + idx];
+    part_acc[idx] = a;
+  }
+
+  cluster.sync();  // every partial of the cluster is written
+  // The merge is spread over the cluster: rank c writes the outputs idx =
+  // c*kThreads + tid, c*kThreads + tid + cluster*kThreads, ...  Each reads
+  // the partials of its head from every rank through distributed shared
+  // memory, all loads issued before any is used (ranks past the cluster
+  // size repeat the last one and get weight 0).
+  T* o = out + (static_cast<size_t>(b) * KV + kvh) * NREP * D;  // heads kvh*NREP + r
+  for (int idx = rank * kThreads + tid; idx < NREP * D; idx += csize * kThreads) {
+    const int r = idx / D;
+    float pm[kMaxCluster], pl[kMaxCluster], pa[kMaxCluster];
+#pragma unroll
+    for (int c = 0; c < kMaxCluster; ++c) {
+      const int cc = min(c, csize - 1);
+      pm[c] = cluster.map_shared_rank(part_m, cc)[r];
+      pl[c] = cluster.map_shared_rank(part_l, cc)[r];
+      pa[c] = cluster.map_shared_rank(part_acc, cc)[idx];
+    }
+    float mx = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < kMaxCluster; ++c) mx = fmaxf(mx, pm[c]);
+    const float mu = mx == -INFINITY ? 0.f : mx;  // every partial empty: length 0
     float l = 0.f, a = 0.f;
-    for (int s = 0; s < n_used; ++s) {
-      const size_t p = (part0 + s) * NREP + r;
-      const float w = exp2f(part_ml[p * 2] - m_use);
-      l = fmaf(part_ml[p * 2 + 1], w, l);
-      a = fmaf(part_acc[p * D + d], w, a);
+#pragma unroll
+    for (int c = 0; c < kMaxCluster; ++c) {
+      const float w = c < csize ? exp2f(pm[c] - mu) : 0.f;
+      l = fmaf(pl[c], w, l);
+      a = fmaf(pa[c], w, a);
     }
-    const size_t h = static_cast<size_t>(kvh) * NREP + r;
-    out[(static_cast<size_t>(b) * KV * NREP + h) * D + d] = rt::from_float<T>(a / fmaxf(l, 1e-30f));
+    o[idx] = rt::from_float<T>(a / fmaxf(l, 1e-30f));
   }
+  cluster.sync();  // every CTA's shared memory stays alive until its peers have read it
 }
 
 template <typename T, int D, int NREP>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* lengths, void* out,
-                   float* part_acc, float* part_ml, int B, int KV, int S, float scale_log2,
+                   int B, int KV, int S, int cluster, int CH, float scale_log2, int device,
                    cudaStream_t stream) {
-  const int n_split = (S + CH - 1) / CH;
-  decode_split_kernel<T, D, NREP><<<dim3(n_split, KV, B), CH, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
-      part_acc, part_ml, KV, S, n_split, scale_log2);
-  cudaError_t err = cudaGetLastError();
+  using SH = Shape<T, D, NREP>;
+  auto kernel = decode_attention_kernel<T, D, NREP>;
+  const size_t smem = SH::smem(CH);
+  static rt::SmemOptIn optin;
+  cudaError_t err = optin.ensure(kernel, device, smem);
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<T, D, NREP><<<dim3(KV, B), D, 0, stream>>>(
-      part_acc, part_ml, lengths, static_cast<T*>(out), KV, S, n_split);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, KV, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
+                           static_cast<const T*>(v), lengths, static_cast<T*>(out), KV, S, CH,
+                           scale_log2);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_rep(int nrep, const void* q, const void* k, const void* v, const int* len,
-                       void* out, float* pa, float* pm, int B, int KV, int S, float sl,
+                       void* out, int B, int KV, int S, int cl, int ch, float sl, int dev,
                        cudaStream_t s) {
   switch (nrep) {
     case 1:
-      return launch<T, D, 1>(q, k, v, len, out, pa, pm, B, KV, S, sl, s);
+      return launch<T, D, 1>(q, k, v, len, out, B, KV, S, cl, ch, sl, dev, s);
     case 2:
-      return launch<T, D, 2>(q, k, v, len, out, pa, pm, B, KV, S, sl, s);
+      return launch<T, D, 2>(q, k, v, len, out, B, KV, S, cl, ch, sl, dev, s);
     case 4:
-      return launch<T, D, 4>(q, k, v, len, out, pa, pm, B, KV, S, sl, s);
+      return launch<T, D, 4>(q, k, v, len, out, B, KV, S, cl, ch, sl, dev, s);
     case 8:
-      return launch<T, D, 8>(q, k, v, len, out, pa, pm, B, KV, S, sl, s);
+      return launch<T, D, 8>(q, k, v, len, out, B, KV, S, cl, ch, sl, dev, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -192,17 +350,17 @@ cudaError_t launch_rep(int nrep, const void* q, const void* k, const void* v, co
 
 template <typename T>
 cudaError_t launch_d(int D, int nrep, const void* q, const void* k, const void* v,
-                     const int* len, void* out, float* pa, float* pm, int B, int KV, int S,
-                     float sl, cudaStream_t s) {
+                     const int* len, void* out, int B, int KV, int S, int cl, int ch, float sl,
+                     int dev, cudaStream_t s) {
   switch (D) {
     case 16:
-      return launch_rep<T, 16>(nrep, q, k, v, len, out, pa, pm, B, KV, S, sl, s);
+      return launch_rep<T, 16>(nrep, q, k, v, len, out, B, KV, S, cl, ch, sl, dev, s);
     case 32:
-      return launch_rep<T, 32>(nrep, q, k, v, len, out, pa, pm, B, KV, S, sl, s);
+      return launch_rep<T, 32>(nrep, q, k, v, len, out, B, KV, S, cl, ch, sl, dev, s);
     case 64:
-      return launch_rep<T, 64>(nrep, q, k, v, len, out, pa, pm, B, KV, S, sl, s);
+      return launch_rep<T, 64>(nrep, q, k, v, len, out, B, KV, S, cl, ch, sl, dev, s);
     case 128:
-      return launch_rep<T, 128>(nrep, q, k, v, len, out, pa, pm, B, KV, S, sl, s);
+      return launch_rep<T, 128>(nrep, q, k, v, len, out, B, KV, S, cl, ch, sl, dev, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -210,29 +368,29 @@ cudaError_t launch_d(int D, int nrep, const void* q, const void* k, const void* 
 
 }  // namespace
 
-extern "C" int decode_attention_chunk() { return CH; }
-
-// part_acc: (B, KV, n_split, n_rep, D) f32 and part_ml: (B, KV, n_split, n_rep, 2)
-// f32 scratch, n_split = ceil(S / decode_attention_chunk()).
+// cluster: CTAs per (sequence, KV head), 1..8; chunk: cache rows per bulk
+// copy.  Both come from the wrapper's decode_plan.  The caches must be
+// 16-byte aligned.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
-                                       const void* lengths, void* out, void* part_acc,
-                                       void* part_ml, int B, int H, int KV, int S, int D,
-                                       float softmax_scale, int dtype, int device,
-                                       void* stream) {
+                                       const void* lengths, void* out, int B, int H, int KV,
+                                       int S, int D, int cluster, int chunk, float softmax_scale,
+                                       int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B == 0 || H == 0) return cudaSuccess;
-  if (KV == 0 || H % KV != 0 || S == 0) return cudaErrorInvalidValue;
+  if (KV == 0 || H % KV != 0 || S == 0 || cluster < 1 || cluster > kMaxCluster || chunk < 1)
+    return cudaErrorInvalidValue;
+  if (!rt::aligned16(k) || !rt::aligned16(v) || !rt::aligned16(q))
+    return cudaErrorMisalignedAddress;
   const float sl = softmax_scale * 1.4426950408889634f;
   const int* len = static_cast<const int*>(lengths);
-  float* pa = static_cast<float*>(part_acc);
-  float* pm = static_cast<float*>(part_ml);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case rt::kF32:
-      return launch_d<float>(D, H / KV, q, k, v, len, out, pa, pm, B, KV, S, sl, s);
+      return launch_d<float>(D, H / KV, q, k, v, len, out, B, KV, S, cluster, chunk, sl, device, s);
     case rt::kBF16:
-      return launch_d<__nv_bfloat16>(D, H / KV, q, k, v, len, out, pa, pm, B, KV, S, sl, s);
+      return launch_d<__nv_bfloat16>(D, H / KV, q, k, v, len, out, B, KV, S, cluster, chunk, sl,
+                                     device, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -3,18 +3,21 @@
 
 Replaces the TPU kernel ``src/repro/kernels/decode_attention.py``
 (``_decode_kernel`` / ``decode_attention``).  Bound on the H100: bytes (each
-valid cache row is read once per step).  The kernel splits the sequence into
-128-position chunks across CTAs so that a small serving batch still fills the
-card (flash-decoding), skips chunks past each sequence's length, reads each K
-row once for the n_rep query heads that share it, and merges the chunks'
-partial (max, sum, acc) in a second small kernel.  The partials live in f32
-scratch that this wrapper allocates.  int8 caches are not taken.
+valid cache row is read once per step).  One launch per call: a thread-block
+cluster of CTAs per (sequence, KV head) splits the sequence into chunks
+(flash-decoding), each chunk's valid K and V rows arrive by one bulk copy
+each into a 2-stage shared-memory ring, the n_rep query heads that share a KV
+head share every cache read, and the cluster's CTAs merge their partial
+(max, sum, acc) through distributed shared memory, each a slice of the
+output.  No scratch tensor and no second kernel.  :func:`decode_plan` sizes
+the cluster and the chunks.  int8 caches are not taken.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -24,6 +27,50 @@ HEAD_DIMS = (16, 32, 64, 128)
 N_REPS = (1, 2, 4, 8)
 
 launches = 0  # kernel launches since the last reset (see ops.reset_launch_counts)
+
+N_SM = 132  # streaming multiprocessors of an H100 SXM
+MAX_CLUSTER = 8  # the portable thread-block cluster size
+RING_BYTES = 64 * 1024  # shared memory of the 2-stage ring: 2 x (a K and a V chunk)
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    """How the kernel splits one call: a cluster of ``cluster`` CTAs per
+    (sequence, KV head), the grid ``(cluster, KV, B)``, chunks of
+    ``chunk`` cache rows, and at most ``chunks_per_cta`` chunks per CTA.
+    Chunk ``c`` (rows ``[c*chunk, (c+1)*chunk)``) belongs to cluster rank
+    ``c % cluster``, as the kernel walks it."""
+
+    cluster: int
+    chunk: int
+    chunks_per_cta: int
+    grid: tuple[int, int, int]
+
+    def rows_of(self, rank: int, length: int) -> list[int]:
+        """The cache rows below ``length`` that cluster rank ``rank`` reads."""
+        rows: list[int] = []
+        for c in range(rank, -(-length // self.chunk), self.cluster):
+            rows.extend(range(c * self.chunk, min((c + 1) * self.chunk, length)))
+        return rows
+
+
+def decode_plan(b: int, kv: int, s: int, d: int, elem_bytes: int) -> DecodePlan:
+    """Cluster size and chunk rows for a (B, KV, S, D) cache.
+
+    The cluster grows (up to 8) until the B*KV clusters give at least two
+    CTAs per SM.  A chunk is the rows one CTA would own with one chunk each,
+    rounded up to 16 and capped so that the 2-stage ring of K and V chunks
+    fits ``RING_BYTES``: at the serving shape (B=4, KV=8, S=1024, D=128,
+    bf16) that is clusters of 8 and chunks of 64 rows (16 KB per copy), two
+    per CTA.  The cluster never exceeds the number of chunks."""
+    cluster = 1
+    while cluster < MAX_CLUSTER and b * kv * cluster < 2 * N_SM:
+        cluster *= 2
+    per_cta = -(-s // cluster)
+    chunk = min(max(16, RING_BYTES // (4 * d * elem_bytes)), 16 * -(-per_cta // 16))
+    n_chunks = -(-s // chunk)
+    cluster = min(cluster, n_chunks)
+    return DecodePlan(cluster, chunk, -(-n_chunks // cluster), (cluster, kv, b))
 
 
 def decode_attention(
@@ -53,24 +100,20 @@ def decode_attention(
         raise ValueError(f"decode kernel: unsupported shapes q {tuple(q.shape)}, cache {tuple(k_cache.shape)} (D in {HEAD_DIMS}, H/KV in {N_REPS})")
     if not all(t.is_contiguous() for t in (q, k_cache, v_cache, lengths)):
         raise ValueError("decode kernel needs contiguous q, caches and lengths")
-    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
-        raise ValueError("decode kernel needs 16-byte aligned caches")
+    if q.data_ptr() % 16 or k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("decode kernel needs 16-byte aligned q and caches (bulk copies)")
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
-    chunk = _build.function("decode_attention", "decode_attention_chunk", [])()
-    n_rep, n_split = h // kv, -(-s // chunk)
+    plan = decode_plan(b, kv, s, d, q.element_size())
     out = torch.empty_like(q)
-    part_acc = torch.empty((b, kv, n_split, n_rep, d), dtype=torch.float32, device=dev)
-    part_ml = torch.empty((b, kv, n_split, n_rep, 2), dtype=torch.float32, device=dev)
     fn = _build.function(
         "decode_attention",
         "decode_attention_launch",
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
         + [ctypes.c_int] * 2 + [ctypes.c_void_p],
     )
     err = fn(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-        b, h, kv, s, d, scale, _build.DTYPES[q.dtype], dev.index,
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        b, h, kv, s, d, plan.cluster, plan.chunk, scale, _build.DTYPES[q.dtype], dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("decode_attention", err)

@@ -2,10 +2,15 @@
 
 Replaces the TPU kernel ``src/repro/kernels/flash_attention.py``
 (``_flash_kernel`` / ``flash_attention``).  Bound on the H100: operations at
-prompt lengths.  This first kernel computes with f32 FMAs from shared memory
-(one CTA per 64-query block, head and sequence, a loop over 32-key tiles that
-stops at the causal diagonal, GQA by pointer arithmetic, masked tails in
-place of padding); tensor-core products are later work.
+long prompts; at the serving prompt (S=512) bytes and operations are close.
+Two kernels, chosen by dtype:
+
+* bf16 (serving): both products on the tensor cores (``wgmma``), Q and the
+  K/V tiles loaded by TMA into a 2-stage ring on mbarriers, two 64-row
+  warpgroups per 128-row q-block, the kv loop stopped at the causal diagonal
+  and only the diagonal and tail tiles masked.  The probabilities are
+  rounded to bf16 for the PV product.  Needs 16-byte aligned q, k, v.
+* f32: f32 FMAs from shared memory (TF32 would miss the 3e-5 tolerance).
 """
 
 from __future__ import annotations
@@ -43,6 +48,8 @@ def flash_attention(
         raise ValueError(f"flash kernel: unsupported shapes q {tuple(q.shape)}, k {tuple(k.shape)} (D in {HEAD_DIMS}, H % KV == 0)")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash kernel needs contiguous q, k, v")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash kernel needs 16-byte aligned bf16 q, k, v (TMA)")
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
     fn = _build.function(

@@ -21,6 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_plan  # noqa: E402
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 TOL = {"f32": dict(atol=3e-5, rtol=3e-5), "bf16": dict(atol=2e-2, rtol=2e-2)}
@@ -117,6 +118,27 @@ def test_launch_counts_reset():
     assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0}
 
 
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize(
+    "b,kv,s", [(1, 1, 1), (1, 2, 4096), (2, 2, 64), (3, 8, 1000), (4, 8, 1024), (64, 8, 1024), (2, 8, 96)]
+)
+def test_decode_plan_partitions_the_cache(b, kv, s, d, elem):
+    """The cluster divides the grid's x dimension, the chunks cover S, and
+    every row below the length is read by exactly one CTA of the cluster."""
+    plan = decode_plan(b, kv, s, d, elem)
+    assert 1 <= plan.cluster <= 8
+    assert plan.grid == (plan.cluster, kv, b) and plan.grid[0] % plan.cluster == 0
+    assert plan.cluster * plan.chunks_per_cta * plan.chunk >= s
+    assert (plan.cluster * plan.chunks_per_cta - 1) * plan.chunk < s  # no chunk slot wholly past S
+    assert 4 * plan.chunk * d * elem <= 64 * 1024 or plan.chunk == 16  # the 2-stage ring fits
+    for length in sorted({min(n, s) for n in (0, 1, plan.chunk + 1, s // 2, s)}):
+        rows = [r for rank in range(plan.cluster) for r in plan.rows_of(rank, length)]
+        assert sorted(rows) == list(range(length))
+        assert all(len(plan.rows_of(rank, length)) <= plan.chunks_per_cta * plan.chunk
+                   for rank in range(plan.cluster))
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels against their plain versions (on the card only)
 # ---------------------------------------------------------------------------
@@ -158,6 +180,53 @@ def test_flash_kernel_matches_plain(cuda, b, sq, sk, h, kv, d, causal, dt):
 def test_decode_kernel_matches_plain(cuda, b, s, h, kv, d, dt):
     _, (q, k, v) = _inputs(7, [(b, h, d), (b, kv, s, d), (b, kv, s, d)], dt, cuda)
     lens = torch.from_numpy(_lengths(8, b, s)).to(cuda)
+    got = ops.decode_attention(q, k, v, lens, impl="kernel")
+    _close(got, ref.decode_attention_ref(q, k, v, lens), dt)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_granite_shape(cuda):
+    """bf16 at the serving prefill's shape: B=1, S=512, H=32, KV=8, D=128."""
+    _, (q, k, v) = _inputs(10, [(1, 512, 32, 128), (1, 512, 8, 128), (1, 512, 8, 128)], "bf16", cuda)
+    got = ops.flash_attention(q, k, v, causal=True, impl="kernel")
+    _close(got, ref.flash_attention_ref(q, k, v, causal=True), "bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [16, 128])
+def test_flash_kernel_cross_lengths_with_scale(cuda, d, dt):
+    """Non-causal, Sq != Sk (ragged on both sides), an explicit scale: the
+    bf16 kernel's transposed V operand at the smallest and largest D."""
+    _, (q, k, v) = _inputs(11, [(2, 200, 8, d), (2, 333, 2, d), (2, 333, 2, d)], dt, cuda)
+    got = ops.flash_attention(q, k, v, causal=False, softmax_scale=0.05, impl="kernel")
+    _close(got, ref.flash_attention_ref(q, k, v, causal=False, softmax_scale=0.05), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_decode_kernel_edge_lengths(cuda, dt):
+    """Lengths 0, S, 1 and one chunk + 1 in one batch: empty CTAs, a full
+    cache, a single row and a ragged second chunk."""
+    b, s, h, kv, d = 4, 512, 8, 2, 128
+    chunk = decode_plan(b, kv, s, d, 2 if dt == "bf16" else 4).chunk
+    _, (q, k, v) = _inputs(12, [(b, h, d), (b, kv, s, d), (b, kv, s, d)], dt, cuda)
+    lens = torch.tensor([0, s, 1, chunk + 1], dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q, k, v, lens, impl="kernel")
+    # A row of length 0 gives 0, as the TPU kernel's acc / max(l, 1e-30)
+    # does; the plain oracle (like the reference's) averages V there.
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    _close(got[1:], ref.decode_attention_ref(q, k, v, lens)[1:], dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b,s,h,kv,d", [(2, 1000, 16, 2, 128), (1, 4096, 8, 2, 128), (2, 4096, 32, 8, 64)])
+def test_decode_kernel_long_and_ragged(cuda, b, s, h, kv, d, dt):
+    """n_rep = 8 with S not a multiple of the chunk, and S = 4096, where each
+    CTA of the cluster walks several chunks through its 2-stage ring."""
+    _, (q, k, v) = _inputs(13, [(b, h, d), (b, kv, s, d), (b, kv, s, d)], dt, cuda)
+    lens = torch.tensor([s, s - 37][:b], dtype=torch.int32, device=cuda)
     got = ops.decode_attention(q, k, v, lens, impl="kernel")
     _close(got, ref.decode_attention_ref(q, k, v, lens), dt)
 
