@@ -21,6 +21,16 @@ Run from the root of a checkout.  Phases, each of which must pass:
               512-token prefill: device time by kernel, the share of the step
               or of the TTFT the card is busy, and the attention kernels'
               launches per step / prefill
+  7. cluster  the serving CLI's paths (repro_torch.launch.serve) on phase 4's
+              36-layer weights, every engine on that one parameter dict:
+              (a) the colocated loop, 16 requests of 512 + 32 tokens, until
+              the live-scaled engine holds all 36 layers; (b) run_disagg,
+              24 requests on the wall clock: every handoff completes, no
+              request is dropped or gapped, migrated bytes equal the payloads';
+              (c) the disagg runtime on a simulated clock against a lone
+              engine: first tokens bit-equal, a later divergence only at a
+              bf16 near tie.  The modelled cluster's 8 devices all compute on
+              this one card; the network between them is the flow model.
 
 It prints one JSON ``kernels`` line and the card's name and power limit before
 its last line, which is ``{"ok": true, "device": {...}}``.  It exits non-zero,
@@ -518,6 +528,167 @@ def phase_profile(torch, np, cfg, engine_mod, params, step_ms: float, ttft_ms: f
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: the serving control plane and the disaggregated runtime
+# ---------------------------------------------------------------------------
+
+
+NEAR_TIE = 0.05  # largest bf16 logit gap at which two paths may pick different tokens
+
+
+def _path_launches(counts: dict, L: int, prefills: int, what: str) -> dict:
+    """Launch counts of a serving run against the path: one flash launch per
+    layer per prefill, one decode launch per layer per decode step, and
+    2L+1 rmsnorms per prefill and per step."""
+    steps, rem = divmod(counts["decode_attention"], L)
+    want = {"rmsnorm": (2 * L + 1) * (prefills + steps), "flash_attention": L * prefills,
+            "decode_attention": L * steps}
+    check(rem == 0 and counts == want, f"cluster {what}: launch counts {counts} != the path's {want}")
+    check(all(v > 0 for v in counts.values()), f"cluster {what}: a kernel was not launched: {counts}")
+    return {"counts": counts, "decode_steps": steps}
+
+
+def _router_times(np, router) -> dict:
+    """TTFT p50/p99 and mean TBT in ms, from the router's records."""
+    ttft = np.asarray([r.ttft for r in router.records.values() if r.ttft is not None])
+    rep = router.slo_report()
+    return {"ttft_p50_ms": float(np.percentile(ttft, 50)) * 1e3,
+            "ttft_p99_ms": float(np.percentile(ttft, 99)) * 1e3,
+            "tbt_mean_ms": rep.mean_tbt * 1e3, "tbt_p99_ms": rep.p99_tbt * 1e3,
+            "slo_attainment": rep.attainment}
+
+
+def phase_cluster(torch, np, ops, TF, cfg, params, serve, disagg, engine_mod) -> dict:
+    L, prompt_len, new_tokens, n_slots = cfg.n_layers, 512, 32, 4
+    max_seq = prompt_len + new_tokens + 8
+    t_phase = time.perf_counter()
+    base = ["--arch", "granite-8b", "--prompt-len", str(prompt_len), "--gen-len", str(new_tokens),
+            "--n-slots", str(n_slots), "--seed", str(SEED), "--device", "cuda"]
+    rows = {}
+
+    # (a) the colocated loop: one engine takes the burst, a second live-scales in
+    n_a = 16
+    args = serve.build_parser().parse_args(base + ["--requests", str(n_a)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = serve.run_colocated(args, cfg, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _path_launches(ops.launch_counts(), L, n_a, "colocated")
+    eng0, eng1 = out["engines"]
+    check(eng0.params is params and eng1.params is params, "cluster colocated: an engine copied the params")
+    check(len(out["finished"]) == n_a, f"cluster colocated: {len(out['finished'])} of {n_a} requests finished")
+    for r in out["finished"]:
+        check(len(r.out_tokens) == new_tokens and all(0 <= t < cfg.vocab_size for t in r.out_tokens),
+              f"cluster colocated: request {r.rid} has tokens {r.out_tokens}")
+    check(eng1.loaded_layers == L, f"cluster colocated: the scaled engine holds {eng1.loaded_layers} of {L} layers")
+    check(launches["decode_steps"] == eng0.steps + eng1.steps,
+          f"cluster colocated: {launches['decode_steps']} decode launches per layer, {eng0.steps + eng1.steps} steps")
+    rows["colocated"] = {
+        "requests": n_a, "wall_s": wall, "tokens_per_s": n_a * new_tokens / wall,
+        "loop_steps": out["steps"], "engine_steps": [eng0.steps, eng1.steps],
+        "phase": out["session"].phase.value,
+        "modelled_load_ms": out["plan"].transfer_seconds(cfg.approx_params() * 2) * 1e3,
+        "router_at_completion": _router_times(np, out["router"]),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches["counts"],
+    }
+    log("[cluster] colocated " + json.dumps(rows["colocated"]))
+    del out, eng0, eng1
+    torch.cuda.empty_cache()
+
+    # (b) run_disagg on the wall clock, as the CLI drives it
+    n_b = 24
+    args = serve.build_parser().parse_args(
+        base + ["--disagg", "--requests", str(n_b), "--n-prefill", "2", "--n-decode", "1"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rt = serve.run_disagg(args, cfg, params)
+    except SystemExit as e:
+        raise SmokeFailure(f"cluster disagg: {e}") from None
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _path_launches(ops.launch_counts(), L, n_b, "disagg")
+    s = rt.stats
+    handoffs, gapped = rt.router.handoff_report()
+    check(handoffs == s.migrations == n_b, f"cluster disagg: handoffs {handoffs}/{s.migrations}, requests {n_b}")
+    check(gapped == 0 and rt.n_outstanding == 0, f"cluster disagg: {gapped} gapped, {rt.n_outstanding} outstanding")
+    check(len(rt.completed) == n_b, f"cluster disagg: {len(rt.completed)} of {n_b} completed")
+    for r in rt.completed.values():
+        check(len(r.out_tokens) == r.max_new_tokens == new_tokens,
+              f"cluster disagg: request {r.rid} has {len(r.out_tokens)} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in r.out_tokens), f"cluster disagg: request {r.rid} token out of range")
+    # every payload is the prompt share of a 1-slot cache of these shapes
+    payload = disagg.payload_bytes(TF.init_caches(cfg, 1, max_seq, device="cuda"), prompt_len, max_seq)
+    check(s.migrated_bytes == n_b * payload,
+          f"cluster disagg: migrated bytes {s.migrated_bytes} != {n_b} payloads of {payload}")
+    check(all(pe.engine.params is params for pe in rt.pool.all()), "cluster disagg: an engine copied the params")
+    rows["disagg"] = {
+        "requests": n_b, "wall_s": wall, "tokens_per_s": n_b * new_tokens / wall,
+        **_router_times(np, rt.router),
+        "handoffs": handoffs, "migrations": s.migrations, "migrated_bytes": s.migrated_bytes,
+        "payload_bytes_each": payload,
+        "mutations": s.mutations, "mutation_param_bytes": s.mutation_param_bytes,
+        "live_scaled_prefill": s.live_scaled_prefill, "direct_decode_scales": s.direct_decode_scales,
+        "prescaled_decodes": s.prescaled_decodes, "scale_downs": s.scale_downs, "retired": s.retired,
+        "engines_at_end": sorted((pe.device_id, pe.phase, pe.state) for pe in rt.pool.all()),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches["counts"],
+    }
+    log("[cluster] disagg " + json.dumps(rows["disagg"]))
+    del rt
+    torch.cuda.empty_cache()
+
+    # (c) tokens: the runtime on a simulated clock against a lone engine
+    rng = np.random.default_rng(SEED + 4)
+    prompts = [rng.integers(0, cfg.vocab_size, size=prompt_len).astype(np.int32) for _ in range(4)]
+    from repro_torch.core import topology as topo_mod
+    from repro_torch.core.autoscaler import PolicyConfig
+
+    rt = disagg.ClusterRuntime(
+        cfg, params, topo=topo_mod.add_host_sources(topo_mod.make_cluster(2, 4, bw_gbps=100.0)),
+        policy=PolicyConfig(max_instances=4, kv_upper=0.5, scale_down_timeout_s=0.5),
+        n_prefill=2, n_decode=1, n_slots=n_slots, max_seq=max_seq,
+        model_bytes=cfg.approx_params() * 2, prefill_capacity_tps=2000.0, decode_capacity_tps=200.0)
+    rids = [rt.submit(p, new_tokens, 0.0) for p in prompts]
+    t = 0.0
+    for _ in range(5000):
+        if rt.n_outstanding == 0:
+            break
+        t += 0.01
+        rt.tick(t)
+    check(rt.n_outstanding == 0, f"cluster tokens: {rt.n_outstanding} requests outstanding")
+    lone = engine_mod.InstanceEngine(cfg, params, n_slots=n_slots, max_seq=max_seq)
+    compared = []
+    for rid, prompt in zip(rids, prompts):
+        lone.submit(engine_mod.ServeRequest(100 + rid, prompt, new_tokens))
+        (ref,) = lone.run_until_done()
+        got, want = rt.completed[rid].out_tokens, ref.out_tokens
+        check(got[0] == want[0], f"cluster tokens: request {rid} first token {got[0]} != {want[0]}")
+        row = {"rid": rid, "equal": got == want}
+        j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+        if j is not None:
+            # the logits where the two first differ, after their shared prefix
+            seq = np.concatenate([prompt, np.asarray(want[:j], np.int32)])[None]
+            logits, _ = TF.prefill_logits(cfg, params, torch.as_tensor(seq, device="cuda"),
+                                          TF.init_caches(cfg, 1, max_seq, device="cuda"))
+            gap = float((logits[0, want[j]] - logits[0, got[j]]).abs())
+            row.update(first_diff=j, tokens=[got[j], want[j]], logit_gap=gap)
+            check(gap <= NEAR_TIE, f"cluster tokens: request {rid} diverges at {j} with a logit gap {gap} > {NEAR_TIE}")
+        compared.append(row)
+    rows["tokens"] = {"sim_seconds": t, "requests": compared, "near_tie": NEAR_TIE,
+                      "mutations": rt.stats.mutations, "migrations": rt.stats.migrations}
+    log("[cluster] tokens " + json.dumps(rows["tokens"]))
+    del rt, lone
+    torch.cuda.empty_cache()
+    rows["wall_s"] = time.perf_counter() - t_phase
+    log(f"[cluster] phase passed in {rows['wall_s']:.1f} s")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -536,7 +707,9 @@ def main(argv: list[str] | None = None) -> int:
     from repro_torch.configs import get_config
     from repro_torch.core import live_scaling as live
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.launch import serve as serve_cli
     from repro_torch.models import transformer as TF
+    from repro_torch.serving import disagg
     from repro_torch.serving import engine as engine_mod
 
     t_all = time.perf_counter()
@@ -563,6 +736,7 @@ def main(argv: list[str] | None = None) -> int:
     live_row = phase_live(torch, np, ops, TF, live, cfg, params)
     prof = phase_profile(torch, np, cfg, engine_mod, params, serve["decode_step_ms_median"],
                          serve["ttft_idle_ms"], args.log_dir)
+    cluster = phase_cluster(torch, np, ops, TF, cfg, params, serve_cli, disagg, engine_mod)
 
     line = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
@@ -576,7 +750,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.log_dir is not None:
         record = {"card": card, "torch": torch.__version__, "build_s": build_s,
                   "kernels": [kern[k] for k in sorted(kern)], "parity": parity,
-                  "serve": serve, "live": live_row, "profile": prof,
+                  "serve": serve, "live": live_row, "profile": prof, "cluster": cluster,
                   "wall_s": time.perf_counter() - t_all}
         (args.log_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")

@@ -83,3 +83,18 @@ def cooperative_forward(
     x = TF.forward_layers_range(cfg, params["layers"], x, k, cfg.n_layers, positions)
     x = ops.rmsnorm(x, params["final_norm"], eps=cfg.norm_eps)
     return L.unembed(params["embed"], x, cfg)
+
+
+def select_live_pairs(
+    plan,  # MulticastPlan
+    overloaded: list[int],  # device ids of overloaded instances
+    *,
+    slo_requires_live: bool = True,
+) -> list[tuple[int, int]]:
+    """§5.2 'Selecting instances for live scaling': pair each overloaded
+    instance with a chain-tail node (slowest link, free egress — Fig. 12).
+    Returns (source_device, target_device) pairs."""
+    if not slo_requires_live:
+        return []
+    tails = [n.device_ids[0] for n in plan.live_scale_nodes]
+    return list(zip(overloaded, tails))
