@@ -9,14 +9,21 @@ Run from the root of a checkout.  Phases, each of which must pass:
   2. kernels  each kernel against its plain PyTorch version at the serving
               path's shapes and ragged ones, in bf16 and f32, timed beside its
               plain version, one PyTorch library call and its bound (decode
-              attention with a cold L2, as the path finds it)
-  3. parity   granite-8b at full width, 2 layers: the kernel path and the plain
-              path agree over a 512-token prefill and 16 decode steps (f32:
-              equal token ids; bf16: as close to the f32 run as the plain path)
+              attention with a cold L2, as the path finds it); flash also at
+              minicpm3's MLA prefill shape (D = 96, V zero-padded from 64,
+              scale 1/sqrt(96)), timed, and at D = 24 (padded to 32); and
+              every kernel at the shapes phase 8's qwen1.5-4b and minicpm3-4b
+              give it (n_rep 1 at D = 128 and 96, d = 2560, 768, 256)
+  3. parity   granite-8b, qwen1.5-4b and minicpm3-4b at full width, 2 layers:
+              the kernel path and the plain path agree over a 512-token
+              prefill and 16 decode steps (f32: equal token ids; bf16: as
+              close to the f32 run as the plain path)
   4. serve    granite-8b, 36 layers, bf16, random weights from a seed:
               InstanceEngine (4 slots, max_seq 1024) answers 8 requests of 512
               prompt tokens and 32 new tokens; launch counts must match the path
-  5. live     cooperative_forward equals train_forward for k in {0, 1, 18, 36}
+  5. live     cooperative_forward equals train_forward bit for bit for k in
+              {0, 1, 18, 36} (granite-8b) and {0, 1, 31, 62} (the 62-layer
+              minicpm3-4b)
   6. profile  torch.profiler over 3 full-batch decode steps and over one idle
               512-token prefill: device time by kernel, the share of the step
               or of the TTFT the card is busy, and the attention kernels'
@@ -31,6 +38,13 @@ Run from the root of a checkout.  Phases, each of which must pass:
               engine: first tokens bit-equal, a later divergence only at a
               bf16 near tie.  The modelled cluster's 8 devices all compute on
               this one card; the network between them is the flow model.
+  8. maas     run_maas, the CLI's --maas path, serving granite-8b (phase 4's
+              weights), qwen1.5-4b and minicpm3-4b (phase 5's) at full width
+              and depth on one fleet: 24 requests of 128 + 16 tokens on the
+              wall clock; every request served, none dropped or gapped, the
+              parameter pool's invariant on every tick, at least one
+              scale-to-zero and one cold start, each tenant's launches exact
+              for its path and its migrated bytes equal to its payloads
 
 It prints one JSON ``kernels`` line and the card's name and power limit before
 its last line, which is ``{"ok": true, "device": {...}}``.  It exits non-zero,
@@ -43,6 +57,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -168,9 +183,19 @@ def kernel_cases(torch, dt: str):
     def lens(*vals):
         return torch.tensor(vals, dtype=torch.int32, device="cuda")
 
+    def mla(s, h, d, vdim):  # mla_prefill's call: V zero-padded from v_head_dim to d
+        q, k, v = randn(1, s, h, d), randn(1, s, h, d), randn(1, s, h, d)
+        v[..., vdim:] = 0
+        return q, k, v
+
     return [
         ("rmsnorm", "main N=512 d=4096", lambda: (randn(512, 4096), randn(4096)), {}),
         ("rmsnorm", "ragged N=37 d=1001", lambda: (randn(37, 1001), randn(1001)), {}),
+        # the widths of phase 8's other tenants: qwen1.5-4b and minicpm3-4b's
+        # d, and MLA's q_norm and kv_norm
+        ("rmsnorm", "N=128 d=2560", lambda: (randn(128, 2560), randn(2560)), {}),
+        ("rmsnorm", "N=128 d=768", lambda: (randn(128, 768), randn(768)), {}),
+        ("rmsnorm", "N=128 d=256", lambda: (randn(128, 256), randn(256)), {}),
         ("flash_attention", "main B=1 S=512 H=32 KV=8 D=128 causal",
          lambda: (randn(1, 512, 32, 128), randn(1, 512, 8, 128), randn(1, 512, 8, 128)),
          {"causal": True}),
@@ -183,12 +208,24 @@ def kernel_cases(torch, dt: str):
         ("flash_attention", "D=16 Sq=200 Sk=333 non-causal scale 0.05",
          lambda: (randn(2, 200, 8, 16), randn(2, 333, 2, 16), randn(2, 333, 2, 16)),
          {"causal": False, "softmax_scale": 0.05}),
+        ("flash_attention", "mla B=1 S=512 H=40 KV=40 D=96 causal scale 1/sqrt(96), V padded from 64",
+         lambda: mla(512, 40, 96, 64), {"causal": True, "softmax_scale": 1 / math.sqrt(96)}),
+        ("flash_attention", "phase 8 qwen1.5-4b B=1 S=128 H=20 KV=20 D=128 causal",
+         lambda: (randn(1, 128, 20, 128), randn(1, 128, 20, 128), randn(1, 128, 20, 128)),
+         {"causal": True}),
+        ("flash_attention", "phase 8 minicpm3 B=1 S=128 H=40 KV=40 D=96 causal scale 1/sqrt(96), V padded from 64",
+         lambda: mla(128, 40, 96, 64), {"causal": True, "softmax_scale": 1 / math.sqrt(96)}),
+        ("flash_attention", "D=24 (padded to 32) S=37 H=4 KV=4 causal scale 1/sqrt(24), V padded from 16",
+         lambda: mla(37, 4, 24, 16), {"causal": True, "softmax_scale": 1 / math.sqrt(24)}),
         ("decode_attention", "main B=4 H=32 KV=8 S=1024 D=128",
          lambda: (randn(4, 32, 128), randn(4, 8, 1024, 128), randn(4, 8, 1024, 128),
                   lens(1, 300, 517, 1024)), {}),
         ("decode_attention", "ragged S=1000 lengths 1..999",
          lambda: (randn(3, 32, 128), randn(3, 8, 1000, 128), randn(3, 8, 1000, 128),
                   lens(999, 1, 129)), {}),
+        ("decode_attention", "phase 8 qwen1.5-4b B=4 H=20 KV=20 S=152 D=128 lengths 0, 129, 144, 152",
+         lambda: (randn(4, 20, 128), randn(4, 20, 152, 128), randn(4, 20, 152, 128),
+                  lens(0, 129, 144, 152)), {}),
         ("decode_attention", "lengths 0, S, 1, 65; n_rep 8; S=4096",
          lambda: (randn(4, 64, 128), randn(4, 8, 4096, 128), randn(4, 8, 4096, 128),
                   lens(0, 4096, 1, 65)), {}),
@@ -227,7 +264,7 @@ def library_call(torch, name: str, inputs, kw):
     if name == "flash_attention":
         return lambda q, k, v: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=kw.get("causal", True), enable_gqa=True)
+            is_causal=kw.get("causal", True), scale=kw.get("softmax_scale"), enable_gqa=True)
     _, k, _, lengths = inputs
     mask = (torch.arange(k.shape[2], device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
     return lambda q, k, v, _lengths: F.scaled_dot_product_attention(
@@ -252,7 +289,7 @@ def phase_kernels(torch, ops, ref) -> dict:
                 want[inputs[3] == 0] = 0
             err = max_err(torch, got, want, dt)
             row = {"kernel": name, "case": case, "dtype": dt, "max_abs_err": err}
-            if case.startswith("main"):
+            if case.startswith(("main", "mla ")):
                 sets = cold_sets(inputs) if name == "decode_attention" else [inputs]
                 times = time_ms(torch, {
                     "plain": lambda *a: plain_fn[name](*a, **kw),
@@ -265,7 +302,7 @@ def phase_kernels(torch, ops, ref) -> dict:
                            timed="cold" if len(sets) > 1 else "warm", copies=len(sets))
                 del sets
                 row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dt)
-                results[(name, dt)] = row
+                results[(name, dt) if case.startswith("main") else (name, dt, "mla")] = row
             log("[kernels] " + json.dumps(row))
             del inputs, got, want
     return results
@@ -287,7 +324,11 @@ def phase_parity(torch, np, ops, TF, base_cfg) -> dict:
     softmax turns a one-ulp difference into logit differences of a few 1e-2.
     So each bf16 path is held against the f32 plain run of the same weights:
     the kernel path's mean error may exceed the plain path's by at most 5%,
-    and the mean kernel-vs-plain difference must stay within 2e-2."""
+    and the mean kernel-vs-plain difference must stay within 2e-2.  Run for
+    granite-8b (GQA, n_rep 4), qwen1.5-4b (n_rep 1 at D = 128) and
+    minicpm3-4b (MLA: flash at D = 96, the absorbed decode in plain
+    products, 4L+1 rmsnorms per pass)."""
+    tag = base_cfg.name
     V = base_cfg.vocab_size
     prompt = np.random.default_rng(SEED).integers(0, V, size=(1, 512))
     tokens = torch.as_tensor(prompt.astype(np.int32), device="cuda")
@@ -315,31 +356,31 @@ def phase_parity(torch, np, ops, TF, base_cfg) -> dict:
     p32 = TF.init_params(cfg32, SEED, device="cuda")
     k32, feed = run(cfg32, p32, "kernel")
     r32, _ = run(cfg32, p32, "ref", feed)
-    check(bool(torch.isfinite(k32).all()), "parity f32: logits not finite")
+    check(bool(torch.isfinite(k32).all()), f"parity {tag} f32: logits not finite")
     k_ids, r_ids = k32.argmax(-1), r32.argmax(-1)
     top2 = r32.topk(2, dim=-1).values
     f32 = {"positions": int(k_ids.numel()), "ids_equal": bool(torch.equal(k_ids, r_ids)),
            "max_abs_logit_diff": float((k32 - r32).abs().max()),
            "min_top2_margin": float((top2[:, 0] - top2[:, 1]).min())}
-    log("[parity] f32 " + json.dumps(f32))
-    check(f32["ids_equal"], f"parity f32: token ids differ: {k_ids.tolist()} vs {r_ids.tolist()}")
+    log(f"[parity] {tag} f32 " + json.dumps(f32))
+    check(f32["ids_equal"], f"parity {tag} f32: token ids differ: {k_ids.tolist()} vs {r_ids.tolist()}")
 
     cfg16 = base_cfg.replace(n_layers=2, dtype=torch.bfloat16)
     p16 = cast(p32)
     del p32
     k16, _ = run(cfg16, p16, "kernel", feed)
     r16, _ = run(cfg16, p16, "ref", feed)
-    check(bool(torch.isfinite(k16).all()), "parity bf16: logits not finite")
+    check(bool(torch.isfinite(k16).all()), f"parity {tag} bf16: logits not finite")
     diff = (k16 - r16).abs()
     bf16 = {"mean_abs_diff": float(diff.mean()), "max_abs_diff": float(diff.max()),
             "kernel_vs_f32_mean_err": float((k16 - r32).abs().mean()),
             "plain_vs_f32_mean_err": float((r16 - r32).abs().mean()),
             "kernel_vs_f32_max_err": float((k16 - r32).abs().max()),
             "plain_vs_f32_max_err": float((r16 - r32).abs().max())}
-    log("[parity] bf16 " + json.dumps(bf16))
+    log(f"[parity] {tag} bf16 " + json.dumps(bf16))
     check(bf16["kernel_vs_f32_mean_err"] <= 1.05 * bf16["plain_vs_f32_mean_err"],
-          "parity bf16: the kernel path is less accurate than the plain path")
-    check(bf16["mean_abs_diff"] <= 2e-2, "parity bf16: mean logit difference above 2e-2")
+          f"parity {tag} bf16: the kernel path is less accurate than the plain path")
+    check(bf16["mean_abs_diff"] <= 2e-2, f"parity {tag} bf16: mean logit difference above 2e-2")
     del p16
     torch.cuda.empty_cache()
     return {"f32": f32, "bf16": bf16}
@@ -420,7 +461,15 @@ def phase_serve(torch, np, ops, TF, cfg, engine_mod, params) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def norms_per_pass(cfg) -> int:
+    """rmsnorm launches per prefill or decode step: norm1 and norm2 per layer,
+    MLA's q_norm and kv_norm besides, and the final norm."""
+    return (4 if cfg.attn == "mla" else 2) * cfg.n_layers + 1
+
+
 def phase_live(torch, np, ops, TF, live, cfg, params) -> dict:
+    """cooperative_forward against train_forward at k in {0, 1, L/2, L}, bit
+    for bit: both run the same kernels in the same order on one card."""
     L = cfg.n_layers
     tokens = torch.as_tensor(
         np.random.default_rng(SEED + 2).integers(0, cfg.vocab_size, size=(1, 128)).astype(np.int32),
@@ -428,19 +477,19 @@ def phase_live(torch, np, ops, TF, live, cfg, params) -> dict:
     ks = (0, 1, L // 2, L)
     ops.reset_launch_counts()
     full, _ = TF.train_forward(cfg, params, tokens)
-    check(bool(torch.isfinite(full).all()), "live: logits not finite")
+    check(bool(torch.isfinite(full).all()), f"live {cfg.name}: logits not finite")
     errs = {}
     for k in ks:
         coop = live.cooperative_forward(cfg, params, tokens, k)
         diff = (coop.float() - full.float()).abs()
         errs[k] = float(diff.max())
-        check(bool((diff <= 2e-2 + 2e-2 * full.float().abs()).all()),
-              f"live: split k={k} differs from the monolithic forward by {errs[k]}")
+        check(bool(torch.equal(coop, full)), f"live {cfg.name}: split k={k} differs from the monolithic forward by {errs[k]}")
     counts = ops.launch_counts()
     n = 1 + len(ks)
-    want = {"rmsnorm": (2 * L + 1) * n, "flash_attention": L * n, "decode_attention": 0}
-    check(counts == want, f"live: launch counts {counts} != the path's {want}")
-    row = {"ks": list(ks), "max_abs_diff": errs, "launches": counts}
+    want = {"rmsnorm": norms_per_pass(cfg) * n, "flash_attention": L * n, "decode_attention": 0}
+    check(counts == want, f"live {cfg.name}: launch counts {counts} != the path's {want}")
+    row = {"model": cfg.name, "ks": list(ks), "max_abs_diff": errs,
+           "launches": counts}
     log("[live] " + json.dumps(row))
     return row
 
@@ -689,6 +738,132 @@ def phase_cluster(torch, np, ops, TF, cfg, params, serve, disagg, engine_mod) ->
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: the MaaS fleet (--maas) serving three full-width models
+# ---------------------------------------------------------------------------
+
+
+def _instrument_tenant(tenant, ops, seen: dict) -> None:
+    """Record every engine the tenant's runtime builds, each engine's
+    prefills, and the kernel launches made inside the runtime's ticks (all of
+    the tenant's compute runs there)."""
+    rt = tenant.runtime
+    rec = seen[tenant.name] = {"engines": [], "prefills": [0], "launches": dict.fromkeys(ops.KERNELS, 0)}
+
+    def track(eng):
+        fn = eng.prefill_only
+
+        def prefill_only(req):
+            rec["prefills"][0] += 1
+            return fn(req)
+
+        eng.prefill_only = prefill_only
+        rec["engines"].append(eng)
+        return eng
+
+    for pe in rt.pool.all():
+        track(pe.engine)
+    new_engine, tick = rt._new_engine, rt.tick
+    rt._new_engine = lambda: track(new_engine())
+
+    def counted_tick(now):
+        before = ops.launch_counts()
+        out = tick(now)
+        for k, v in ops.launch_counts().items():
+            rec["launches"][k] += v - before[k]
+        return out
+
+    rt.tick = counted_tick
+
+
+def phase_maas(torch, np, ops, TF, cfgs: dict, params: dict, serve, maas, disagg) -> dict:
+    n_req, prompt_len, new_tokens, n_slots = 24, 128, 16, 4
+    max_seq = prompt_len + new_tokens + 8
+    archs = list(cfgs)
+    args = serve.build_parser().parse_args([
+        "--maas", "--models", ",".join(archs), "--requests", str(n_req),
+        "--prompt-len", str(prompt_len), "--gen-len", str(new_tokens), "--n-slots", str(n_slots),
+        "--seed", str(SEED), "--device", "cuda"])
+    seen: dict = {}
+    add_model = maas.FleetScheduler.add_model
+
+    def instrumented_add_model(self, cfg, p, **kw):
+        tenant = add_model(self, cfg, p, **kw)
+        _instrument_tenant(tenant, ops, seen)
+        return tenant
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    maas.FleetScheduler.add_model = instrumented_add_model
+    t0 = time.perf_counter()
+    try:
+        fleet = serve.run_maas(args, cfgs, params)
+    except SystemExit as e:
+        raise SmokeFailure(f"maas: {e}") from None
+    finally:
+        maas.FleetScheduler.add_model = add_model
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = ops.launch_counts()
+
+    s = fleet.stats
+    check(fleet.n_outstanding == 0, f"maas: {fleet.n_outstanding} requests outstanding")
+    check(fleet.param_pool.invariant_ok(), "maas: parameter pool invariant broken at the end")
+    check(s.scale_to_zero_events >= 1 and s.cold_starts >= 1,
+          f"maas: {s.scale_to_zero_events} scale-to-zero events, {s.cold_starts} cold starts")
+    by_cfg = {cfgs[a].name: a for a in archs}
+    check(sorted(fleet.tenants) == sorted(by_cfg), f"maas: tenants {sorted(fleet.tenants)}")
+    served = 0
+    tenants = {}
+    for name, t in fleet.tenants.items():
+        arch, cfg, rt, rec = by_cfg[name], t.runtime.cfg, t.runtime, seen[name]
+        L, n = cfg.n_layers, len(rt.completed)
+        served += n
+        check(n >= 1, f"maas {name}: served no request")
+        handoffs, gapped = rt.router.handoff_report()
+        check(gapped == 0 and rt.n_outstanding == 0, f"maas {name}: {gapped} gapped, {rt.n_outstanding} outstanding")
+        for r in rt.completed.values():
+            check(len(r.out_tokens) == new_tokens and all(0 <= x < cfg.vocab_size for x in r.out_tokens),
+                  f"maas {name}: request {r.rid} has tokens {r.out_tokens}")
+        check(all(e.params is params[arch] for e in rec["engines"]),
+              f"maas {name}: an engine does not hold the model's one parameter dict")
+        prefills, steps = rec["prefills"][0], sum(e.steps for e in rec["engines"])
+        want = {"rmsnorm": norms_per_pass(cfg) * (prefills + steps), "flash_attention": L * prefills,
+                "decode_attention": 0 if cfg.attn == "mla" else L * steps}
+        check(rec["launches"] == want, f"maas {name}: launch counts {rec['launches']} != the path's {want}")
+        check(prefills >= n and steps > 0, f"maas {name}: {prefills} prefills, {steps} steps for {n} requests")
+        payload = disagg.payload_bytes(TF.init_caches(cfg, 1, max_seq, device="cuda"), prompt_len, max_seq)
+        check(rt.stats.migrated_bytes == rt.stats.migrations * payload and rt.stats.migrations >= n,
+              f"maas {name}: migrated {rt.stats.migrated_bytes} bytes in {rt.stats.migrations} "
+              f"migrations, payload {payload}")
+        tenants[name] = {
+            "attn": cfg.attn, "layers": L, "served": n, "prefills": prefills, "decode_steps": steps,
+            "engines_built": len(rec["engines"]), "handoffs": handoffs,
+            **(_router_times(np, rt.router)),
+            "cold_starts": rt.stats.cold_starts, "cold_starts_from_host": rt.stats.cold_starts_from_host,
+            "scaled_to_zero": t.stats.scaled_to_zero, "preempted": t.stats.preempted,
+            "gpu_seconds": t.stats.gpu_seconds, "migrations": rt.stats.migrations,
+            "payload_bytes_each": payload, "state_at_end": t.state, "launches": rec["launches"],
+        }
+        log(f"[maas] {name} " + json.dumps(tenants[name]))
+    check(served == n_req, f"maas: {served} of {n_req} requests served")
+    summed = {k: sum(r["launches"][k] for r in seen.values()) for k in total}
+    check(summed == total, f"maas: per-tenant launches {summed} != the run's {total}")
+    check(all(v > 0 for v in total.values()), f"maas: a kernel was not launched: {total}")
+    row = {
+        "requests": n_req, "prompt_tokens": prompt_len, "new_tokens": new_tokens, "wall_s": wall,
+        "grants": s.grants, "cold_starts": s.cold_starts, "scale_to_zero_events": s.scale_to_zero_events,
+        "preemptions": s.preemptions, "rejections": s.rejections, "fleet_gpu_seconds": s.gpu_seconds,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": total,
+        "tenants": tenants,
+    }
+    log("[maas] fleet " + json.dumps({k: v for k, v in row.items() if k != "tenants"}))
+    del fleet
+    torch.cuda.empty_cache()
+    return row
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -709,7 +884,7 @@ def main(argv: list[str] | None = None) -> int:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.launch import serve as serve_cli
     from repro_torch.models import transformer as TF
-    from repro_torch.serving import disagg
+    from repro_torch.serving import disagg, maas
     from repro_torch.serving import engine as engine_mod
 
     t_all = time.perf_counter()
@@ -727,16 +902,31 @@ def main(argv: list[str] | None = None) -> int:
 
     kern = phase_kernels(torch, ops, ref)
     cfg = get_config("granite-8b")
-    parity = phase_parity(torch, np, ops, TF, cfg)
+    mcfg = get_config("minicpm3-4b")
+    qcfg = get_config("qwen1.5-4b")
+    parity = {c.name: phase_parity(torch, np, ops, TF, c) for c in (cfg, qcfg, mcfg)}
     t0 = time.perf_counter()
     params = TF.init_params(cfg, SEED, device="cuda")
     torch.cuda.synchronize()
     log(f"[serve] granite-8b init: {cfg.approx_params()} params in {time.perf_counter() - t0:.1f} s")
     serve = phase_serve(torch, np, ops, TF, cfg, engine_mod, params)
     live_row = phase_live(torch, np, ops, TF, live, cfg, params)
+    t0 = time.perf_counter()
+    mparams = TF.init_params(mcfg, SEED + 1, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[live] minicpm3-4b init: {mcfg.approx_params()} params in {time.perf_counter() - t0:.1f} s")
+    live_mla = phase_live(torch, np, ops, TF, live, mcfg, mparams)
     prof = phase_profile(torch, np, cfg, engine_mod, params, serve["decode_step_ms_median"],
                          serve["ttft_idle_ms"], args.log_dir)
     cluster = phase_cluster(torch, np, ops, TF, cfg, params, serve_cli, disagg, engine_mod)
+    t0 = time.perf_counter()
+    qparams = TF.init_params(qcfg, SEED + 2, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[maas] qwen1.5-4b init: {qcfg.approx_params()} params in {time.perf_counter() - t0:.1f} s")
+    fleet_row = phase_maas(
+        torch, np, ops, TF, {"granite-8b": cfg, "qwen1.5-4b": qcfg, "minicpm3-4b": mcfg},
+        {"granite-8b": params, "qwen1.5-4b": qparams, "minicpm3-4b": mparams},
+        serve_cli, maas, disagg)
 
     line = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
@@ -750,7 +940,8 @@ def main(argv: list[str] | None = None) -> int:
     if args.log_dir is not None:
         record = {"card": card, "torch": torch.__version__, "build_s": build_s,
                   "kernels": [kern[k] for k in sorted(kern)], "parity": parity,
-                  "serve": serve, "live": live_row, "profile": prof, "cluster": cluster,
+                  "serve": serve, "live": [live_row, live_mla], "profile": prof, "cluster": cluster,
+                  "maas": fleet_row,
                   "wall_s": time.perf_counter() - t_all}
         (args.log_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")

@@ -1,13 +1,21 @@
 """Architecture registry of the port.
 
 ``get_config(name, reduced=False)`` resolves an arch id (dash or underscore
-form).  Only the archs whose model family the port runs (dense GQA with a
-SwiGLU MLP) are registered; every other id raises ``NotImplementedError``.
+form).  Only the archs whose model family the port runs are registered: the
+dense decoders with a SwiGLU MLP, with GQA attention or with MLA
+(minicpm3-4b).  Every other id raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import granite_8b, llama3_8b, mistral_24b, qwen1_5_4b, qwen2_5_72b
+from repro_torch.configs import (
+    granite_8b,
+    llama3_8b,
+    minicpm3_4b,
+    mistral_24b,
+    qwen1_5_4b,
+    qwen2_5_72b,
+)
 from repro_torch.models.config import ModelConfig
 
 _PORTED = {
@@ -16,6 +24,7 @@ _PORTED = {
     "qwen1_5_4b": qwen1_5_4b,
     "mistral_24b": mistral_24b,
     "qwen2_5_72b": qwen2_5_72b,
+    "minicpm3_4b": minicpm3_4b,
 }
 
 

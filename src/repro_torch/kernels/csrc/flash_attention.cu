@@ -20,8 +20,10 @@
 //   shared memory (the descriptor's transpose bit).  Thread 0 loads Q once
 //   and K/V tiles of 64 rows by TMA into a 2-stage ring completing on
 //   mbarriers, so tile j+1 arrives while tile j is computed.  Tiles are
-//   swizzled (128/64/32-byte mode for D = 128|64 / 32 / 16; a 256-byte D=128
-//   row is two 64-column boxes).  The kv loop stops at the causal diagonal,
+//   swizzled (128/64/32-byte mode for D = 128|64 / 96|32 / 16); a row wider
+//   than its swizzle span is several boxes: two 64-column boxes at D = 128,
+//   three 32-column boxes in 64-byte mode at D = 96 (MLA's qk dim), since 192
+//   bytes is no multiple of 128.  The kv loop stops at the causal diagonal,
 //   a warpgroup skips the tiles wholly above its own rows, and only tiles
 //   that cross the diagonal or the Sk tail are masked (TMA zero-fills rows
 //   past Sk, and a zero key scores 0, so k_pos >= Sk is masked explicitly).
@@ -33,7 +35,10 @@
 //   rules out TF32, so this kernel does both products with f32 FMAs from
 //   shared memory: one 128-thread CTA per (64-row q-block, head, sequence), a
 //   loop over 32-row K/V tiles; each thread owns 4 query rows x 4 key columns
-//   of the score tile and 4 rows x D/8 columns of the output.
+//   of the score tile and 4 rows x D/8 columns of the output (12 at D = 96).
+//
+// Head dims 16, 32, 64, 96 and 128 are instantiated; the wrapper zero-pads
+// D = 24 to 32.
 #include "hopper.cuh"
 
 namespace {
@@ -52,9 +57,13 @@ constexpr int kStages = 2;
 // Shared-memory layout of one CTA at head dim D: [Q | K x kStages | V x
 // kStages | barriers].  Each tile is NBOX boxes of (rows x SW bytes), one box
 // per SW-byte column slice of the row, each swizzled by TMA in SW-byte mode.
+// SW is the widest swizzle span that divides the row: a 192-byte row (D = 96)
+// takes 64-byte mode.  The wgmma descriptors' layout field follows SW, and a
+// box's 8-row group is 8 * SW bytes, as the TMA swizzle lays it out.
 template <int D>
 struct Layout {
-  static constexpr int SW = D * 2 >= 128 ? 128 : D * 2;  // swizzle span in bytes
+  static constexpr int SW = (D * 2) % 128 == 0 ? 128 : (D * 2) % 64 == 0 ? 64 : 32;  // bytes
+  static_assert((D * 2) % SW == 0 && SW >= 32, "a row is whole swizzle spans");
   static constexpr int BOX = SW / 2;                     // bf16 columns per box
   static constexpr int NBOX = D / BOX;
   static constexpr hp::Swizzle kSw = SW == 128 ? hp::kSw128 : SW == 64 ? hp::kSw64 : hp::kSw32;
@@ -72,6 +81,7 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], const uint32_t (&a)[
   if constexpr (N == 16) hp::wgmma_rs_m64n16k16_tb(d, a, b);
   if constexpr (N == 32) hp::wgmma_rs_m64n32k16_tb(d, a, b);
   if constexpr (N == 64) hp::wgmma_rs_m64n64k16_tb(d, a, b);
+  if constexpr (N == 96) hp::wgmma_rs_m64n96k16_tb(d, a, b);
   if constexpr (N == 128) hp::wgmma_rs_m64n128k16_tb(d, a, b);
 }
 
@@ -221,7 +231,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int t = 0; t < BK / 16; ++t) {
         // V is MN-major: 16 key rows per k-step, 8-row groups sbo apart,
-        // 64-column boxes lbo apart.
+        // BOX-column boxes lbo apart.
         const uint64_t dv = hp::make_desc(v_base + t * 16 * L::SW, BK * L::SW, 8 * L::SW, L::kSw);
         wgmma_pv<D>(acc, pa[t], dv);
       }
@@ -235,9 +245,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // Epilogue: full row sums across the quad, then O / max(l, 1e-30) in bf16
   // staged through the (now idle) K ring with 16-byte chunks XOR-swizzled by
-  // row, and stored as 16-byte row pieces.
+  // row within aligned groups of a power-of-two size (4 of the 12 chunks of a
+  // D = 96 row), so that no chunk leaves its row, and stored as 16-byte row
+  // pieces.
   constexpr int NCH = D / 8;  // 16-byte chunks per output row
-  constexpr int SWZ = NCH < 8 ? NCH - 1 : 7;
+  constexpr int SWZ = ((NCH & -NCH) < 8 ? (NCH & -NCH) : 8) - 1;
   uint8_t* stage = smem + L::K_OFF + wg * 64 * D * 2;
   float inv[2];
 #pragma unroll
@@ -536,6 +548,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
       return launch_dtype<32>(dtype, q, k, v, o, B, Sq, Sk, H, KV, sl, causal, device, s);
     case 64:
       return launch_dtype<64>(dtype, q, k, v, o, B, Sq, Sk, H, KV, sl, causal, device, s);
+    case 96:
+      return launch_dtype<96>(dtype, q, k, v, o, B, Sq, Sk, H, KV, sl, causal, device, s);
     case 128:
       return launch_dtype<128>(dtype, q, k, v, o, B, Sq, Sk, H, KV, sl, causal, device, s);
     default:

@@ -11,6 +11,11 @@ Two kernels, chosen by dtype:
   and only the diagonal and tail tiles masked.  The probabilities are
   rounded to bf16 for the PV product.  Needs 16-byte aligned q, k, v.
 * f32: f32 FMAs from shared memory (TF32 would miss the 3e-5 tolerance).
+
+Head dims: 16, 32, 64, 96 (MLA's qk dim) and 128 run natively.  D = 24 (the
+REDUCED MLA config) is zero-padded to 32 here and the output sliced back:
+zero columns add nothing to QK^T and give zero output columns.  Any other D
+raises.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 96, 128)
+PADDED_HEAD_DIMS = {24: 32}  # D -> the instantiated width it is zero-padded to
 
 launches = 0  # kernel launches since the last reset (see ops.reset_launch_counts)
 
@@ -44,13 +50,19 @@ def flash_attention(
         raise ValueError(f"flash kernel needs q (B,Sq,H,D), k = v (B,Sk,KV,D), got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, sq, h, d = q.shape
     _, sk, kv, _ = k.shape
-    if k.shape[0] != b or k.shape[3] != d or kv == 0 or h % kv or d not in HEAD_DIMS or sk == 0:
-        raise ValueError(f"flash kernel: unsupported shapes q {tuple(q.shape)}, k {tuple(k.shape)} (D in {HEAD_DIMS}, H % KV == 0)")
+    if (k.shape[0] != b or k.shape[3] != d or kv == 0 or h % kv or sk == 0
+            or (d not in HEAD_DIMS and d not in PADDED_HEAD_DIMS)):
+        raise ValueError(
+            f"flash kernel: unsupported shapes q {tuple(q.shape)}, k {tuple(k.shape)} "
+            f"(D in {HEAD_DIMS} or {tuple(PADDED_HEAD_DIMS)}, H % KV == 0)")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash kernel needs contiguous q, k, v")
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    if d in PADDED_HEAD_DIMS:
+        pad = PADDED_HEAD_DIMS[d] - d
+        q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash kernel needs 16-byte aligned bf16 q, k, v (TMA)")
-    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
     fn = _build.function(
         "flash_attention",
@@ -60,9 +72,9 @@ def flash_attention(
     )
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, sq, sk, h, kv, d, scale, int(causal), _build.DTYPES[q.dtype], q.device.index,
+        b, sq, sk, h, kv, q.shape[3], scale, int(causal), _build.DTYPES[q.dtype], q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check("flash_attention", err)
     launches += 1
-    return out
+    return out[..., :d]  # a padded D's zero columns dropped; else the whole of out

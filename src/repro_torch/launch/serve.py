@@ -16,13 +16,21 @@ prefill->decode instance mutation per the paper's §5.4 policy:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b --disagg --requests 24
 
+With ``--maas`` the fleet serves several models on one shared topology: the
+MaaS control plane (:mod:`repro_torch.serving.maas`) arbitrates free devices
+between per-model runtimes by SLO pressure x queue depth, parks idle models
+at zero accelerators (only the O(1) host copy survives) and cold-starts them
+back via multicast when requests arrive:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --maas \
+      --models granite-8b,qwen1.5-4b,minicpm3-4b --requests 24
+
 Every instance of the modelled cluster (``make_cluster(2, 4)``, 8 devices)
 computes on the one device ``--device`` names (default ``cuda``; it raises
 without CUDA, and ``--device cpu`` runs on the CPU).  The network between
 the instances is the flow-level model (:mod:`repro_torch.net`), as in the JAX
-package; no bytes cross a real link.  All engines share one parameter dict.
-
-``--maas`` (several models on one fleet) is not ported yet.
+package; no bytes cross a real link.  All engines of one model share one
+parameter dict.
 """
 
 from __future__ import annotations
@@ -118,6 +126,104 @@ def run_disagg(args, cfg=None, params=None):
     if not completed_all or dropped != 0:
         raise SystemExit(f"FAIL: {dropped} request(s) dropped or token-gapped")
     return rt
+
+
+def run_maas(args, cfgs: dict | None = None, params: dict | None = None):
+    """Serverless multi-model MaaS: N models on one shared topology, devices
+    arbitrated by the fleet scheduler, idle models scaled to zero and
+    cold-started back via multicast from the O(1) host copy.
+
+    ``cfgs`` and ``params`` map an arch id of ``--models`` to the config and
+    parameter dict to serve it with (``chip_smoke.py`` passes full-width
+    models); the others get the reduced config and weights seeded with
+    ``--seed`` + their index.  Returns the fleet after every request
+    finished; raises SystemExit when a request was dropped or token-gapped,
+    or the parameter pool lost its invariant."""
+    from repro_torch.core.autoscaler import PolicyConfig
+    from repro_torch.serving import traces
+    from repro_torch.serving.maas import ZERO, FleetPolicy, FleetScheduler
+
+    archs = [m.strip() for m in args.models.split(",") if m.strip()]
+    if len(archs) < 2:
+        raise SystemExit("--maas needs at least two models (--models a,b,...)")
+    max_seq = args.prompt_len + args.gen_len + 8
+    cfgs, params = dict(cfgs or {}), dict(params or {})
+
+    topo = topo_mod.add_host_sources(topo_mod.make_cluster(2, 4, bw_gbps=100.0))
+    fleet = FleetScheduler(
+        topo, policy=FleetPolicy(idle_to_zero_s=1.5), verbose=True
+    )
+    by_name = {}
+    for i, arch in enumerate(archs):
+        cfg = cfgs.get(arch) or get_config(arch, reduced=True)
+        p = params.get(arch)
+        if p is None:
+            p = TF.init_params(cfg, args.seed + i, device=resolve_device(args.device))
+        by_name[cfg.name] = cfg
+        fleet.add_model(
+            cfg,
+            p,
+            n_prefill=1,
+            n_decode=1,
+            n_slots=args.n_slots,
+            max_seq=max_seq,
+            model_bytes=get_config(arch).approx_params() * 2,
+            prefill_capacity_tps=2000.0,
+            decode_capacity_tps=200.0,
+            policy=PolicyConfig(max_instances=3, kv_upper=0.5, scale_down_timeout_s=0.5),
+        )
+
+    # Zipf-skewed, burst-staggered arrivals compressed to a few wall seconds;
+    # the cold tail should spend part of the run parked at zero devices
+    mix = traces.multi_model_mix(
+        list(by_name), duration=60.0, total_rate=1.0, seed=args.seed
+    )
+    # subsample evenly across the horizon (keeping late arrivals preserves
+    # the scale-to-zero -> cold-start cycle) and compress to ~10 wall seconds
+    step = max(1, len(mix) // args.requests)
+    scale = 10.0 / 60.0
+    arrivals = [(t * scale, m) for t, m, _, _ in mix[::step][: args.requests]]
+
+    rng = np.random.default_rng(args.seed)
+    t0 = time.perf_counter()
+    clock = lambda: time.perf_counter() - t0  # noqa: E731
+    pending = sorted(arrivals)
+    for _ in range(200_000):
+        if not pending and fleet.n_outstanding == 0:
+            break
+        now = clock()
+        while pending and pending[0][0] <= now:
+            _, model = pending.pop(0)
+            prompt = rng.integers(0, by_name[model].vocab_size, size=args.prompt_len)
+            fleet.submit(model, prompt.astype(np.int32), args.gen_len, now)
+        fleet.tick(now)
+        if not fleet.param_pool.invariant_ok():
+            raise SystemExit(f"FAIL: parameter pool invariant broken at t={now:.3f}s")
+    else:
+        raise SystemExit(f"FAIL: tick budget exhausted, {fleet.n_outstanding} outstanding")
+
+    dropped = 0
+    print()
+    for name, t in fleet.tenants.items():
+        rep = t.runtime.router.slo_report()
+        _, gapped = t.runtime.router.handoff_report()
+        dropped += t.runtime.n_outstanding + gapped
+        print(
+            f"[maas] {name}: {rep.n} served  mean_ttft {rep.mean_ttft*1e3:.0f}ms "
+            f"attainment {rep.attainment:.0%}  cold_starts {t.runtime.stats.cold_starts} "
+            f"scaled_to_zero {t.stats.scaled_to_zero} "
+            f"gpu_seconds {t.stats.gpu_seconds:.2f} "
+            f"{'(at zero now)' if t.state == ZERO else ''}"
+        )
+    s = fleet.stats
+    print(
+        f"[maas] fleet: {s.grants} grants, {s.cold_starts} cold starts, "
+        f"{s.scale_to_zero_events} scale-to-zero, {s.preemptions} preemptions, "
+        f"{s.gpu_seconds:.2f} GPU-seconds occupied"
+    )
+    if dropped:
+        raise SystemExit(f"FAIL: {dropped} request(s) dropped or token-gapped")
+    return fleet
 
 
 def run_colocated(args, cfg=None, params=None) -> dict:
@@ -222,7 +328,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--n-prefill", type=int, default=2)
     ap.add_argument("--n-decode", type=int, default=1)
     ap.add_argument("--maas", action="store_true",
-                    help="serve several models on one fleet (not ported yet: raises)")
+                    help="serve several models on one fleet (MaaS control plane)")
     ap.add_argument("--models", default="granite-8b,qwen1.5-4b,minicpm3-4b",
                     help="comma-separated arch ids for --maas")
     return ap
@@ -231,10 +337,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> None:
     args = build_parser().parse_args(argv)
     if args.maas:
-        raise NotImplementedError(
-            "--maas is not ported yet: ROADMAP.md A15 (the MaaS fleet, tenant and "
-            "trace copies on the torch engines)"
-        )
+        run_maas(args)
+        return
     if args.disagg:
         run_disagg(args)
         return

@@ -1,17 +1,25 @@
-"""GQA attention of the port (``repro.models.attention``, GQA part).
+"""Attention of the port (``repro.models.attention``): GQA and MLA.
 
 ``gqa_prefill`` runs the prompt through the flash-attention kernel and
 ``gqa_decode`` one token through the decode-attention kernel, both by way of
 :mod:`repro_torch.kernels.ops` (the plain versions on a CPU tensor).
+``mla_prefill`` (minicpm3) expands the latent keys and values per head and
+runs the same flash kernel at the qk head dim; ``mla_decode`` scores one
+token against the latent cache in the absorbed form, in plain products, as
+the JAX package computes it outside any Pallas kernel.  The caches are
+written in place.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import kvcache
-from repro_torch.models.layers import TensorSpec, apply_rope, rope_for
+from repro_torch.models.layers import NEG_INF, TensorSpec, apply_rope, rope_for
 
 
 def gqa_template(cfg) -> dict[str, TensorSpec]:
@@ -74,6 +82,12 @@ def gqa_prefill(
     return _out_proj(out, params["wo"]), cache
 
 
+def _check_per_row_append(cfg) -> None:
+    if cfg.uniform_decode:
+        raise NotImplementedError(
+            "uniform_decode (lockstep cache appends, a layout of the TPU mesh): not yet ported")
+
+
 def gqa_decode(
     params: dict,
     x: torch.Tensor,  # (B, 1, d)
@@ -84,6 +98,7 @@ def gqa_decode(
 ) -> tuple[torch.Tensor, dict]:
     """One token against the cache.  RoPE takes the length before the append
     as the position; attention reads the length after it."""
+    _check_per_row_append(cfg)
     q, k, v = _gqa_qkv(params, x, cfg)
     pos = cache["lengths"][:, None]  # (B, 1)
     cos, sin = rope_for(pos, cfg.resolved_head_dim, cfg.rope_theta)
@@ -92,3 +107,107 @@ def gqa_decode(
     cache = kvcache.append_kv(cache, k, v[:, 0], live)
     out = ops.decode_attention(q.contiguous(), cache["k"], cache["v"], cache["lengths"])
     return _out_proj(out, params["wo"])[:, None], cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention) — minicpm3
+# ---------------------------------------------------------------------------
+#
+# q  = W_uq · rmsnorm(W_dq · x)            -> (H, nope+rope)
+# c  = rmsnorm(W_dkv · x)                  -> kv_lora_rank   (cached)
+# kr = rope(W_kr · x)                      -> qk_rope_dim    (cached, shared)
+# k  = [W_uk · c  (per head), kr] ; v = W_uv · c
+#
+# Decode uses the absorbed form: q_nope is pushed through W_uk^T, so a score
+# is an inner product in latent space against the cached c.
+
+
+def mla_template(cfg) -> dict[str, TensorSpec]:
+    d = cfg.d_model
+    h = cfg.n_heads
+    qlr, kvlr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rope_d, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "w_dq": TensorSpec((d, qlr), dtype=cfg.dtype),
+        "q_norm": TensorSpec((qlr,), init="ones", dtype=cfg.dtype),
+        "w_uq": TensorSpec((qlr, h, nope + rope_d), dtype=cfg.dtype),
+        "w_dkv": TensorSpec((d, kvlr), dtype=cfg.dtype),
+        "kv_norm": TensorSpec((kvlr,), init="ones", dtype=cfg.dtype),
+        "w_kr": TensorSpec((d, rope_d), dtype=cfg.dtype),
+        "w_uk": TensorSpec((kvlr, h, nope), dtype=cfg.dtype),
+        "w_uv": TensorSpec((kvlr, h, vdim), dtype=cfg.dtype),
+        "wo": TensorSpec((h, vdim, d), dtype=cfg.dtype),
+    }
+
+
+def _mla_q(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg):
+    cq = ops.rmsnorm(x @ params["w_dq"], params["q_norm"], eps=cfg.norm_eps)
+    q = _proj_heads(cq, params["w_uq"])
+    q_nope = q[..., : cfg.qk_nope_dim]
+    q_rope = q[..., cfg.qk_nope_dim :]
+    cos, sin = rope_for(positions, cfg.qk_rope_dim, cfg.rope_theta)
+    return q_nope, apply_rope(q_rope, cos, sin)
+
+
+def _mla_ckv(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg):
+    c = ops.rmsnorm(x @ params["w_dkv"], params["kv_norm"], eps=cfg.norm_eps)
+    kr = (x @ params["w_kr"])[:, :, None, :]  # (B, S, 1, rope)
+    cos, sin = rope_for(positions, cfg.qk_rope_dim, cfg.rope_theta)
+    return c, apply_rope(kr, cos, sin)[:, :, 0]  # (B, S, rope)
+
+
+def mla_prefill(
+    params: dict,
+    x: torch.Tensor,  # (B, S, d)
+    positions: torch.Tensor,  # (B, S)
+    cfg,
+    *,
+    cache: dict | None = None,
+) -> tuple[torch.Tensor, dict | None]:
+    """Keys and values expanded per head (the standard form); the flash
+    kernel runs at the qk head dim with V zero-padded to it and an explicit
+    scale, and the output is sliced back to ``v_head_dim``."""
+    q_nope, q_rope = _mla_q(params, x, positions, cfg)
+    c, kr = _mla_ckv(params, x, positions, cfg)
+    k_nope = _proj_heads(c, params["w_uk"])
+    v = _proj_heads(c, params["w_uv"])
+    k_rope = kr[:, :, None, :].expand(*kr.shape[:2], cfg.n_heads, cfg.qk_rope_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope], dim=-1)
+    qk_dim, vdim = cfg.mla_qk_head_dim, cfg.v_head_dim
+    v_p = F.pad(v, (0, qk_dim - vdim)) if vdim < qk_dim else v
+    out = ops.flash_attention(q, k, v_p, causal=True, softmax_scale=1.0 / math.sqrt(qk_dim))
+    out = out[..., :vdim]
+    if cache is not None:
+        lengths = (positions[:, -1] + 1).to(torch.int32)
+        cache = kvcache.write_prompt_mla(cache, c, kr, lengths)
+    return _out_proj(out, params["wo"]), cache
+
+
+def mla_decode(
+    params: dict,
+    x: torch.Tensor,  # (B, 1, d)
+    cfg,
+    cache: dict,
+    *,
+    live: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, dict]:
+    """One token in the absorbed form: score = (q_nope·W_uk)·c + q_rope·kr
+    and out = W_uv·(p·c), in f32 over the latent cache."""
+    _check_per_row_append(cfg)
+    pos = cache["lengths"][:, None]  # (B, 1)
+    q_nope, q_rope = _mla_q(params, x, pos, cfg)  # (B, 1, H, ·)
+    c_new, kr_new = _mla_ckv(params, x, pos, cfg)
+    cache = kvcache.append_mla(cache, c_new[:, 0], kr_new[:, 0], live)
+    ckv = cache["ckv"].float()
+    q_abs = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], params["w_uk"])  # (B, H, kvlr)
+    s_latent = torch.einsum("bhr,bsr->bhs", q_abs.float(), ckv)
+    s_rope = torch.einsum("bhk,bsk->bhs", q_rope[:, 0].float(), cache["krope"].float())
+    s = (s_latent + s_rope) * (1.0 / math.sqrt(cfg.mla_qk_head_dim))
+    smax = ckv.shape[1]
+    valid = torch.arange(smax, device=x.device)[None, :] < cache["lengths"][:, None]
+    s = torch.where(valid[:, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhs,bsr->bhr", p, ckv)  # (B, H, kvlr)
+    out = torch.einsum("bhr,rhk->bhk", ctx, params["w_uv"].float())
+    return _out_proj(out.to(x.dtype), params["wo"])[:, None], cache

@@ -1,9 +1,12 @@
-"""Decode-time KV cache of the port: the contiguous GQA cache.
+"""Decode-time caches of the port: the contiguous GQA cache and the MLA
+latent cache.
 
-Caches are plain dicts of tensors, in the JAX package's layout
-``(B, KV, S, D)`` with per-sequence ``lengths``.  Unlike the functional JAX
-versions, the writers here update the cache in place and return it: the
-engine and the model hold one buffer per slot and never need the old one.
+Caches are plain dicts of tensors in the JAX package's layouts: GQA
+``k``/``v`` ``(B, KV, S, D)``, MLA ``ckv`` ``(B, S, kv_lora)`` and ``krope``
+``(B, S, rope)``, each with per-sequence int32 ``lengths``.  Unlike the
+functional JAX versions, the writers here update the cache in place and
+return it: the engine and the model hold one buffer per slot and never need
+the old one.
 """
 
 from __future__ import annotations
@@ -43,6 +46,15 @@ def write_prompt_kv(
     return cache
 
 
+def _append_index(lengths: torch.Tensor, smax: int, live: torch.Tensor | None):
+    """Rows, clamped write positions and the rows to write for a one-token
+    append at each sequence's length: live rows below the cache size."""
+    rows = torch.arange(lengths.shape[0], device=lengths.device)
+    pos = lengths.long().clamp(0, smax - 1)
+    ok = lengths < smax
+    return rows, pos, ok if live is None else ok & live
+
+
 def append_kv(
     cache: dict,
     k_new: torch.Tensor,  # (B, KV, D)
@@ -56,15 +68,56 @@ def append_kv(
     The index is clamped, so a full or free slot never indexes out of the
     cache.  Live rows' lengths grow by one (as in the reference, even when
     full); rows that are not live keep theirs."""
-    k, v, lengths = cache["k"], cache["v"], cache["lengths"]
-    smax = k.shape[2]
-    rows = torch.arange(k.shape[0], device=k.device)
-    pos = lengths.long().clamp(0, smax - 1)
-    ok = lengths < smax
-    if live is not None:
-        ok = ok & live
+    k, v = cache["k"], cache["v"]
+    rows, pos, ok = _append_index(cache["lengths"], k.shape[2], live)
     keep = ok[:, None, None]
     k[rows, :, pos] = torch.where(keep, k_new.to(k.dtype), k[rows, :, pos])
     v[rows, :, pos] = torch.where(keep, v_new.to(v.dtype), v[rows, :, pos])
-    lengths.add_(1 if live is None else live.to(lengths.dtype))
+    cache["lengths"].add_(1 if live is None else live.to(torch.int32))
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# MLA compressed cache (latent c_kv + shared rope key per token)
+# ---------------------------------------------------------------------------
+
+
+def init_mla_cache(
+    batch: int, max_seq: int, kv_lora_rank: int, rope_dim: int, dtype, *, device: torch.device
+) -> dict:
+    """Zeroed latent cache: ckv (B, S, kv_lora), krope (B, S, rope)."""
+    return {
+        "ckv": torch.zeros((batch, max_seq, kv_lora_rank), dtype=dtype, device=device),
+        "krope": torch.zeros((batch, max_seq, rope_dim), dtype=dtype, device=device),
+        "lengths": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def write_prompt_mla(
+    cache: dict, ckv: torch.Tensor, krope: torch.Tensor, lengths: torch.Tensor
+) -> dict:
+    """Write a prompt's latents (B, S, kv_lora) and rope keys (B, S, rope) at
+    positions [0, S)."""
+    s = ckv.shape[1]
+    cache["ckv"][:, :s].copy_(ckv)
+    cache["krope"][:, :s].copy_(krope)
+    cache["lengths"].copy_(lengths)
+    return cache
+
+
+def append_mla(
+    cache: dict,
+    ckv_new: torch.Tensor,  # (B, kv_lora)
+    krope_new: torch.Tensor,  # (B, rope)
+    live: torch.Tensor | None = None,  # (B,) bool; None = every row
+) -> dict:
+    """Append one token's latent and rope key at each sequence's length, in
+    place, with the same live-row mask and clamped index as ``append_kv``: a
+    free or full slot is never written."""
+    ckv, krope = cache["ckv"], cache["krope"]
+    rows, pos, ok = _append_index(cache["lengths"], ckv.shape[1], live)
+    keep = ok[:, None]
+    ckv[rows, pos] = torch.where(keep, ckv_new.to(ckv.dtype), ckv[rows, pos])
+    krope[rows, pos] = torch.where(keep, krope_new.to(krope.dtype), krope[rows, pos])
+    cache["lengths"].add_(1 if live is None else live.to(torch.int32))
     return cache

@@ -1,4 +1,5 @@
-"""The port's model (``repro.models.transformer``), dense family.
+"""The port's model (``repro.models.transformer``), dense family with GQA or
+MLA attention.
 
 Parameters and caches are nested dicts of tensors with the JAX package's keys
 and its stacked leading layer axis, so the JAX pytrees carry over one to one
@@ -7,9 +8,10 @@ a Python loop; ``forward_layers_range`` runs layers ``[lo, hi)`` directly
 (the JAX masked scan exists only to avoid a recompile per split point, and
 eager PyTorch compiles nothing).
 
-The norms and both attentions go through :mod:`repro_torch.kernels.ops`:
-the hand-written kernels on CUDA, their plain versions on the CPU.  Caches
-are updated in place.
+The norms and the attentions go through :mod:`repro_torch.kernels.ops`:
+the hand-written kernels on CUDA, their plain versions on the CPU (MLA's
+absorbed decode is plain products, as in the JAX package).  Caches are
+updated in place.
 """
 
 from __future__ import annotations
@@ -30,9 +32,10 @@ from repro_torch.models.layers import TensorSpec
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.attn != "gqa" or cfg.n_experts:
+    if cfg.family != "dense" or cfg.attn not in ("gqa", "mla") or cfg.n_experts:
         raise NotImplementedError(
-            f"{cfg.name}: family={cfg.family!r} attn={cfg.attn!r}: not yet ported (dense GQA only)"
+            f"{cfg.name}: family={cfg.family!r} attn={cfg.attn!r}: not yet ported "
+            "(dense GQA and MLA only)"
         )
 
 
@@ -45,7 +48,7 @@ def layer_template(cfg) -> dict:
     return {
         "norm1": _norm_spec(cfg),
         "norm2": _norm_spec(cfg),
-        "attn": attention.gqa_template(cfg),
+        "attn": attention.mla_template(cfg) if cfg.attn == "mla" else attention.gqa_template(cfg),
         "mlp": layers.mlp_template(cfg),
     }
 
@@ -120,7 +123,10 @@ def _attn_layer_fwd(
 ) -> tuple[torch.Tensor, dict | None]:
     """Full-sequence layer.  Returns (x, cache)."""
     h = ops.rmsnorm(x, lp["norm1"], eps=cfg.norm_eps)
-    a, cache = attention.gqa_prefill(lp["attn"], h, positions, cfg, causal=causal, cache=cache)
+    if cfg.attn == "mla":
+        a, cache = attention.mla_prefill(lp["attn"], h, positions, cfg, cache=cache)
+    else:
+        a, cache = attention.gqa_prefill(lp["attn"], h, positions, cfg, causal=causal, cache=cache)
     x = x + a
     h2 = ops.rmsnorm(x, lp["norm2"], eps=cfg.norm_eps)
     return x + layers.mlp_forward(lp["mlp"], h2, cfg), cache
@@ -130,7 +136,8 @@ def _attn_layer_decode(
     cfg, lp: dict, x: torch.Tensor, cache: dict, live: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, dict]:
     h = ops.rmsnorm(x, lp["norm1"], eps=cfg.norm_eps)
-    a, cache = attention.gqa_decode(lp["attn"], h, cfg, cache, live=live)
+    decode = attention.mla_decode if cfg.attn == "mla" else attention.gqa_decode
+    a, cache = decode(lp["attn"], h, cfg, cache, live=live)
     x = x + a
     h2 = ops.rmsnorm(x, lp["norm2"], eps=cfg.norm_eps)
     return x + layers.mlp_forward(lp["mlp"], h2, cfg), cache
@@ -144,12 +151,18 @@ def _attn_layer_decode(
 def init_caches(
     cfg: ModelConfig, batch: int, max_seq: int, device: str | torch.device | None = None
 ) -> dict:
-    """Stacked per-layer decode caches: k/v (L, B, KV, S, D), lengths (L, B)."""
+    """Stacked per-layer decode caches, lengths (L, B): GQA k/v (L, B, KV, S,
+    D); MLA ckv (L, B, S, kv_lora) and krope (L, B, S, rope)."""
     _check_family(cfg)
-    one = kvcache.init_kv_cache(
-        batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.dtype,
-        quant=cfg.kv_quant, device=resolve_device(device),
-    )
+    dev = resolve_device(device)
+    if cfg.attn == "mla":
+        one = kvcache.init_mla_cache(
+            batch, max_seq, cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.dtype, device=dev)
+    else:
+        one = kvcache.init_kv_cache(
+            batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.dtype,
+            quant=cfg.kv_quant, device=dev,
+        )
     return {"layers": {k: v[None].repeat(cfg.n_layers, *([1] * v.dim())) for k, v in one.items()}}
 
 

@@ -19,6 +19,7 @@ from repro_torch.device import resolve_device  # noqa: E402
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 CFG = get_config("granite-8b", reduced=True)
+MLA_CFG = get_config("minicpm3-4b", reduced=True)
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -29,6 +30,15 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
             roots.add(node.module.split(".")[0])
     return roots
+
+
+def test_isolation_covers_the_mla_and_maas_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("configs/minicpm3_4b.py", "models/attention.py", "models/kvcache.py",
+                "workloads/__init__.py", "workloads/traces.py", "serving/traces.py",
+                "obs/ledger.py", "obs/slo.py", "serving/maas/__init__.py",
+                "serving/maas/tenant.py", "serving/maas/fleet.py", "launch/serve.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -44,8 +54,11 @@ def test_port_imports_no_jax_and_nothing_of_repro(path):
         lambda: TF.init_params(CFG, 0),
         lambda: TF.init_caches(CFG, 1, 8),
         lambda: bridge.params_from_numpy({"w": np.zeros(3, np.float32)}),
+        lambda: TF.init_params(MLA_CFG, 0),
+        lambda: TF.init_caches(MLA_CFG, 1, 8),
     ],
-    ids=["resolve_device", "init_params", "init_caches", "params_from_numpy"],
+    ids=["resolve_device", "init_params", "init_caches", "params_from_numpy", "init_params_mla",
+         "init_caches_mla"],
 )
 def test_entry_points_default_to_cuda_and_raise_without_it(call):
     if torch.cuda.is_available():

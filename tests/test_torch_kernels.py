@@ -29,7 +29,13 @@ TOL = {"f32": dict(atol=3e-5, rtol=3e-5), "bf16": dict(atol=2e-2, rtol=2e-2)}
 FLASH_SHAPES = [  # b, sq, sk, h, kv, d
     (2, 64, 64, 4, 2, 32),  # GQA 2:1
     (1, 48, 32, 6, 3, 128),  # uneven blocks, D 128
+    (1, 80, 80, 5, 5, 96),  # MLA at minicpm3's qk dim, lengths not block multiples
+    (2, 40, 40, 4, 4, 24),  # MLA at REDUCED minicpm3's qk dim
 ]
+# MLA's qk head dims -> v_head_dim (configs/minicpm3_4b.py, full and REDUCED):
+# at these D, V is zero-padded from v_head_dim and the scale passed
+# explicitly, as mla_prefill calls the kernel
+MLA_V_DIMS = {96: 64, 24: 16}
 DECODE_SHAPES = [(2, 128, 8, 2, 32), (2, 96, 8, 1, 128)]  # b, s, h, kv, d
 RMS_SHAPES = [(4, 7, 64), (130, 256)]
 
@@ -87,8 +93,16 @@ def test_rmsnorm_plain_matches_pallas(pallas, shape, dt):
 @pytest.mark.parametrize("b,sq,sk,h,kv,d", FLASH_SHAPES)
 def test_flash_plain_matches_pallas(pallas, b, sq, sk, h, kv, d, causal, dt):
     arrs, (qt, kt, vt) = _inputs(1, [(b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)], dt)
-    want = pallas.run(pallas.flash, arrs, dt, causal=causal, block_q=32, block_k=32)
-    _close(ops.flash_attention(qt, kt, vt, causal=causal), want, dt)
+    kw = {}
+    if d in MLA_V_DIMS:
+        arrs[2][..., MLA_V_DIMS[d]:] = 0.0
+        vt = torch.from_numpy(arrs[2]).to(DTYPES[dt])
+        kw["softmax_scale"] = 1.0 / np.sqrt(d)
+    want = pallas.run(pallas.flash, arrs, dt, causal=causal, block_q=32, block_k=32, **kw)
+    got = ops.flash_attention(qt, kt, vt, causal=causal, **kw)
+    _close(got, want, dt)
+    if d in MLA_V_DIMS:  # zero V columns give zero output columns
+        assert float(got[..., MLA_V_DIMS[d]:].abs().max()) == 0.0
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
@@ -153,7 +167,8 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("shape", RMS_SHAPES + [(3, 5, 7, 16), (5, 13)])
+@pytest.mark.parametrize(
+    "shape", RMS_SHAPES + [(3, 5, 7, 16), (5, 13), (128, 2560), (128, 768)])  # qwen/minicpm3 d, q_norm
 def test_rmsnorm_kernel_matches_plain(cuda, shape, dt):
     _, (x, w) = _inputs(5, [shape, shape[-1:]], dt, cuda)
     _close(ops.rmsnorm(x, w, impl="kernel"), ref.rmsnorm_ref(x, w), dt)
@@ -164,7 +179,10 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dt):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize(
     "b,sq,sk,h,kv,d",
-    FLASH_SHAPES + [(1, 100, 100, 8, 8, 64), (2, 128, 256, 4, 1, 16), (1, 300, 300, 32, 8, 128)],
+    FLASH_SHAPES
+    + [(1, 100, 100, 8, 8, 64), (2, 128, 256, 4, 1, 16), (1, 300, 300, 32, 8, 128),
+       (2, 200, 333, 8, 2, 96), (1, 130, 70, 6, 3, 24),
+       (1, 128, 128, 20, 20, 128), (1, 128, 128, 40, 40, 96)],  # qwen1.5-4b, minicpm3 (n_rep 1)
 )
 def test_flash_kernel_matches_plain(cuda, b, sq, sk, h, kv, d, causal, dt):
     _, (q, k, v) = _inputs(6, [(b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)], dt, cuda)
@@ -176,7 +194,9 @@ def test_flash_kernel_matches_plain(cuda, b, sq, sk, h, kv, d, causal, dt):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("b,s,h,kv,d", DECODE_SHAPES + [(3, 100, 4, 4, 64), (1, 256, 16, 8, 16)])
+@pytest.mark.parametrize(
+    "b,s,h,kv,d",
+    DECODE_SHAPES + [(3, 100, 4, 4, 64), (1, 256, 16, 8, 16), (4, 152, 20, 20, 128)])  # last: qwen1.5-4b
 def test_decode_kernel_matches_plain(cuda, b, s, h, kv, d, dt):
     _, (q, k, v) = _inputs(7, [(b, h, d), (b, kv, s, d), (b, kv, s, d)], dt, cuda)
     lens = torch.from_numpy(_lengths(8, b, s)).to(cuda)
@@ -190,6 +210,40 @@ def test_flash_kernel_granite_shape(cuda):
     _, (q, k, v) = _inputs(10, [(1, 512, 32, 128), (1, 512, 8, 128), (1, 512, 8, 128)], "bf16", cuda)
     got = ops.flash_attention(q, k, v, causal=True, impl="kernel")
     _close(got, ref.flash_attention_ref(q, k, v, causal=True), "bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("s,h,d", [(512, 40, 96), (37, 4, 24)], ids=["minicpm3", "reduced"])
+def test_flash_kernel_mla_shape(cuda, s, h, d, dt):
+    """MLA prefill's call: H = KV (n_rep 1), V zero-padded from v_head_dim to
+    the qk dim, scale 1/sqrt(qk dim); D = 24 goes through the wrapper's
+    zero padding to 32."""
+    _, (q, k, v) = _inputs(14, [(1, s, h, d)] * 3, dt, cuda)
+    v[..., MLA_V_DIMS[d]:] = 0
+    kw = dict(causal=True, softmax_scale=1.0 / np.sqrt(d))
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, impl="kernel", **kw)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert got.shape == q.shape
+    _close(got, ref.flash_attention_ref(q, k, v, **kw), dt)
+    assert float(got[..., MLA_V_DIMS[d]:].abs().max()) == 0.0
+    other = torch.zeros(1, 8, 2, 40, device=cuda, dtype=DTYPES[dt])  # no other D is padded
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        ops.flash_attention(other, other, other, impl="kernel")
+
+
+def test_flash_head_dims_cover_mla():
+    """The kernel takes MLA's qk dims: 96 natively, 24 zero-padded to 32."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash
+
+    assert flash.PADDED_HEAD_DIMS == {24: 32} and flash.PADDED_HEAD_DIMS[24] in flash.HEAD_DIMS
+    for reduced in (False, True):
+        cfg = get_config("minicpm3-4b", reduced=reduced)
+        d = cfg.mla_qk_head_dim
+        assert d in flash.HEAD_DIMS or d in flash.PADDED_HEAD_DIMS
+        assert MLA_V_DIMS[d] == cfg.v_head_dim
 
 
 @pytest.mark.cuda

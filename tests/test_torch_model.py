@@ -240,7 +240,7 @@ def test_live_session_and_multiplier_match_jax():
 def test_other_families_raise():
     cfg = get_config("granite-8b", reduced=True)
     for bad in (cfg.replace(family="moe", n_experts=4, top_k=2), cfg.replace(family="ssm"),
-                cfg.replace(attn="mla")):
+                cfg.replace(family="encdec"), cfg.replace(attn="none")):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             TF.param_template(bad)
     with pytest.raises(NotImplementedError):

@@ -1,7 +1,9 @@
 """The port's serving CLI (``repro_torch.launch.serve``) at REDUCED size on the
-CPU: the colocated and ``--disagg`` modes run to the end, ``--disagg`` reports
-every handoff complete and no request dropped, ``--maas`` raises, and without
-``--device`` a machine without CUDA raises instead of running on the CPU."""
+CPU: the colocated, ``--disagg`` and ``--maas`` modes run to the end,
+``--disagg`` reports every handoff complete and no request dropped, ``--maas``
+serves the JAX CLI's three default models (granite-8b, qwen1.5-4b and the MLA
+model minicpm3-4b) with nothing dropped, and without ``--device`` a machine
+without CUDA raises instead of running on the CPU."""
 
 import pytest
 
@@ -48,8 +50,44 @@ def test_run_disagg_returns_the_finished_runtime():
 
 
 def test_maas_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A15"):
-        serve.main(CPU + ["--maas"])
+    """Named before ``--maas`` was ported; it now holds the opposite: the mode
+    runs.  One ``run_maas`` with the CLI's topology, policies and arrival
+    compression, given the caller's config and parameters for one model:
+    every request is served with no gap, the fleet parks a model at zero and
+    cold-starts one back, and each model's engines share its one parameter
+    dict (the caller's, where it gave one)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TF
+
+    cfg = get_config("minicpm3-4b", reduced=True)
+    params = TF.init_params(cfg, 5, device="cpu")
+    args = serve.build_parser().parse_args(CPU + ["--maas", "--requests", "12"])
+    fleet = serve.run_maas(args, {"minicpm3-4b": cfg}, {"minicpm3-4b": params})
+    assert sorted(fleet.tenants) == [
+        "granite-8b-reduced", "minicpm3-4b-reduced", "qwen1.5-4b-reduced"]
+    mla = fleet.tenants["minicpm3-4b-reduced"].runtime
+    assert mla.cfg is cfg and mla.params is params and cfg.attn == "mla"
+    assert fleet.n_outstanding == 0
+    assert fleet.stats.scale_to_zero_events >= 1 and fleet.stats.cold_starts >= 1
+    assert fleet.param_pool.invariant_ok()
+    for t in fleet.tenants.values():
+        rt = t.runtime
+        assert rt.router.handoff_report()[1] == 0
+        assert all(len(r.out_tokens) == args.gen_len for r in rt.completed.values())
+        assert all(pe.engine.params is rt.params for pe in rt.pool.all())
+    assert sum(len(t.runtime.completed) for t in fleet.tenants.values()) == 12
+
+
+def test_maas_main_serves_every_request(capsys):
+    serve.main(CPU + ["--maas", "--requests", "12"])
+    text = capsys.readouterr().out
+    assert "[maas] fleet:" in text
+    assert ": at zero (host copy only)" in text and ": cold start (" in text
+    served = [int(line.split(": ")[1].split()[0]) for line in text.splitlines()
+              if line.startswith("[maas] ") and "served" in line]
+    assert len(served) == 3 and sum(served) == 12
+    with pytest.raises(SystemExit, match="at least two"):
+        serve.main(CPU + ["--maas", "--models", "granite-8b"])
 
 
 def test_default_device_raises_without_cuda():
@@ -59,3 +97,5 @@ def test_default_device_raises_without_cuda():
         serve.main(["--requests", "2"])
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--disagg", "--requests", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--maas", "--requests", "2"])
