@@ -13,7 +13,10 @@ Run from the root of a checkout.  Phases, each of which must pass:
               minicpm3's MLA prefill shape (D = 96, V zero-padded from 64,
               scale 1/sqrt(96)), timed, and at D = 24 (padded to 32); and
               every kernel at the shapes phase 8's qwen1.5-4b and minicpm3-4b
-              give it (n_rep 1 at D = 128 and 96, d = 2560, 768, 256)
+              give it (n_rep 1 at D = 128 and 96, d = 2560, 768, 256); and
+              at phase 9's shapes, timed: flash and decode at olmoe's D = 128
+              and zamba2's D = 80 (n_rep 1), decode also at the served
+              cache size S = 552, rmsnorm at d = 1024, 2048, 5120
   3. parity   granite-8b, qwen1.5-4b and minicpm3-4b at full width, 2 layers:
               the kernel path and the plain path agree over a 512-token
               prefill and 16 decode steps (f32: equal token ids; bf16: as
@@ -45,6 +48,15 @@ Run from the root of a checkout.  Phases, each of which must pass:
               parameter pool's invariant on every tick, at least one
               scale-to-zero and one cold start, each tenant's launches exact
               for its path and its migrated bytes equal to its payloads
+  9. families olmoe-1b-7b (MoE), mamba2-370m (SSM) and zamba2-2.7b (hybrid,
+              flash and decode at head dim 80) at full width, after phase 8's
+              models are freed: (a) parity as in phase 3, cut to 2 layers
+              (zamba2 to 6: one shared-block site); (b) the colocated CLI
+              loop at full depth, 8 requests of 512 + 32 tokens on 4 slots,
+              launches exact (zamba2: flash and decode 9 per prefill or
+              step); the idle prefill and the decode step on the wall clock
+              and profiled, peak memory; (c) the live split bit for bit at k
+              in {0, 1, L/2, L}; (d) zamba2's --disagg, every handoff done
 
 It prints one JSON ``kernels`` line and the card's name and power limit before
 its last line, which is ``{"ok": true, "device": {...}}``.  It exits non-zero,
@@ -56,6 +68,7 @@ decode-step and prefill traces there.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import shutil
@@ -72,6 +85,9 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # dense tensor-core bf16; f32 witho
 TOL = {"f32": 3e-5, "bf16": 2e-2}  # tests/test_kernels.py:16-17
 COLD_BYTES = 128e6  # rotating input copies of a cold timing: over 2.5x the H100's 50 MB L2
 SEED = 0
+# phase 2 cases timed (the first word of the case): the main path's shapes,
+# minicpm3's MLA prefill, and phase 9's families (also at its served cache size)
+TIMED = ("main", "mla", "olmoe", "mamba2", "zamba2", "olmoe-serve", "zamba2-serve")
 
 KERNELS = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:23"),
@@ -229,6 +245,34 @@ def kernel_cases(torch, dt: str):
         ("decode_attention", "lengths 0, S, 1, 65; n_rep 8; S=4096",
          lambda: (randn(4, 64, 128), randn(4, 8, 4096, 128), randn(4, 8, 4096, 128),
                   lens(0, 4096, 1, 65)), {}),
+        # phase 9's families: olmoe's attention (n_rep 1, D = 128), zamba2's
+        # shared block (n_rep 1, D = 80), and the norms of mamba2 (d = 1024
+        # and the gated norm over d_inner = 2048), olmoe (2048) and zamba2's
+        # gated norm (d_inner = 5120); each timed
+        ("rmsnorm", "mamba2 N=512 d=1024", lambda: (randn(512, 1024), randn(1024)), {}),
+        ("rmsnorm", "olmoe N=512 d=2048", lambda: (randn(512, 2048), randn(2048)), {}),
+        ("rmsnorm", "zamba2 N=512 d=5120", lambda: (randn(512, 5120), randn(5120)), {}),
+        ("flash_attention", "olmoe B=1 S=512 H=16 KV=16 D=128 causal",
+         lambda: (randn(1, 512, 16, 128), randn(1, 512, 16, 128), randn(1, 512, 16, 128)),
+         {"causal": True}),
+        ("flash_attention", "zamba2 B=1 S=512 H=32 KV=32 D=80 causal",
+         lambda: (randn(1, 512, 32, 80), randn(1, 512, 32, 80), randn(1, 512, 32, 80)),
+         {"causal": True}),
+        ("decode_attention", "olmoe B=4 H=16 KV=16 S=1024 D=128 lengths 0, 300, 517, 1024",
+         lambda: (randn(4, 16, 128), randn(4, 16, 1024, 128), randn(4, 16, 1024, 128),
+                  lens(0, 300, 517, 1024)), {}),
+        ("decode_attention", "zamba2 B=4 H=32 KV=32 S=1024 D=80 lengths 0, 300, 517, 1023",
+         lambda: (randn(4, 32, 80), randn(4, 32, 1024, 80), randn(4, 32, 1024, 80),
+                  lens(0, 300, 517, 1023)), {}),
+        # the caches phase 9's served path gives the decode kernel: run_colocated's
+        # max_seq is 512 + 32 + 8 = 552, where decode_plan splits the rows
+        # otherwise than at 1024 (olmoe: 9 chunks on 8 CTAs, some holding none)
+        ("decode_attention", "olmoe-serve B=4 H=16 KV=16 S=552 D=128 lengths 0, 512, 530, 544",
+         lambda: (randn(4, 16, 128), randn(4, 16, 552, 128), randn(4, 16, 552, 128),
+                  lens(0, 512, 530, 544)), {}),
+        ("decode_attention", "zamba2-serve B=4 H=32 KV=32 S=552 D=80 lengths 0, 512, 530, 544",
+         lambda: (randn(4, 32, 80), randn(4, 32, 552, 80), randn(4, 32, 552, 80),
+                  lens(0, 512, 530, 544)), {}),
     ]
 
 
@@ -289,7 +333,8 @@ def phase_kernels(torch, ops, ref) -> dict:
                 want[inputs[3] == 0] = 0
             err = max_err(torch, got, want, dt)
             row = {"kernel": name, "case": case, "dtype": dt, "max_abs_err": err}
-            if case.startswith(("main", "mla ")):
+            tag = case.split()[0]
+            if tag in TIMED:
                 sets = cold_sets(inputs) if name == "decode_attention" else [inputs]
                 times = time_ms(torch, {
                     "plain": lambda *a: plain_fn[name](*a, **kw),
@@ -302,7 +347,7 @@ def phase_kernels(torch, ops, ref) -> dict:
                            timed="cold" if len(sets) > 1 else "warm", copies=len(sets))
                 del sets
                 row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dt)
-                results[(name, dt) if case.startswith("main") else (name, dt, "mla")] = row
+                results[(name, dt) if tag == "main" else (name, dt, tag)] = row
             log("[kernels] " + json.dumps(row))
             del inputs, got, want
     return results
@@ -313,10 +358,10 @@ def phase_kernels(torch, ops, ref) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_parity(torch, np, ops, TF, base_cfg) -> dict:
-    """Kernel path against plain path at full width, cut to 2 layers: a
-    512-token prefill and 16 decode steps, every run fed the tokens that the
-    f32 kernel path chooses.
+def phase_parity(torch, np, ops, TF, base_cfg, n_layers: int = 2) -> dict:
+    """Kernel path against plain path at full width, cut to ``n_layers``
+    layers: a 512-token prefill and 16 decode steps, every run fed the tokens
+    that the f32 kernel path chooses.
 
     f32: the token ids must be equal.  bf16: the two paths round at other
     places (the plain decode casts the probabilities to bf16 as the reference
@@ -347,12 +392,14 @@ def phase_parity(torch, np, ops, TF, base_cfg) -> dict:
                 steps.append(logits)
         return torch.stack(steps)[:, 0, :V].float(), feed
 
-    def cast(tree):
+    def cast(tree, template):
+        """Each leaf to its dtype in the bf16 model's template (the MoE
+        router and Mamba2's A, dt bias and skip stay f32)."""
         if isinstance(tree, dict):
-            return {k: cast(v) for k, v in tree.items()}
-        return tree.to(torch.bfloat16)
+            return {k: cast(v, template[k]) for k, v in tree.items()}
+        return tree.to(template.dtype)
 
-    cfg32 = base_cfg.replace(n_layers=2, dtype=torch.float32)
+    cfg32 = base_cfg.replace(n_layers=n_layers, dtype=torch.float32)
     p32 = TF.init_params(cfg32, SEED, device="cuda")
     k32, feed = run(cfg32, p32, "kernel")
     r32, _ = run(cfg32, p32, "ref", feed)
@@ -365,8 +412,8 @@ def phase_parity(torch, np, ops, TF, base_cfg) -> dict:
     log(f"[parity] {tag} f32 " + json.dumps(f32))
     check(f32["ids_equal"], f"parity {tag} f32: token ids differ: {k_ids.tolist()} vs {r_ids.tolist()}")
 
-    cfg16 = base_cfg.replace(n_layers=2, dtype=torch.bfloat16)
-    p16 = cast(p32)
+    cfg16 = base_cfg.replace(n_layers=n_layers, dtype=torch.bfloat16)
+    p16 = cast(p32, TF.param_template(cfg16))
     del p32
     k16, _ = run(cfg16, p16, "kernel", feed)
     r16, _ = run(cfg16, p16, "ref", feed)
@@ -461,10 +508,30 @@ def phase_serve(torch, np, ops, TF, cfg, engine_mod, params) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def attn_blocks(cfg) -> int:
+    """Attention blocks per pass: every layer of a dense or MoE stack, none
+    of an SSM stack, one per shared-block site of a hybrid."""
+    if cfg.family == "ssm":
+        return 0
+    return cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
+
+
 def norms_per_pass(cfg) -> int:
-    """rmsnorm launches per prefill or decode step: norm1 and norm2 per layer,
-    MLA's q_norm and kv_norm besides, and the final norm."""
-    return (4 if cfg.attn == "mla" else 2) * cfg.n_layers + 1
+    """rmsnorm launches per prefill or decode step: norm1 and norm2 per
+    attention block (MLA's q_norm and kv_norm besides), norm1 and the gated
+    norm per Mamba2 layer, and the final norm."""
+    ssm_layers = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    return 2 * ssm_layers + (4 if cfg.attn == "mla" else 2) * attn_blocks(cfg) + 1
+
+
+def path_launches(cfg, prefills: int, steps: int) -> dict:
+    """The kernel launches of ``prefills`` prefills and ``steps`` decode
+    steps: flash once per attention block per prefill, decode attention once
+    per attention block per step (MLA decodes in plain products), the
+    norms of every pass."""
+    return {"rmsnorm": norms_per_pass(cfg) * (prefills + steps),
+            "flash_attention": attn_blocks(cfg) * prefills,
+            "decode_attention": 0 if cfg.attn == "mla" else attn_blocks(cfg) * steps}
 
 
 def phase_live(torch, np, ops, TF, live, cfg, params) -> dict:
@@ -485,8 +552,7 @@ def phase_live(torch, np, ops, TF, live, cfg, params) -> dict:
         errs[k] = float(diff.max())
         check(bool(torch.equal(coop, full)), f"live {cfg.name}: split k={k} differs from the monolithic forward by {errs[k]}")
     counts = ops.launch_counts()
-    n = 1 + len(ks)
-    want = {"rmsnorm": norms_per_pass(cfg) * n, "flash_attention": L * n, "decode_attention": 0}
+    want = path_launches(cfg, 1 + len(ks), 0)
     check(counts == want, f"live {cfg.name}: launch counts {counts} != the path's {want}")
     row = {"model": cfg.name, "ks": list(ks), "max_abs_diff": errs,
            "launches": counts}
@@ -584,15 +650,13 @@ def phase_profile(torch, np, cfg, engine_mod, params, step_ms: float, ttft_ms: f
 NEAR_TIE = 0.05  # largest bf16 logit gap at which two paths may pick different tokens
 
 
-def _path_launches(counts: dict, L: int, prefills: int, what: str) -> dict:
-    """Launch counts of a serving run against the path: one flash launch per
-    layer per prefill, one decode launch per layer per decode step, and
-    2L+1 rmsnorms per prefill and per step."""
-    steps, rem = divmod(counts["decode_attention"], L)
-    want = {"rmsnorm": (2 * L + 1) * (prefills + steps), "flash_attention": L * prefills,
-            "decode_attention": L * steps}
-    check(rem == 0 and counts == want, f"cluster {what}: launch counts {counts} != the path's {want}")
-    check(all(v > 0 for v in counts.values()), f"cluster {what}: a kernel was not launched: {counts}")
+def _path_launches(counts: dict, cfg, prefills: int, what: str) -> dict:
+    """Launch counts of a serving run against the path (``path_launches``),
+    the decode steps read off the decode kernel's count."""
+    steps, rem = divmod(counts["decode_attention"], attn_blocks(cfg))
+    want = path_launches(cfg, prefills, steps)
+    check(rem == 0 and counts == want, f"{what}: launch counts {counts} != the path's {want}")
+    check(all(v > 0 for v in counts.values()), f"{what}: a kernel was not launched: {counts}")
     return {"counts": counts, "decode_steps": steps}
 
 
@@ -604,6 +668,54 @@ def _router_times(np, router) -> dict:
             "ttft_p99_ms": float(np.percentile(ttft, 99)) * 1e3,
             "tbt_mean_ms": rep.mean_tbt * 1e3, "tbt_p99_ms": rep.p99_tbt * 1e3,
             "slo_attainment": rep.attainment}
+
+
+def _checked_disagg(torch, np, ops, TF, cfg, params, serve, disagg, args, what: str) -> dict:
+    """``run_disagg`` as the CLI drives it, on the wall clock: every handoff
+    completes, no request is dropped or gapped, each has its tokens,
+    migrated bytes equal the payloads (the prompt share of a 1-slot cache:
+    KV caches, SSM states), every engine shares ``params``, launches are the
+    path's."""
+    n, new_tokens, prompt_len = args.requests, args.gen_len, args.prompt_len
+    max_seq = prompt_len + new_tokens + 8
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rt = serve.run_disagg(args, cfg, params)
+    except SystemExit as e:
+        raise SmokeFailure(f"{what}: {e}") from None
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _path_launches(ops.launch_counts(), cfg, n, what)
+    s = rt.stats
+    handoffs, gapped = rt.router.handoff_report()
+    check(handoffs == s.migrations == n, f"{what}: handoffs {handoffs}/{s.migrations}, requests {n}")
+    check(gapped == 0 and rt.n_outstanding == 0, f"{what}: {gapped} gapped, {rt.n_outstanding} outstanding")
+    check(len(rt.completed) == n, f"{what}: {len(rt.completed)} of {n} completed")
+    for r in rt.completed.values():
+        check(len(r.out_tokens) == r.max_new_tokens == new_tokens,
+              f"{what}: request {r.rid} has {len(r.out_tokens)} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in r.out_tokens), f"{what}: request {r.rid} token out of range")
+    payload = disagg.payload_bytes(TF.init_caches(cfg, 1, max_seq, device="cuda"), prompt_len, max_seq)
+    check(s.migrated_bytes == n * payload, f"{what}: migrated bytes {s.migrated_bytes} != {n} payloads of {payload}")
+    check(all(pe.engine.params is params for pe in rt.pool.all()), f"{what}: an engine copied the params")
+    row = {
+        "requests": n, "wall_s": wall, "tokens_per_s": n * new_tokens / wall,
+        **_router_times(np, rt.router),
+        "handoffs": handoffs, "migrations": s.migrations, "migrated_bytes": s.migrated_bytes,
+        "payload_bytes_each": payload,
+        "mutations": s.mutations, "mutation_param_bytes": s.mutation_param_bytes,
+        "live_scaled_prefill": s.live_scaled_prefill, "direct_decode_scales": s.direct_decode_scales,
+        "prescaled_decodes": s.prescaled_decodes, "scale_downs": s.scale_downs, "retired": s.retired,
+        "engines_at_end": sorted((pe.device_id, pe.phase, pe.state) for pe in rt.pool.all()),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches["counts"],
+    }
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_cluster(torch, np, ops, TF, cfg, params, serve, disagg, engine_mod) -> dict:
@@ -624,7 +736,7 @@ def phase_cluster(torch, np, ops, TF, cfg, params, serve, disagg, engine_mod) ->
     out = serve.run_colocated(args, cfg, params)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = _path_launches(ops.launch_counts(), L, n_a, "colocated")
+    launches = _path_launches(ops.launch_counts(), cfg, n_a, "cluster colocated")
     eng0, eng1 = out["engines"]
     check(eng0.params is params and eng1.params is params, "cluster colocated: an engine copied the params")
     check(len(out["finished"]) == n_a, f"cluster colocated: {len(out['finished'])} of {n_a} requests finished")
@@ -647,48 +759,10 @@ def phase_cluster(torch, np, ops, TF, cfg, params, serve, disagg, engine_mod) ->
     torch.cuda.empty_cache()
 
     # (b) run_disagg on the wall clock, as the CLI drives it
-    n_b = 24
     args = serve.build_parser().parse_args(
-        base + ["--disagg", "--requests", str(n_b), "--n-prefill", "2", "--n-decode", "1"])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    try:
-        rt = serve.run_disagg(args, cfg, params)
-    except SystemExit as e:
-        raise SmokeFailure(f"cluster disagg: {e}") from None
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = _path_launches(ops.launch_counts(), L, n_b, "disagg")
-    s = rt.stats
-    handoffs, gapped = rt.router.handoff_report()
-    check(handoffs == s.migrations == n_b, f"cluster disagg: handoffs {handoffs}/{s.migrations}, requests {n_b}")
-    check(gapped == 0 and rt.n_outstanding == 0, f"cluster disagg: {gapped} gapped, {rt.n_outstanding} outstanding")
-    check(len(rt.completed) == n_b, f"cluster disagg: {len(rt.completed)} of {n_b} completed")
-    for r in rt.completed.values():
-        check(len(r.out_tokens) == r.max_new_tokens == new_tokens,
-              f"cluster disagg: request {r.rid} has {len(r.out_tokens)} tokens")
-        check(all(0 <= t < cfg.vocab_size for t in r.out_tokens), f"cluster disagg: request {r.rid} token out of range")
-    # every payload is the prompt share of a 1-slot cache of these shapes
-    payload = disagg.payload_bytes(TF.init_caches(cfg, 1, max_seq, device="cuda"), prompt_len, max_seq)
-    check(s.migrated_bytes == n_b * payload,
-          f"cluster disagg: migrated bytes {s.migrated_bytes} != {n_b} payloads of {payload}")
-    check(all(pe.engine.params is params for pe in rt.pool.all()), "cluster disagg: an engine copied the params")
-    rows["disagg"] = {
-        "requests": n_b, "wall_s": wall, "tokens_per_s": n_b * new_tokens / wall,
-        **_router_times(np, rt.router),
-        "handoffs": handoffs, "migrations": s.migrations, "migrated_bytes": s.migrated_bytes,
-        "payload_bytes_each": payload,
-        "mutations": s.mutations, "mutation_param_bytes": s.mutation_param_bytes,
-        "live_scaled_prefill": s.live_scaled_prefill, "direct_decode_scales": s.direct_decode_scales,
-        "prescaled_decodes": s.prescaled_decodes, "scale_downs": s.scale_downs, "retired": s.retired,
-        "engines_at_end": sorted((pe.device_id, pe.phase, pe.state) for pe in rt.pool.all()),
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches["counts"],
-    }
+        base + ["--disagg", "--requests", "24", "--n-prefill", "2", "--n-decode", "1"])
+    rows["disagg"] = _checked_disagg(torch, np, ops, TF, cfg, params, serve, disagg, args, "cluster disagg")
     log("[cluster] disagg " + json.dumps(rows["disagg"]))
-    del rt
-    torch.cuda.empty_cache()
 
     # (c) tokens: the runtime on a simulated clock against a lone engine
     rng = np.random.default_rng(SEED + 4)
@@ -828,8 +902,7 @@ def phase_maas(torch, np, ops, TF, cfgs: dict, params: dict, serve, maas, disagg
         check(all(e.params is params[arch] for e in rec["engines"]),
               f"maas {name}: an engine does not hold the model's one parameter dict")
         prefills, steps = rec["prefills"][0], sum(e.steps for e in rec["engines"])
-        want = {"rmsnorm": norms_per_pass(cfg) * (prefills + steps), "flash_attention": L * prefills,
-                "decode_attention": 0 if cfg.attn == "mla" else L * steps}
+        want = path_launches(cfg, prefills, steps)
         check(rec["launches"] == want, f"maas {name}: launch counts {rec['launches']} != the path's {want}")
         check(prefills >= n and steps > 0, f"maas {name}: {prefills} prefills, {steps} steps for {n} requests")
         payload = disagg.payload_bytes(TF.init_caches(cfg, 1, max_seq, device="cuda"), prompt_len, max_seq)
@@ -861,6 +934,131 @@ def phase_maas(torch, np, ops, TF, cfgs: dict, params: dict, serve, maas, disagg
     del fleet
     torch.cuda.empty_cache()
     return row
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the MoE, SSM and hybrid families at full width
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("olmoe-1b-7b", "mamba2-370m", "zamba2-2.7b")
+
+
+def _family_args(serve, arch: str, *extra: str):
+    return serve.build_parser().parse_args(
+        ["--arch", arch, "--prompt-len", "512", "--gen-len", "32", "--n-slots", "4",
+         "--seed", str(SEED), "--device", "cuda", *extra])
+
+
+def _family_serve(torch, ops, arch, cfg, params, serve) -> dict:
+    """(b) the CLI's colocated loop at full depth: 8 requests of 512 + 32
+    tokens on 4 slots, until the live-scaled engine holds every layer; every
+    request finishes and the launches are exactly the path's."""
+    n = 8
+    args = _family_args(serve, arch, "--requests", str(n))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = serve.run_colocated(args, cfg, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    eng0, eng1 = out["engines"]
+    steps = eng0.steps + eng1.steps
+    want = path_launches(cfg, n, steps)
+    check(counts == want, f"families {cfg.name} serve: launch counts {counts} != the path's {want}")
+    check(all(counts[k] > 0 for k, v in want.items() if v > 0),
+          f"families {cfg.name} serve: a kernel of the path was not launched: {counts}")
+    check(eng0.params is params and eng1.params is params,
+          f"families {cfg.name} serve: an engine copied the params")
+    check(len(out["finished"]) == n, f"families {cfg.name} serve: {len(out['finished'])} of {n} finished")
+    for r in out["finished"]:
+        check(len(r.out_tokens) == args.gen_len and all(0 <= t < cfg.vocab_size for t in r.out_tokens),
+              f"families {cfg.name} serve: request {r.rid} has tokens {r.out_tokens}")
+    check(eng1.loaded_layers == cfg.n_layers, f"families {cfg.name} serve: the scaled engine is not whole")
+    return {"requests": n, "wall_s": wall, "tokens_per_s": n * args.gen_len / wall,
+            "engine_steps": [eng0.steps, eng1.steps], "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": counts}
+
+
+def _family_timing(torch, np, cfg, params, engine_mod, log_dir) -> dict:
+    """Idle 512-token prefill (TTFT) and the full-batch decode step (4 slots
+    at 512 + ~10 tokens) on the wall clock, each ending in a host read;
+    then torch.profiler over 3 of those steps: device time per step and the
+    card's busy share of the step."""
+    rng = np.random.default_rng(SEED + 3)
+    prompts = [rng.integers(0, cfg.vocab_size, 512).astype(np.int32) for _ in range(4)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = engine_mod.InstanceEngine(cfg, params, n_slots=4, max_seq=552)
+    ttft = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.prefill_only(engine_mod.ServeRequest(-1 - i, prompts[i], 1))
+        ttft.append((time.perf_counter() - t0) * 1e3)
+    for i, p in enumerate(prompts):
+        eng.submit(engine_mod.ServeRequest(i, p, 32))
+    eng.step()  # admits all four
+    check(len(eng.active) == 4, f"families {cfg.name} timing: {len(eng.active)} slots live")
+    step_ms = []
+    for _ in range(8):
+        t0 = time.perf_counter()
+        eng.step()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def steps():
+        for _ in range(3):
+            eng.step()
+
+    kernels, wall_ms, host = _traced(torch, steps, 3, log_dir, f"{cfg.name}_decode_trace.json")
+    device_ms = sum(k[0] for k in kernels) / 3e3
+    check(device_ms > 0, f"families {cfg.name} timing: no device time recorded")
+    med = sorted(step_ms)[len(step_ms) // 2]
+    return {"ttft_idle_ms": sorted(ttft)[1], "decode_step_ms_median": med,
+            "decode_tokens_per_s": 4 / (med / 1e3), "decode_device_ms": device_ms,
+            "device_busy_share": device_ms / med, "profiled_wall_ms": wall_ms,
+            "kernels_launched": sum(n for *_, n in kernels) / 3,
+            "host_launch_calls": host["launch_calls"],
+            "top_kernels_ms": [[k[:90], round(us / 3e3, 5), n / 3] for us, k, n in kernels[:8]],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def phase_families(torch, np, ops, TF, get_config, live, serve, disagg, engine_mod, log_dir) -> dict:
+    """Phase 9: olmoe-1b-7b (MoE), mamba2-370m (SSM) and zamba2-2.7b (hybrid)
+    at full width, one at a time: (a) kernel path against plain path cut to
+    2 layers (zamba2 to 6, one shared-block site); (b) the colocated CLI
+    loop at full depth; the idle prefill and decode step times with a
+    profile; (c) the live split; (d) for zamba2, --disagg."""
+    t_phase = time.perf_counter()
+    rows = {}
+    for i, arch in enumerate(FAMILY_ARCHS):
+        cfg = get_config(arch)
+        row = {"parity": phase_parity(torch, np, ops, TF, cfg,
+                                      n_layers=cfg.attn_every if cfg.family == "hybrid" else 2)}
+        t0 = time.perf_counter()
+        params = TF.init_params(cfg, SEED + 5 + i, device="cuda")
+        torch.cuda.synchronize()
+        row["params"] = cfg.approx_params()
+        row["init_s"] = time.perf_counter() - t0
+        row["serve"] = _family_serve(torch, ops, arch, cfg, params, serve)
+        log(f"[families] {arch} serve " + json.dumps(row["serve"]))
+        row["timing"] = _family_timing(torch, np, cfg, params, engine_mod, log_dir)
+        log(f"[families] {arch} timing " + json.dumps(row["timing"]))
+        row["live"] = phase_live(torch, np, ops, TF, live, cfg, params)
+        if cfg.family == "hybrid":  # (d): SSM states and shared-block caches migrate
+            args = _family_args(serve, arch, "--disagg", "--requests", "12", "--n-prefill", "2",
+                                "--n-decode", "1")
+            row["disagg"] = _checked_disagg(torch, np, ops, TF, cfg, params, serve, disagg, args,
+                                            f"families {arch} disagg")
+            log(f"[families] {arch} disagg " + json.dumps(row["disagg"]))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows[arch] = row
+    rows["wall_s"] = time.perf_counter() - t_phase
+    log(f"[families] phase passed in {rows['wall_s']:.1f} s")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -927,6 +1125,12 @@ def main(argv: list[str] | None = None) -> int:
         torch, np, ops, TF, {"granite-8b": cfg, "qwen1.5-4b": qcfg, "minicpm3-4b": mcfg},
         {"granite-8b": params, "qwen1.5-4b": qparams, "minicpm3-4b": mparams},
         serve_cli, maas, disagg)
+    # the runtimes' engines hold the params in reference cycles: collect them
+    del params, mparams, qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    families = phase_families(torch, np, ops, TF, get_config, live, serve_cli, disagg, engine_mod,
+                              args.log_dir)
 
     line = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
@@ -941,7 +1145,7 @@ def main(argv: list[str] | None = None) -> int:
         record = {"card": card, "torch": torch.__version__, "build_s": build_s,
                   "kernels": [kern[k] for k in sorted(kern)], "parity": parity,
                   "serve": serve, "live": [live_row, live_mla], "profile": prof, "cluster": cluster,
-                  "maas": fleet_row,
+                  "maas": fleet_row, "families": families,
                   "wall_s": time.perf_counter() - t_all}
         (args.log_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")

@@ -76,11 +76,12 @@ def cooperative_forward(
     """Target runs layers [0, k), source runs [k, L); returns logits (B, S, V)."""
     positions = TF._positions(tokens)
     x = TF._embed(cfg, params, tokens)
+    shared = params.get("shared")  # the hybrid's shared block runs on both sides
     # ---- target side: layers [0, k)
-    x = TF.forward_layers_range(cfg, params["layers"], x, 0, k, positions)
+    x = TF.forward_layers_range(cfg, params["layers"], x, 0, k, positions, shared)
     # (activation crosses the network here)
     # ---- source side: layers [k, L)
-    x = TF.forward_layers_range(cfg, params["layers"], x, k, cfg.n_layers, positions)
+    x = TF.forward_layers_range(cfg, params["layers"], x, k, cfg.n_layers, positions, shared)
     x = ops.rmsnorm(x, params["final_norm"], eps=cfg.norm_eps)
     return L.unembed(params["embed"], x, cfg)
 

@@ -27,6 +27,12 @@
 //   dots per thread reduced across the row's lanes; each K row is read once
 //   for the n_rep query heads that share it.  Online softmax per head by
 //   one warp; PV with threads along D over the chunk's rows.
+// * A row takes TD = D / (16-byte vector) lanes and a warp 32 / TD whole
+//   rows.  At D = 80 (zamba2) TD is 10 (bf16) or 20 (f32), which does not
+//   divide 32: a warp holds 3 or 1 rows in its first 30 or 20 lanes and the
+//   rest idle.  Lane sums (a row's TD lanes; the rows of one warp, TD lanes
+//   apart) go through group_sum: an XOR butterfly over a power-of-two group,
+//   else a shift-down tree that stays inside the group.
 // * Each CTA leaves its partial (m, l, acc[n_rep][D]) in its shared memory;
 //   after cluster.sync() the CTAs merge the partials through distributed
 //   shared memory, each rank a slice of the n_rep x D outputs, and write the
@@ -50,10 +56,9 @@ struct Shape {
   static constexpr int VE = 16 / sizeof(T);  // elements per 16-byte load
   static constexpr int TD = D / VE;          // threads along one row (2..32)
   static constexpr int RPW = 32 / TD;        // rows per warp per pass
-  static constexpr int RP = kWarps * RPW;    // rows per CTA pass
-  static constexpr int G = kThreads / TD;    // row groups of the PV product
+  static constexpr int RP = kWarps * RPW;    // rows per CTA pass (and PV row groups)
   static constexpr int HPW = (NREP + kWarps - 1) / kWarps;  // softmax heads per warp
-  static_assert(TD >= 2 && TD <= 32, "unsupported head dim");
+  static_assert(TD >= 2 && TD <= 32 && D % VE == 0, "unsupported head dim");
 
   // Dynamic shared memory for chunks of `ch` rows: [K ring | V ring | scores
   // (NREP x ch) | corr (NREP) | partial m, l (NREP each) | partial acc (NREP
@@ -76,6 +81,29 @@ struct Shape {
   __host__ __device__ static size_t bar_off(int ch) { return acc_off(ch) + NREP * D * 4; }
   __host__ __device__ static size_t smem(int ch) { return bar_off(ch) + 8 * 2 * kStages; }
 };
+
+// Sum of v over a group of N lanes STRIDE apart, this lane being member i
+// (0 <= i < N for the group's lanes), exact at member 0.  Where N is a power
+// of two the groups tile the warp and an XOR butterfly gives every member
+// the sum (on the H100 the tree alone made bf16 decode at D = 128 slower).
+// Else a shift-down tree whose adds stay inside the group: offsets from the
+// largest power of two below N down to 1; after offset o, member i < o holds
+// the sum of members i, i + o, i + 2o, ...
+template <int N, int STRIDE>
+__device__ __forceinline__ float group_sum(float v, int i) {
+  if constexpr ((N & (N - 1)) == 0) {
+#pragma unroll
+    for (int o = N / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o * STRIDE);
+  } else {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      if (o >= N) continue;
+      const float u = __shfl_down_sync(0xffffffffu, v, o * STRIDE);
+      if (i + o < N) v += u;
+    }
+  }
+  return v;
+}
 
 template <typename T, int D, int NREP>
 __global__ void __launch_bounds__(kThreads)
@@ -131,7 +159,10 @@ __global__ void __launch_bounds__(kThreads)
 
   // This thread's 16-byte column slice of every row, and the n_rep query
   // heads of this KV head (scaled into the log2 domain) at those columns.
-  const int col = (tid % SH::TD) * SH::VE;
+  // Lanes past the warp's last whole row (D = 80 only) load no row.
+  const int col = (lane % SH::TD) * SH::VE;
+  const bool row_lane = lane < SH::RPW * SH::TD;
+  const int wrow = warp * SH::RPW + lane / SH::TD;  // this lane's row within a pass
   float qr[NREP][SH::VE];
   const T* qh = q + (static_cast<size_t>(b) * KV + kvh) * NREP * D;
 #pragma unroll
@@ -163,8 +194,8 @@ __global__ void __launch_bounds__(kThreads)
     // scores of the chunk's rows for the n_rep heads
     hp::mbar_wait(&bar_k[st], parity);
     for (int base = 0; base < nv; base += SH::RP) {  // CTA-uniform trip count
-      const int row = base + warp * SH::RPW + lane / SH::TD;
-      const bool ok = row < nv;
+      const int row = base + wrow;
+      const bool ok = row_lane && row < nv;
       float dot[NREP];
 #pragma unroll
       for (int r = 0; r < NREP; ++r) dot[r] = 0.f;
@@ -178,10 +209,7 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
 #pragma unroll
-      for (int r = 0; r < NREP; ++r) {
-#pragma unroll
-        for (int o = SH::TD / 2; o > 0; o >>= 1) dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], o);
-      }
+      for (int r = 0; r < NREP; ++r) dot[r] = group_sum<SH::TD, 1>(dot[r], lane % SH::TD);
       if (ok && lane % SH::TD == 0) {
 #pragma unroll
         for (int r = 0; r < NREP; ++r) ps[r * CH + row] = dot[r];
@@ -221,7 +249,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < SH::VE; ++e) acc[r][e] *= c;
     }
-    for (int row = tid / SH::TD; row < nv; row += SH::G) {
+    for (int row = row_lane ? wrow : nv; row < nv; row += SH::RP) {
       const Vec vv = *reinterpret_cast<const Vec*>(vs + row * D + col);
       float vf[SH::VE];
 #pragma unroll
@@ -238,13 +266,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   // This CTA's partial: acc summed over the row groups (within a warp by
-  // shuffles, across warps through the idle ring), m and l per head.
+  // shuffles into the first row's lanes, across warps through the idle
+  // ring), m and l per head.
 #pragma unroll
   for (int r = 0; r < NREP; ++r)
 #pragma unroll
-    for (int e = 0; e < SH::VE; ++e)
-#pragma unroll
-      for (int o = SH::TD; o < 32; o <<= 1) acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], o);
+    for (int e = 0; e < SH::VE; ++e) acc[r][e] = group_sum<SH::RPW, SH::TD>(acc[r][e], lane / SH::TD);
   float* red = reinterpret_cast<float*>(kring);  // kWarps x NREP x D, in the ring
   if (lane < SH::TD) {
 #pragma unroll
@@ -359,6 +386,8 @@ cudaError_t launch_d(int D, int nrep, const void* q, const void* k, const void* 
       return launch_rep<T, 32>(nrep, q, k, v, len, out, B, KV, S, cl, ch, sl, dev, s);
     case 64:
       return launch_rep<T, 64>(nrep, q, k, v, len, out, B, KV, S, cl, ch, sl, dev, s);
+    case 80:
+      return launch_rep<T, 80>(nrep, q, k, v, len, out, B, KV, S, cl, ch, sl, dev, s);
     case 128:
       return launch_rep<T, 128>(nrep, q, k, v, len, out, B, KV, S, cl, ch, sl, dev, s);
     default:

@@ -20,10 +20,12 @@
 //   shared memory (the descriptor's transpose bit).  Thread 0 loads Q once
 //   and K/V tiles of 64 rows by TMA into a 2-stage ring completing on
 //   mbarriers, so tile j+1 arrives while tile j is computed.  Tiles are
-//   swizzled (128/64/32-byte mode for D = 128|64 / 96|32 / 16); a row wider
-//   than its swizzle span is several boxes: two 64-column boxes at D = 128,
-//   three 32-column boxes in 64-byte mode at D = 96 (MLA's qk dim), since 192
-//   bytes is no multiple of 128.  The kv loop stops at the causal diagonal,
+//   swizzled (128/64/32-byte mode for D = 128|64 / 96|32 / 80|16); a row
+//   wider than its swizzle span is several boxes: two 64-column boxes at
+//   D = 128, three 32-column boxes in 64-byte mode at D = 96 (MLA's qk dim),
+//   since 192 bytes is no multiple of 128, and five 16-column boxes in
+//   32-byte mode at D = 80 (zamba2), since 32 bytes is the widest span that
+//   divides a 160-byte row.  The kv loop stops at the causal diagonal,
 //   a warpgroup skips the tiles wholly above its own rows, and only tiles
 //   that cross the diagonal or the Sk tail are masked (TMA zero-fills rows
 //   past Sk, and a zero key scores 0, so k_pos >= Sk is masked explicitly).
@@ -35,10 +37,11 @@
 //   rules out TF32, so this kernel does both products with f32 FMAs from
 //   shared memory: one 128-thread CTA per (64-row q-block, head, sequence), a
 //   loop over 32-row K/V tiles; each thread owns 4 query rows x 4 key columns
-//   of the score tile and 4 rows x D/8 columns of the output (12 at D = 96).
+//   of the score tile and 4 rows x D/8 columns of the output (12 at D = 96,
+//   10 at D = 80).
 //
-// Head dims 16, 32, 64, 96 and 128 are instantiated; the wrapper zero-pads
-// D = 24 to 32.
+// Head dims 16, 32, 64, 80, 96 and 128 are instantiated; the wrapper
+// zero-pads D = 24 to 32.
 #include "hopper.cuh"
 
 namespace {
@@ -58,7 +61,7 @@ constexpr int kStages = 2;
 // kStages | barriers].  Each tile is NBOX boxes of (rows x SW bytes), one box
 // per SW-byte column slice of the row, each swizzled by TMA in SW-byte mode.
 // SW is the widest swizzle span that divides the row: a 192-byte row (D = 96)
-// takes 64-byte mode.  The wgmma descriptors' layout field follows SW, and a
+// takes 64-byte mode, a 160-byte row (D = 80) 32-byte mode.  The wgmma descriptors' layout field follows SW, and a
 // box's 8-row group is 8 * SW bytes, as the TMA swizzle lays it out.
 template <int D>
 struct Layout {
@@ -81,6 +84,7 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], const uint32_t (&a)[
   if constexpr (N == 16) hp::wgmma_rs_m64n16k16_tb(d, a, b);
   if constexpr (N == 32) hp::wgmma_rs_m64n32k16_tb(d, a, b);
   if constexpr (N == 64) hp::wgmma_rs_m64n64k16_tb(d, a, b);
+  if constexpr (N == 80) hp::wgmma_rs_m64n80k16_tb(d, a, b);
   if constexpr (N == 96) hp::wgmma_rs_m64n96k16_tb(d, a, b);
   if constexpr (N == 128) hp::wgmma_rs_m64n128k16_tb(d, a, b);
 }
@@ -246,8 +250,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   // Epilogue: full row sums across the quad, then O / max(l, 1e-30) in bf16
   // staged through the (now idle) K ring with 16-byte chunks XOR-swizzled by
   // row within aligned groups of a power-of-two size (4 of the 12 chunks of a
-  // D = 96 row), so that no chunk leaves its row, and stored as 16-byte row
-  // pieces.
+  // D = 96 row, 2 of the 10 of a D = 80 row), so that no chunk leaves its
+  // row, and stored as 16-byte row pieces.
   constexpr int NCH = D / 8;  // 16-byte chunks per output row
   constexpr int SWZ = ((NCH & -NCH) < 8 ? (NCH & -NCH) : 8) - 1;
   uint8_t* stage = smem + L::K_OFF + wg * 64 * D * 2;
@@ -548,6 +552,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
       return launch_dtype<32>(dtype, q, k, v, o, B, Sq, Sk, H, KV, sl, causal, device, s);
     case 64:
       return launch_dtype<64>(dtype, q, k, v, o, B, Sq, Sk, H, KV, sl, causal, device, s);
+    case 80:
+      return launch_dtype<80>(dtype, q, k, v, o, B, Sq, Sk, H, KV, sl, causal, device, s);
     case 96:
       return launch_dtype<96>(dtype, q, k, v, o, B, Sq, Sk, H, KV, sl, causal, device, s);
     case 128:

@@ -10,7 +10,9 @@ each into a 2-stage shared-memory ring, the n_rep query heads that share a KV
 head share every cache read, and the cluster's CTAs merge their partial
 (max, sum, acc) through distributed shared memory, each a slice of the
 output.  No scratch tensor and no second kernel.  :func:`decode_plan` sizes
-the cluster and the chunks.  int8 caches are not taken.
+the cluster and the chunks.  Head dims 16, 32, 64, 80 (zamba2's shared block,
+a row of 10 or 20 lanes that leaves the rest of the warp idle) and 128; any
+other D raises.  int8 caches are not taken.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 N_REPS = (1, 2, 4, 8)
 
 launches = 0  # kernel launches since the last reset (see ops.reset_launch_counts)
@@ -59,15 +61,17 @@ def decode_plan(b: int, kv: int, s: int, d: int, elem_bytes: int) -> DecodePlan:
 
     The cluster grows (up to 8) until the B*KV clusters give at least two
     CTAs per SM.  A chunk is the rows one CTA would own with one chunk each,
-    rounded up to 16 and capped so that the 2-stage ring of K and V chunks
-    fits ``RING_BYTES``: at the serving shape (B=4, KV=8, S=1024, D=128,
+    rounded up to 16 and capped at the largest power of two of rows for which
+    the 2-stage ring of K and V chunks fits ``RING_BYTES`` (64 rows at D = 80
+    in bf16): at the serving shape (B=4, KV=8, S=1024, D=128,
     bf16) that is clusters of 8 and chunks of 64 rows (16 KB per copy), two
     per CTA.  The cluster never exceeds the number of chunks."""
     cluster = 1
     while cluster < MAX_CLUSTER and b * kv * cluster < 2 * N_SM:
         cluster *= 2
     per_cta = -(-s // cluster)
-    chunk = min(max(16, RING_BYTES // (4 * d * elem_bytes)), 16 * -(-per_cta // 16))
+    fit = RING_BYTES // (4 * d * elem_bytes)
+    chunk = min(max(16, 1 << (fit.bit_length() - 1)), 16 * -(-per_cta // 16))
     n_chunks = -(-s // chunk)
     cluster = min(cluster, n_chunks)
     return DecodePlan(cluster, chunk, -(-n_chunks // cluster), (cluster, kv, b))

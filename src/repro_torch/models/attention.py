@@ -82,12 +82,6 @@ def gqa_prefill(
     return _out_proj(out, params["wo"]), cache
 
 
-def _check_per_row_append(cfg) -> None:
-    if cfg.uniform_decode:
-        raise NotImplementedError(
-            "uniform_decode (lockstep cache appends, a layout of the TPU mesh): not yet ported")
-
-
 def gqa_decode(
     params: dict,
     x: torch.Tensor,  # (B, 1, d)
@@ -97,15 +91,30 @@ def gqa_decode(
     live: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """One token against the cache.  RoPE takes the length before the append
-    as the position; attention reads the length after it."""
-    _check_per_row_append(cfg)
+    as the position; attention reads the length after it.  A
+    ``uniform_decode`` config appends in lockstep (``append_kv_uniform``).
+
+    With a ``live`` mask, rows that are not live keep their cache.  Where
+    the rows share the MoE experts' capacity (``n_experts``), a free row
+    still competes for it with its stale token, as in the reference engine,
+    so it must compute what the reference computes for it: it appends and
+    attends like a live row, and only its length is put back after the
+    attention.  No later step reads the K/V entry it wrote at that length:
+    the engine (the one caller with a mask, which appends per row) rewrites
+    it at the next step before attending, and admission copies the whole
+    slot row over it."""
     q, k, v = _gqa_qkv(params, x, cfg)
     pos = cache["lengths"][:, None]  # (B, 1)
     cos, sin = rope_for(pos, cfg.resolved_head_dim, cfg.rope_theta)
     q = apply_rope(q, cos, sin)[:, 0]  # (B, H, D)
     k = apply_rope(k, cos, sin)[:, 0]  # (B, KV, D)
-    cache = kvcache.append_kv(cache, k, v[:, 0], live)
+    append = kvcache.append_kv_uniform if cfg.uniform_decode else kvcache.append_kv
+    coupled = live is not None and cfg.n_experts > 0
+    saved = cache["lengths"].clone() if coupled else None
+    cache = append(cache, k, v[:, 0], None if coupled else live)
     out = ops.decode_attention(q.contiguous(), cache["k"], cache["v"], cache["lengths"])
+    if coupled:
+        cache["lengths"].copy_(torch.where(live, cache["lengths"], saved))
     return _out_proj(out, params["wo"])[:, None], cache
 
 
@@ -193,12 +202,13 @@ def mla_decode(
     live: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """One token in the absorbed form: score = (q_nope·W_uk)·c + q_rope·kr
-    and out = W_uv·(p·c), in f32 over the latent cache."""
-    _check_per_row_append(cfg)
+    and out = W_uv·(p·c), in f32 over the latent cache.  A
+    ``uniform_decode`` config appends in lockstep (``append_mla_uniform``)."""
     pos = cache["lengths"][:, None]  # (B, 1)
     q_nope, q_rope = _mla_q(params, x, pos, cfg)  # (B, 1, H, ·)
     c_new, kr_new = _mla_ckv(params, x, pos, cfg)
-    cache = kvcache.append_mla(cache, c_new[:, 0], kr_new[:, 0], live)
+    append = kvcache.append_mla_uniform if cfg.uniform_decode else kvcache.append_mla
+    cache = append(cache, c_new[:, 0], kr_new[:, 0], live)
     ckv = cache["ckv"].float()
     q_abs = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], params["w_uk"])  # (B, H, kvlr)
     s_latent = torch.einsum("bhr,bsr->bhs", q_abs.float(), ckv)

@@ -66,8 +66,9 @@ class ModelConfig:
 
     max_seq: int = 131_072
     dtype: Any = torch.bfloat16
-    # lockstep cache appends: a layout choice of the TPU mesh, kept for field
-    # parity; the port's engine always appends per row.
+    # lockstep cache appends (one write at the batch's max length): a layout
+    # choice of the TPU mesh; a direct decode_step honours it, the engine
+    # clears it and appends per row.
     uniform_decode: bool = False
     # int8 KV cache: not ported yet (kvcache.init_kv_cache raises on it)
     kv_quant: bool = False

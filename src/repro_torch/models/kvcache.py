@@ -1,12 +1,19 @@
-"""Decode-time caches of the port: the contiguous GQA cache and the MLA
-latent cache.
+"""Decode-time state of the port: the contiguous GQA cache, the MLA latent
+cache and the Mamba2 SSM state.
 
 Caches are plain dicts of tensors in the JAX package's layouts: GQA
 ``k``/``v`` ``(B, KV, S, D)``, MLA ``ckv`` ``(B, S, kv_lora)`` and ``krope``
-``(B, S, rope)``, each with per-sequence int32 ``lengths``.  Unlike the
+``(B, S, rope)``, each with per-sequence int32 ``lengths``; the SSM state
+``conv`` ``(B, K-1, d_xbc)`` and ``h`` ``(B, H, P, N)`` in f32.  Unlike the
 functional JAX versions, the writers here update the cache in place and
 return it: the engine and the model hold one buffer per slot and never need
 the old one.
+
+Two appends: per row at each sequence's own length (``append_kv``,
+``append_mla``), and the lockstep one of a ``uniform_decode`` config
+(``append_kv_uniform``, ``append_mla_uniform``), which writes every row at
+the batch's largest length, as the reference does: a straggler row's token
+lands past its own length, where its attention does not read it.
 """
 
 from __future__ import annotations
@@ -53,6 +60,34 @@ def _append_index(lengths: torch.Tensor, smax: int, live: torch.Tensor | None):
     pos = lengths.long().clamp(0, smax - 1)
     ok = lengths < smax
     return rows, pos, ok if live is None else ok & live
+
+
+def _uniform_write(buf: torch.Tensor, dim: int, new: torch.Tensor, lengths: torch.Tensor,
+                   live: torch.Tensor | None) -> None:
+    """Write ``new`` (``buf`` without axis ``dim``) at the batch's largest
+    length along ``dim``, clamped into the cache as ``dynamic_update_slice``
+    clamps its start, in place; rows that are not live keep theirs.  The
+    position stays on the device (no host read)."""
+    pos = lengths.max().long().clamp(0, buf.shape[dim] - 1).reshape(1)
+    new = new.to(buf.dtype).unsqueeze(dim)
+    if live is not None:
+        keep = live.reshape(-1, *([1] * (buf.dim() - 1)))
+        new = torch.where(keep, new, buf.index_select(dim, pos))
+    buf.index_copy_(dim, pos, new)
+
+
+def append_kv_uniform(
+    cache: dict,
+    k_new: torch.Tensor,  # (B, KV, D)
+    v_new: torch.Tensor,
+    live: torch.Tensor | None = None,  # (B,) bool; None = every row
+) -> dict:
+    """Lockstep append: every row writes at the batch's largest length, then
+    every live row's length grows by one, in place."""
+    _uniform_write(cache["k"], 2, k_new, cache["lengths"], live)
+    _uniform_write(cache["v"], 2, v_new, cache["lengths"], live)
+    cache["lengths"].add_(1 if live is None else live.to(torch.int32))
+    return cache
 
 
 def append_kv(
@@ -105,6 +140,19 @@ def write_prompt_mla(
     return cache
 
 
+def append_mla_uniform(
+    cache: dict,
+    ckv_new: torch.Tensor,  # (B, kv_lora)
+    krope_new: torch.Tensor,  # (B, rope)
+    live: torch.Tensor | None = None,
+) -> dict:
+    """Lockstep MLA append, as ``append_kv_uniform``."""
+    _uniform_write(cache["ckv"], 1, ckv_new, cache["lengths"], live)
+    _uniform_write(cache["krope"], 1, krope_new, cache["lengths"], live)
+    cache["lengths"].add_(1 if live is None else live.to(torch.int32))
+    return cache
+
+
 def append_mla(
     cache: dict,
     ckv_new: torch.Tensor,  # (B, kv_lora)
@@ -121,3 +169,30 @@ def append_mla(
     krope[rows, pos] = torch.where(keep, krope_new.to(krope.dtype), krope[rows, pos])
     cache["lengths"].add_(1 if live is None else live.to(torch.int32))
     return cache
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSM state (constant size per sequence)
+# ---------------------------------------------------------------------------
+
+
+def init_ssm_state(batch: int, cfg, *, device: torch.device) -> dict:
+    """Zeroed state: conv (B, K-1, d_xbc) in cfg.dtype, h (B, H, P, N) f32."""
+    d_xbc = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+    return {
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, d_xbc), dtype=cfg.dtype, device=device),
+        "h": torch.zeros(
+            (batch, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state), dtype=torch.float32,
+            device=device),
+    }
+
+
+def write_ssm_state(state: dict, new: dict, live: torch.Tensor | None = None) -> dict:
+    """Copy a new SSM state into ``state`` in place; rows that are not live
+    keep theirs (the reference engine's select of the old state)."""
+    for name, buf in state.items():
+        if live is None:
+            buf.copy_(new[name])
+        else:
+            buf.copy_(torch.where(live.reshape(-1, *([1] * (buf.dim() - 1))), new[name], buf))
+    return state

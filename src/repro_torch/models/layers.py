@@ -68,6 +68,20 @@ def init_std(spec: TensorSpec) -> float:
     return 1.0 / float(np.sqrt(max(fan_in, 1)))
 
 
+def ssm_a_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """The reference's ``ssm_a`` law on uniform draws u in [0, 1): Mamba2's A
+    is a negative scalar per head, A = -exp(u * (log 16 - log 1) + log 1).
+    The leaf that holds it is named ``a_log``; the model uses it as A."""
+    return -torch.exp(u * float(np.log(16.0) - np.log(1.0)) + float(np.log(1.0)))
+
+
+def ssm_dt_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """The reference's ``ssm_dt`` law: dt = exp(u * (log 0.1 - log 1e-3) +
+    log 1e-3) spans [1e-3, 1e-1], and the bias is softplus's inverse of it."""
+    dt = torch.exp(u * float(np.log(0.1) - np.log(1e-3)) + float(np.log(1e-3)))
+    return dt + torch.log(-torch.expm1(-dt))
+
+
 # ---------------------------------------------------------------------------
 # Normalisation
 # ---------------------------------------------------------------------------

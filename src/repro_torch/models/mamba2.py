@@ -1,0 +1,238 @@
+"""Mamba2 (SSD, state-space duality) mixer of the port (``repro.models.mamba2``).
+
+Chunked SSD, as in the JAX package:
+
+* within a chunk, the quadratic form ``Y_diag = (C B^T * L) X``;
+* each chunk's boundary state ``S_c = sum_j decay_j dt_j B_j (x) X_j``;
+* between chunks the linear recurrence ``h_c = gamma_c h_{c-1} + S_c``
+  (``lax.scan`` in the JAX package; a loop over the chunks here);
+* the off-diagonal term ``Y_off = C h_{c-1} decay_in``.
+
+Decode is the O(1) recurrent step over the (H, P, N) state.
+``ssd_reference`` is the sequential per-token oracle of the chunked form.
+The gated norm goes through :func:`repro_torch.kernels.ops.rmsnorm`, so on
+the card it is the rmsnorm kernel.  The parameter named ``a_log`` holds A
+itself (negative), as the reference's init law and its use here have it.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import TensorSpec
+
+
+def mamba2_template(cfg) -> dict[str, TensorSpec]:
+    d = cfg.d_model
+    din = cfg.d_inner
+    g, n = cfg.ssm_ngroups, cfg.ssm_state
+    h = cfg.ssm_nheads
+    d_xbc = din + 2 * g * n
+    d_in_proj = 2 * din + 2 * g * n + h  # z, x, B, C, dt
+    return {
+        "in_proj": TensorSpec((d, d_in_proj), dtype=cfg.dtype),
+        "conv_w": TensorSpec((cfg.ssm_conv, d_xbc), dtype=cfg.dtype),
+        "conv_b": TensorSpec((d_xbc,), init="zeros", dtype=cfg.dtype),
+        "a_log": TensorSpec((h,), init="ssm_a", dtype=torch.float32),
+        "d_skip": TensorSpec((h,), init="ones", dtype=torch.float32),
+        "dt_bias": TensorSpec((h,), init="ssm_dt", dtype=torch.float32),
+        "norm_w": TensorSpec((din,), init="ones", dtype=cfg.dtype),
+        "out_proj": TensorSpec((din, d), dtype=cfg.dtype),
+    }
+
+
+def _split_in_proj(cfg, zxbcdt: torch.Tensor):
+    din = cfg.d_inner
+    g, n = cfg.ssm_ngroups, cfg.ssm_state
+    h = cfg.ssm_nheads
+    return zxbcdt[..., :din], zxbcdt[..., din : 2 * din + 2 * g * n], zxbcdt[..., -h:]
+
+
+def _split_xbc(cfg, xbc: torch.Tensor):
+    din = cfg.d_inner
+    gn = cfg.ssm_ngroups * cfg.ssm_state
+    return xbc[..., :din], xbc[..., din : din + gn], xbc[..., din + gn :]
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv1d.  xbc: (B, S, D), w: (K, D)."""
+    k = w.shape[0]
+    s = xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    out = pad[:, 0:s] * w[0]
+    for i in range(1, k):
+        out = out + pad[:, i : i + s] * w[i]
+    return F.silu((out + b).float()).to(xbc.dtype)
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """Stable segment sum: out[i, j] = sum_{j < t <= i} x[t]; -inf for j > i."""
+    t = x.shape[-1]
+    cum = x.cumsum(dim=-1)
+    diff = cum[..., :, None] - cum[..., None, :]
+    mask = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()
+    return diff.masked_fill(~mask, float("-inf"))
+
+
+def ssd_chunked(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H), softplus applied
+    a: torch.Tensor,  # (H,) negative
+    b_in: torch.Tensor,  # (B, S, G, N)
+    c_in: torch.Tensor,  # (B, S, G, N)
+    chunk: int,
+    h_init: torch.Tensor | None = None,  # (B, H, P, N)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y (B, S, H, P) in x's dtype, final state (B, H, P, N) f32)."""
+    bsz, s, h, p = x.shape
+    g, n = b_in.shape[2], b_in.shape[3]
+    rep = h // g
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the chunk {chunk}")
+    nc = s // chunk
+
+    xc = x.float().reshape(bsz, nc, chunk, h, p)
+    dtc = dt.float().reshape(bsz, nc, chunk, h)
+    bc = b_in.float().repeat_interleave(rep, dim=2).reshape(bsz, nc, chunk, h, n)
+    cc = c_in.float().repeat_interleave(rep, dim=2).reshape(bsz, nc, chunk, h, n)
+
+    da_t = (dtc * a).transpose(2, 3)  # (B, nc, H, Q)
+    cum = da_t.cumsum(dim=-1)
+
+    # (1) within-chunk (quadratic) term, dt_j on the key side
+    l_mat = torch.exp(_segsum(da_t))  # (B, nc, H, Q, Q)
+    scores = torch.einsum("bcqhn,bckhn->bchqk", cc, bc)
+    scores = scores * l_mat * dtc.transpose(2, 3)[:, :, :, None, :]
+    y_diag = torch.einsum("bchqk,bckhp->bcqhp", scores, xc)
+
+    # (2) per-chunk boundary states: sum_j exp(cum_last - cum_j) dt_j B_j (x) X_j
+    decay_to_end = torch.exp(cum[..., -1:] - cum)  # (B, nc, H, Q)
+    wgt = decay_to_end.transpose(2, 3) * dtc  # (B, nc, Q, H)
+    sc = torch.einsum("bcqh,bcqhn,bcqhp->bchpn", wgt, bc, xc)  # (B, nc, H, P, N)
+
+    # (3) inter-chunk recurrence: the state entering each chunk
+    gamma = torch.exp(cum[..., -1])  # (B, nc, H)
+    h_prev = (h_init.float() if h_init is not None
+              else torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device))
+    entering = []
+    for c in range(nc):
+        entering.append(h_prev)
+        h_prev = h_prev * gamma[:, c, :, None, None] + sc[:, c]
+    h_enter = torch.stack(entering, dim=1)  # (B, nc, H, P, N)
+
+    # (4) off-diagonal: Y_off = decay_in * C . h_enter
+    decay_in = torch.exp(cum)  # (B, nc, H, Q)
+    y_off = torch.einsum("bcqhn,bchpn->bcqhp", cc, h_enter) * decay_in.transpose(2, 3)[..., None]
+
+    y = (y_diag + y_off).reshape(bsz, s, h, p)
+    return y.to(x.dtype), h_prev
+
+
+def ssd_reference(x, dt, a, b_in, c_in, h_init=None):
+    """Sequential per-token recurrence, the oracle of the chunked form."""
+    bsz, s, h, p = x.shape
+    g, n = b_in.shape[2], b_in.shape[3]
+    rep = h // g
+    bf = b_in.float().repeat_interleave(rep, dim=2)
+    cf = c_in.float().repeat_interleave(rep, dim=2)
+    xf, dtf = x.float(), dt.float()
+    state = (h_init.float() if h_init is not None
+             else torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device))
+    ys = []
+    for i in range(s):
+        decay = torch.exp(dtf[:, i] * a)[..., None, None]  # (B, H, 1, 1)
+        state = state * decay + dtf[:, i, :, None, None] * (xf[:, i, :, :, None] * bf[:, i, :, None, :])
+        ys.append(torch.einsum("bhn,bhpn->bhp", cf[:, i], state))
+    return torch.stack(ys, dim=1).to(x.dtype), state
+
+
+def _gated_out(params: dict, y: torch.Tensor, z: torch.Tensor, u: torch.Tensor, cfg):
+    """rmsnorm(y * silu(z)) @ out_proj, in u's dtype."""
+    gated = y * F.silu(z.float()).to(u.dtype)
+    return ops.rmsnorm(gated, params["norm_w"], eps=cfg.norm_eps) @ params["out_proj"]
+
+
+def _ssm_inputs(params: dict, u: torch.Tensor, cfg):
+    """in_proj, causal conv and the split: (z, raw xbc, x (B,S,H,P), B, C,
+    dt (B,S,H) f32 after softplus)."""
+    b, s, _ = u.shape
+    z, xbc_raw, dt = _split_in_proj(cfg, u @ params["in_proj"])
+    xbc = _causal_conv(xbc_raw, params["conv_w"], params["conv_b"])
+    x, b_in, c_in = _split_xbc(cfg, xbc)
+    x = x.reshape(b, s, cfg.ssm_nheads, cfg.ssm_headdim)
+    b_in = b_in.reshape(b, s, cfg.ssm_ngroups, cfg.ssm_state)
+    c_in = c_in.reshape(b, s, cfg.ssm_ngroups, cfg.ssm_state)
+    dt = F.softplus(dt.float() + params["dt_bias"])
+    return z, xbc_raw, x, b_in, c_in, dt
+
+
+def _ssd_padded(params: dict, x, dt, b_in, c_in, cfg):
+    """ssd_chunked over the sequence padded to a chunk multiple with dt = 0
+    (decay 1, no state update), so the final state is exact; y sliced back."""
+    s = x.shape[1]
+    pad = (-s) % cfg.ssm_chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        b_in = F.pad(b_in, (0, 0, 0, 0, 0, pad))
+        c_in = F.pad(c_in, (0, 0, 0, 0, 0, pad))
+    y, h_final = ssd_chunked(x, dt, params["a_log"], b_in, c_in, cfg.ssm_chunk)
+    return y[:, :s], h_final
+
+
+def _skip_and_gate(params: dict, y, x, z, u, cfg):
+    b, s = u.shape[:2]
+    y = y + params["d_skip"][None, None, :, None] * x.float()
+    y = y.reshape(b, s, cfg.d_inner).to(u.dtype)
+    return _gated_out(params, y, z, u, cfg)
+
+
+def mamba2_forward(params: dict, u: torch.Tensor, cfg) -> torch.Tensor:
+    """Full-sequence forward (train, prefill without a state)."""
+    z, _, x, b_in, c_in, dt = _ssm_inputs(params, u, cfg)
+    y, _ = _ssd_padded(params, x, dt, b_in, c_in, cfg)
+    return _skip_and_gate(params, y, x, z, u, cfg)
+
+
+def mamba2_prefill(params: dict, u: torch.Tensor, cfg, state: dict) -> tuple[torch.Tensor, dict]:
+    """Prefill that also returns the decode state: the conv tail (the last
+    K-1 raw conv inputs, left-padded with zeros for a shorter prompt) and
+    the final h."""
+    z, xbc_raw, x, b_in, c_in, dt = _ssm_inputs(params, u, cfg)
+    y, h_final = _ssd_padded(params, x, dt, b_in, c_in, cfg)
+    out = _skip_and_gate(params, y, x, z, u, cfg)
+    k = cfg.ssm_conv - 1
+    s = u.shape[1]
+    tail = xbc_raw[:, -k:] if s >= k else F.pad(xbc_raw, (0, 0, k - s, 0))
+    return out, {"conv": tail.to(state["conv"].dtype), "h": h_final}
+
+
+def mamba2_decode(params: dict, u: torch.Tensor, cfg, state: dict) -> tuple[torch.Tensor, dict]:
+    """One recurrent step.  u: (B, 1, d_model).  Returns (out (B, 1, d), the
+    new state); the caller decides where it is written."""
+    b = u.shape[0]
+    din = cfg.d_inner
+    g, n = cfg.ssm_ngroups, cfg.ssm_state
+    h = cfg.ssm_nheads
+    z, xbc_new, dt = _split_in_proj(cfg, u[:, 0] @ params["in_proj"])
+
+    # conv ring buffer: window = [conv state, new input]
+    window = torch.cat([state["conv"], xbc_new[:, None, :]], dim=1)  # (B, K, D)
+    conv = torch.einsum("bkd,kd->bd", window.float(), params["conv_w"].float())
+    conv = F.silu(conv + params["conv_b"].float()).to(u.dtype)
+    x = conv[:, :din].reshape(b, h, cfg.ssm_headdim)
+    rep = h // g
+    b_r = conv[:, din : din + g * n].reshape(b, g, n).repeat_interleave(rep, dim=1).float()
+    c_r = conv[:, din + g * n :].reshape(b, g, n).repeat_interleave(rep, dim=1).float()
+
+    dt = F.softplus(dt.float() + params["dt_bias"])  # (B, H)
+    decay = torch.exp(dt * params["a_log"])[..., None, None]
+    h_new = state["h"] * decay + dt[..., None, None] * (x.float()[..., :, None] * b_r[:, :, None, :])
+    y = torch.einsum("bhn,bhpn->bhp", c_r, h_new)
+    y = y + params["d_skip"][None, :, None] * x.float()
+    y = y.reshape(b, 1, din).to(u.dtype)
+    out = _gated_out(params, y, z[:, None], u, cfg)
+    return out, {"conv": window[:, 1:].to(state["conv"].dtype), "h": h_new}

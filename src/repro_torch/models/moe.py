@@ -1,0 +1,113 @@
+"""Mixture-of-experts layer of the port (``repro.models.moe``): olmoe's 64
+experts, top-8.
+
+Token-choice top-k routing with GShard one-hot dispatch and per-group
+capacity, as the JAX package computes it: tokens in groups of
+``moe_group_size``; in each group a (S, E, C) dispatch tensor built from the
+routing one-hots scatters tokens into per-expert buffers of ``C`` slots, every
+expert runs over its whole buffer (one batched product over E), and a
+combine tensor weighted by the routing probabilities gathers the results
+back.  A token's choice beyond an expert's capacity is dropped; the drop
+priority is an exclusive cumulative sum over the group's (S*k) one-hots,
+token-major, so the earlier token keeps a contested slot.
+
+These are plain products, which the JAX package leaves to XLA; no kernel of
+the port runs here.  Routing ties go to the lower expert index, as
+``jax.lax.top_k`` orders them.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import TensorSpec
+
+
+def moe_template(cfg) -> dict[str, TensorSpec]:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    t = {
+        "router": TensorSpec((d, e), dtype=torch.float32),
+        "w_up": TensorSpec((e, d, f), dtype=cfg.dtype),
+        "w_down": TensorSpec((e, f, d), dtype=cfg.dtype),
+    }
+    if cfg.gated_mlp:
+        t["w_gate"] = TensorSpec((e, d, f), dtype=cfg.dtype)
+    return t
+
+
+def _expert_ffn(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """x: (G, E, C, d) -> (G, E, C, d), every expert over its own buffer.
+    SwiGLU only, as ``layers.mlp_forward``: grok-1's gelu experts are not
+    ported."""
+    if not cfg.gated_mlp:
+        raise NotImplementedError(f"mlp={cfg.mlp!r} experts: not yet ported")
+    up = torch.einsum("gecd,edf->gecf", x, params["w_up"])
+    gate = torch.einsum("gecd,edf->gecf", x, params["w_gate"])
+    hidden = F.silu(gate.float()).to(x.dtype) * up
+    return torch.einsum("gecf,efd->gecd", hidden, params["w_down"])
+
+
+def route_topk(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest probabilities of each row and their expert indices, the
+    lower index first among equal probabilities (``jax.lax.top_k``'s order;
+    ``torch.topk`` promises none)."""
+    vals, idx = torch.sort(-probs, dim=-1, stable=True)
+    return -vals[..., :k], idx[..., :k]
+
+
+def moe_forward(
+    params: dict,
+    x: torch.Tensor,  # (B, S, d)
+    cfg,
+    *,
+    group_size: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (output (B, S, d), router aux loss, an f32 scalar)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    tokens = x.reshape(b * s, d)
+    t = tokens.shape[0]
+
+    logits = tokens.float() @ params["router"]  # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    topk_p, topk_i = route_topk(probs, k)  # (T, k)
+    topk_p = topk_p / topk_p.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    # load-balance aux loss (Switch-style): E * sum_e f_e * p_e
+    me = probs.mean(dim=0)
+    fe = F.one_hot(topk_i[:, 0], e).float().mean(dim=0)
+    aux = e * (fe * me).sum() * cfg.router_aux_coef
+
+    # G groups of g_sz tokens; the tail group is padded with invalid tokens
+    g_sz = min(group_size or cfg.moe_group_size, t)
+    n_groups = -(-t // g_sz)
+    pad = n_groups * g_sz - t
+    tk = F.pad(tokens, (0, 0, 0, pad)).reshape(n_groups, g_sz, d)
+    pi = F.pad(topk_p, (0, 0, 0, pad)).reshape(n_groups, g_sz, k)
+    ii = F.pad(topk_i, (0, 0, 0, pad)).reshape(n_groups, g_sz, k)
+    vm = (torch.arange(n_groups * g_sz, device=x.device) < t).reshape(n_groups, g_sz)
+
+    cap = max(int(math.ceil(cfg.capacity_factor * g_sz * k / e)), 1)
+
+    # slot of each (token, choice) in its expert: exclusive cumsum over the
+    # flattened (S*k) one-hots, per group
+    onehot = F.one_hot(ii, e).float()  # (G, S, k, E)
+    flat = onehot.reshape(n_groups, g_sz * k, e)
+    pos_f = flat.cumsum(dim=1) - flat
+    pos = (pos_f * flat).sum(-1).reshape(n_groups, g_sz, k)
+    keep = (pos < cap) & (pi > 0) & vm[..., None]  # (G, S, k)
+
+    # one-hot of the slot, zero past the capacity (jax.nn.one_hot's rule)
+    oc = (pos[..., None] == torch.arange(cap, device=x.device, dtype=pos.dtype)).float()
+    oc = oc * keep[..., None]  # (G, S, k, C)
+    dispatch = torch.einsum("gske,gskc->gsec", onehot, oc)  # (G, S, E, C)
+    combine = torch.einsum("gske,gskc->gsec", onehot * pi[..., None], oc)
+
+    buf = torch.einsum("gsec,gsd->gecd", dispatch.to(x.dtype), tk)  # (G, E, C, d)
+    out_buf = _expert_ffn(params, buf, cfg)
+    y = torch.einsum("gsec,gecd->gsd", combine, out_buf.float())  # (G, S, d)
+    out = y.reshape(n_groups * g_sz, d)[:t].reshape(b, s, d).to(x.dtype)
+    return out, aux

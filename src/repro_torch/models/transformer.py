@@ -1,5 +1,12 @@
-"""The port's model (``repro.models.transformer``), dense family with GQA or
-MLA attention.
+"""The port's model (``repro.models.transformer``): the dense (GQA or MLA),
+MoE, SSM and hybrid families.
+
+  dense  : [norm1 -> GQA|MLA -> +res -> norm2 -> MLP -> +res]
+  moe    : [norm1 -> GQA     -> +res -> norm2 -> MoE -> +res]
+  ssm    : [norm1 -> Mamba2  -> +res]
+  hybrid : ssm layers, and one *shared* attention+MLP block (one parameter
+           set, ``params["shared"]``) after every ``attn_every``-th layer,
+           each site with its own cache (``caches["shared"]``, one per site)
 
 Parameters and caches are nested dicts of tensors with the JAX package's keys
 and its stacked leading layer axis, so the JAX pytrees carry over one to one
@@ -10,8 +17,13 @@ eager PyTorch compiles nothing).
 
 The norms and the attentions go through :mod:`repro_torch.kernels.ops`:
 the hand-written kernels on CUDA, their plain versions on the CPU (MLA's
-absorbed decode is plain products, as in the JAX package).  Caches are
-updated in place.
+absorbed decode, the MoE dispatch and the SSD scan are plain products, as in
+the JAX package).  Caches are updated in place; a decode step given a
+``live`` row mask leaves the caches and SSM states of the other rows as they
+were, as the reference engine's select does (in MoE models, apart from the
+one K/V entry at a free row's length, which is never read: see
+``attention.gqa_decode``).  Whisper's enc-dec, pixtral's
+VLM and the int8 cache are not ported and raise.
 """
 
 from __future__ import annotations
@@ -22,9 +34,11 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models import attention, kvcache, layers
+from repro_torch.models import attention, kvcache, layers, mamba2, moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import TensorSpec
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 # ---------------------------------------------------------------------------
 # Templates and init
@@ -32,35 +46,64 @@ from repro_torch.models.layers import TensorSpec
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.attn not in ("gqa", "mla") or cfg.n_experts:
+    if cfg.family not in FAMILIES or cfg.kv_quant:
         raise NotImplementedError(
-            f"{cfg.name}: family={cfg.family!r} attn={cfg.attn!r}: not yet ported "
-            "(dense GQA and MLA only)"
+            f"{cfg.name}: family={cfg.family!r} kv_quant={cfg.kv_quant}: not yet ported "
+            f"(families {FAMILIES}, no int8 cache)"
         )
+    if cfg.family != "ssm" and cfg.attn not in ("gqa", "mla"):
+        raise ValueError(
+            f"{cfg.name}: family={cfg.family!r} has attention blocks, which need "
+            f"attn 'gqa' or 'mla', got {cfg.attn!r}"
+        )
+
+
+def _is_ssm(cfg) -> bool:
+    return cfg.family in ("ssm", "hybrid")
 
 
 def _norm_spec(cfg) -> TensorSpec:
     return TensorSpec((cfg.d_model,), init="ones", dtype=cfg.dtype)
 
 
-def layer_template(cfg) -> dict:
-    """One attention+MLP block."""
-    return {
+def attn_layer_template(cfg) -> dict:
+    """One attention block: attention, then the MLP or (MoE) the experts."""
+    t = {
         "norm1": _norm_spec(cfg),
         "norm2": _norm_spec(cfg),
         "attn": attention.mla_template(cfg) if cfg.attn == "mla" else attention.gqa_template(cfg),
-        "mlp": layers.mlp_template(cfg),
     }
+    if cfg.n_experts:
+        t["moe"] = moe.moe_template(cfg)
+    else:
+        t["mlp"] = layers.mlp_template(cfg)
+    return t
+
+
+def layer_template(cfg) -> dict:
+    """The per-layer template of the main stack."""
+    if _is_ssm(cfg):
+        return {"norm1": _norm_spec(cfg), "mixer": mamba2.mamba2_template(cfg)}
+    return attn_layer_template(cfg)
 
 
 def param_template(cfg: ModelConfig) -> dict:
     """Full-model TensorSpec tree; ``layers`` leaves carry the stacked axis."""
     _check_family(cfg)
-    return {
+    t = {
         "embed": layers.embedding_template(cfg),
         "layers": layers.stack_template(layer_template(cfg), cfg.n_layers),
         "final_norm": _norm_spec(cfg),
     }
+    if cfg.family == "hybrid":
+        t["shared"] = attn_layer_template(cfg)
+    return t
+
+
+def n_layer_blocks(cfg: ModelConfig) -> int:
+    """Multicast / live-scaling blocks: the main stack's layers, plus the
+    hybrid's one shared block."""
+    return cfg.n_layers + (1 if cfg.family == "hybrid" else 0)
 
 
 def _init_leaf(spec: TensorSpec, gen: torch.Generator, device: torch.device) -> torch.Tensor:
@@ -68,6 +111,10 @@ def _init_leaf(spec: TensorSpec, gen: torch.Generator, device: torch.device) -> 
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init in ("ssm_a", "ssm_dt"):
+        u = torch.rand(spec.shape, generator=gen, dtype=torch.float32, device=device)
+        law = layers.ssm_a_from_uniform if spec.init == "ssm_a" else layers.ssm_dt_from_uniform
+        return law(u).to(spec.dtype)
     if spec.init != "normal":
         raise ValueError(f"unknown init {spec.init!r}")
     std = layers.init_std(spec)
@@ -117,30 +164,63 @@ def _n_layers(stacked: dict) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _ffn(cfg, lp: dict, h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The block's MLP, or its experts (with their aux loss)."""
+    if cfg.n_experts:
+        return moe.moe_forward(lp["moe"], h, cfg)
+    return layers.mlp_forward(lp["mlp"], h, cfg), None
+
+
 def _attn_layer_fwd(
     cfg, lp: dict, x: torch.Tensor, positions: torch.Tensor, *, causal: bool = True,
     cache: dict | None = None,
-) -> tuple[torch.Tensor, dict | None]:
-    """Full-sequence layer.  Returns (x, cache)."""
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Full-sequence attention block, writing ``cache`` when given.  Returns
+    (x, the MoE aux loss or None)."""
     h = ops.rmsnorm(x, lp["norm1"], eps=cfg.norm_eps)
     if cfg.attn == "mla":
-        a, cache = attention.mla_prefill(lp["attn"], h, positions, cfg, cache=cache)
+        a, _ = attention.mla_prefill(lp["attn"], h, positions, cfg, cache=cache)
     else:
-        a, cache = attention.gqa_prefill(lp["attn"], h, positions, cfg, causal=causal, cache=cache)
+        a, _ = attention.gqa_prefill(lp["attn"], h, positions, cfg, causal=causal, cache=cache)
     x = x + a
-    h2 = ops.rmsnorm(x, lp["norm2"], eps=cfg.norm_eps)
-    return x + layers.mlp_forward(lp["mlp"], h2, cfg), cache
+    m, aux = _ffn(cfg, lp, ops.rmsnorm(x, lp["norm2"], eps=cfg.norm_eps))
+    return x + m, aux
 
 
 def _attn_layer_decode(
     cfg, lp: dict, x: torch.Tensor, cache: dict, live: torch.Tensor | None = None
-) -> tuple[torch.Tensor, dict]:
+) -> torch.Tensor:
     h = ops.rmsnorm(x, lp["norm1"], eps=cfg.norm_eps)
     decode = attention.mla_decode if cfg.attn == "mla" else attention.gqa_decode
-    a, cache = decode(lp["attn"], h, cfg, cache, live=live)
+    a, _ = decode(lp["attn"], h, cfg, cache, live=live)
     x = x + a
-    h2 = ops.rmsnorm(x, lp["norm2"], eps=cfg.norm_eps)
-    return x + layers.mlp_forward(lp["mlp"], h2, cfg), cache
+    m, _ = _ffn(cfg, lp, ops.rmsnorm(x, lp["norm2"], eps=cfg.norm_eps))
+    return x + m
+
+
+def _ssm_layer_fwd(cfg, lp: dict, x: torch.Tensor, state: dict | None = None) -> torch.Tensor:
+    """Full-sequence Mamba2 block; with ``state``, the prefill writes the
+    decode state into it."""
+    h = ops.rmsnorm(x, lp["norm1"], eps=cfg.norm_eps)
+    if state is None:
+        return x + mamba2.mamba2_forward(lp["mixer"], h, cfg)
+    out, new = mamba2.mamba2_prefill(lp["mixer"], h, cfg, state)
+    kvcache.write_ssm_state(state, new)
+    return x + out
+
+
+def _ssm_layer_decode(
+    cfg, lp: dict, x: torch.Tensor, state: dict, live: torch.Tensor | None = None
+) -> torch.Tensor:
+    h = ops.rmsnorm(x, lp["norm1"], eps=cfg.norm_eps)
+    out, new = mamba2.mamba2_decode(lp["mixer"], h, cfg, state)
+    kvcache.write_ssm_state(state, new, live)
+    return x + out
+
+
+def _is_site(cfg, i: int) -> bool:
+    """Whether the hybrid's shared block runs after main-stack layer ``i``."""
+    return cfg.family == "hybrid" and i % cfg.attn_every == cfg.attn_every - 1
 
 
 # ---------------------------------------------------------------------------
@@ -148,22 +228,37 @@ def _attn_layer_decode(
 # ---------------------------------------------------------------------------
 
 
+def _stack(one: dict, n: int) -> dict:
+    return {k: v[None].repeat(n, *([1] * v.dim())) for k, v in one.items()}
+
+
 def init_caches(
     cfg: ModelConfig, batch: int, max_seq: int, device: str | torch.device | None = None
 ) -> dict:
-    """Stacked per-layer decode caches, lengths (L, B): GQA k/v (L, B, KV, S,
-    D); MLA ckv (L, B, S, kv_lora) and krope (L, B, S, rope)."""
+    """Stacked per-layer decode state.  ``layers``: GQA k/v (L, B, KV, S, D)
+    and lengths (L, B); MLA ckv (L, B, S, kv_lora) and krope (L, B, S,
+    rope); SSM conv (L, B, K-1, d_xbc) and h (L, B, H, P, N).  The hybrid's
+    ``shared``: a GQA cache per site, (n_layers // attn_every, B, ...)."""
     _check_family(cfg)
     dev = resolve_device(device)
+
+    def kv():
+        return kvcache.init_kv_cache(
+            batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.dtype,
+            quant=cfg.kv_quant, device=dev,
+        )
+
+    if _is_ssm(cfg):
+        caches = {"layers": _stack(kvcache.init_ssm_state(batch, cfg, device=dev), cfg.n_layers)}
+        if cfg.family == "hybrid":
+            caches["shared"] = _stack(kv(), cfg.n_layers // cfg.attn_every)
+        return caches
     if cfg.attn == "mla":
         one = kvcache.init_mla_cache(
             batch, max_seq, cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.dtype, device=dev)
     else:
-        one = kvcache.init_kv_cache(
-            batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.dtype,
-            quant=cfg.kv_quant, device=dev,
-        )
-    return {"layers": {k: v[None].repeat(cfg.n_layers, *([1] * v.dim())) for k, v in one.items()}}
+        one = kv()
+    return {"layers": _stack(one, cfg.n_layers)}
 
 
 def _embed(cfg, params, tokens):
@@ -182,21 +277,44 @@ def _head(cfg, params, x: torch.Tensor) -> torch.Tensor:
     return layers.vocab_mask_logits(logits.float(), cfg)
 
 
+def _forward(cfg, params: dict, x: torch.Tensor, positions: torch.Tensor, lo: int, hi: int,
+             *, shared: dict | None = None, caches: dict | None = None):
+    """Main-stack layers [lo, hi) over a full sequence, the hybrid's shared
+    block at its sites in that range (when ``shared`` is given), writing
+    ``caches`` when given.  Returns (x, summed MoE aux loss or None)."""
+    aux = None
+    for i in range(int(lo), int(hi)):
+        lp = layer_slice(params, i)
+        c = None if caches is None else layer_slice(caches["layers"], i)
+        if _is_ssm(cfg):
+            x = _ssm_layer_fwd(cfg, lp, x, state=c)
+        else:
+            x, a = _attn_layer_fwd(cfg, lp, x, positions, cache=c)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        if shared is not None and _is_site(cfg, i):
+            sc = None if caches is None else layer_slice(caches["shared"], i // cfg.attn_every)
+            x, _ = _attn_layer_fwd(cfg, shared, x, positions, cache=sc)
+    return x, aux
+
+
 # ---------------------------------------------------------------------------
 # Train forward (full sequence, no caches; forward only)
 # ---------------------------------------------------------------------------
 
 
 def train_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
-    """Returns (logits (B, S, V), aux loss 0)."""
+    """Returns (logits (B, S, V), the MoE aux loss summed over layers; 0
+    for the other families)."""
     _check_family(cfg)
     positions = _positions(tokens)
-    x = _embed(cfg, params, tokens)
-    for i in range(_n_layers(params["layers"])):
-        x, _ = _attn_layer_fwd(cfg, layer_slice(params["layers"], i), x, positions)
+    x, aux = _forward(cfg, params["layers"], _embed(cfg, params, tokens), positions,
+                      0, _n_layers(params["layers"]), shared=params.get("shared"))
     x = ops.rmsnorm(x, params["final_norm"], eps=cfg.norm_eps)
     logits = layers.unembed(params["embed"], x, cfg)
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return logits, aux
 
 
 # ---------------------------------------------------------------------------
@@ -207,13 +325,8 @@ def train_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
 def prefill_logits(cfg: ModelConfig, params: dict, tokens: torch.Tensor, caches: dict):
     """Returns (last-position masked f32 logits (B, V), filled caches)."""
     _check_family(cfg)
-    positions = _positions(tokens)
-    x = _embed(cfg, params, tokens)
-    for i in range(_n_layers(params["layers"])):
-        x, _ = _attn_layer_fwd(
-            cfg, layer_slice(params["layers"], i), x, positions,
-            cache=layer_slice(caches["layers"], i),
-        )
+    x, _ = _forward(cfg, params["layers"], _embed(cfg, params, tokens), _positions(tokens),
+                    0, _n_layers(params["layers"]), shared=params.get("shared"), caches=caches)
     return _head(cfg, params, x[:, -1:]), caches
 
 
@@ -227,15 +340,20 @@ def decode_logits(
     cfg: ModelConfig, params: dict, last_tokens: torch.Tensor, caches: dict,
     live: torch.Tensor | None = None,
 ):
-    """One step for every row.  ``live`` (B,) bool limits the cache append to
-    live rows (the engine's free slots keep their caches).  Returns (masked
-    f32 logits (B, V), caches)."""
+    """One step for every row.  ``live`` (B,) bool limits the cache and state
+    writes to live rows (the engine's free slots keep theirs).  Returns
+    (masked f32 logits (B, V), caches)."""
     _check_family(cfg)
     x = layers.embed_tokens(params["embed"], last_tokens[:, None], cfg)
     for i in range(_n_layers(params["layers"])):
-        x, _ = _attn_layer_decode(
-            cfg, layer_slice(params["layers"], i), x, layer_slice(caches["layers"], i), live
-        )
+        lp, c = layer_slice(params["layers"], i), layer_slice(caches["layers"], i)
+        if _is_ssm(cfg):
+            x = _ssm_layer_decode(cfg, lp, x, c, live)
+        else:
+            x = _attn_layer_decode(cfg, lp, x, c, live)
+        if _is_site(cfg, i):
+            sc = layer_slice(caches["shared"], i // cfg.attn_every)
+            x = _attn_layer_decode(cfg, params["shared"], x, sc, live)
     return _head(cfg, params, x), caches
 
 
@@ -260,9 +378,10 @@ def forward_layers_range(
     lo: int,
     hi: int,
     positions: torch.Tensor,
+    shared: dict | None = None,
 ) -> torch.Tensor:
-    """Run layers ``[lo, hi)`` of the main stack."""
+    """Run layers ``[lo, hi)`` of the main stack, and the hybrid's shared
+    block after each of its sites in that range when ``shared`` is given."""
     _check_family(cfg)
-    for i in range(int(lo), int(hi)):
-        x, _ = _attn_layer_fwd(cfg, layer_slice(stacked_layers, i), x, positions)
+    x, _ = _forward(cfg, stacked_layers, x, positions, lo, hi, shared=shared)
     return x

@@ -43,8 +43,10 @@ def payload_bytes(cache_one: Any, prompt_len: int, max_seq: int) -> int:
     The 1-slot cache dict is allocated at ``max_seq``; only the prompt
     prefix carries information, so the migrated volume is the prompt-length
     fraction of the tensors' bytes.  The port's 1-slot cache holds the same
-    leaves as the JAX one (GQA ``k``/``v``, MLA ``ckv``/``krope``, and int32
-    ``lengths``), so the count equals the JAX package's for the same config."""
+    leaves as the JAX one (GQA ``k``/``v``, MLA ``ckv``/``krope``, int32
+    ``lengths``, the SSM state's ``conv`` and f32 ``h``, a hybrid's per-site
+    ``shared`` caches), so the count equals the JAX package's for the same
+    config."""
     total = sum(t.numel() * t.element_size() for t in _tensors(cache_one))
     return max(1, int(total * prompt_len / max(max_seq, 1)))
 

@@ -71,9 +71,19 @@ class InstanceEngine:
 
     def _splice_slot(self, slot: int, one: Any, first_token: int) -> None:
         """Copy a 1-slot prefill cache and its first token into ``slot`` in
-        place.  Local admission and migrated-KV admission share it."""
-        for name, buf in self.caches["layers"].items():
-            buf[:, slot].copy_(one["layers"][name][:, 0])
+        place.  Local admission and migrated-KV admission share it.  Every
+        leaf of the cache tree (the layers' caches or SSM states, the
+        hybrid's shared-block caches) whose axis 1 is the slot axis takes
+        the request's row, the reference engine's rule."""
+
+        def splice(old, new):
+            if isinstance(old, dict):
+                for name in old:
+                    splice(old[name], new[name])
+            elif old.dim() >= 2 and old.shape[1] == self.n_slots:
+                old[:, slot].copy_(new[:, 0])
+
+        splice(self.caches, one)
         self.last_tokens[slot] = int(first_token)
         self.slot_live[slot] = True
 

@@ -1,5 +1,6 @@
-"""The other dense SwiGLU archs of the JAX package registered in the port
-(GQA, and MLA for minicpm3-4b): each config equals the JAX one field by field, at full size and at
+"""The other archs of the JAX package registered in the port (dense GQA,
+MLA for minicpm3-4b, MoE olmoe-1b-7b, SSM mamba2-370m, hybrid zamba2-2.7b):
+each config equals the JAX one field by field, at full size and at
 REDUCED, and at REDUCED in f32 the port's prefill logits equal the JAX
 model's on the same (bridged) weights."""
 
@@ -20,7 +21,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import bridge  # noqa: E402
 from repro_torch.models import transformer as TF  # noqa: E402
 
-ARCHS = ["llama3-8b", "qwen1.5-4b", "mistral-24b", "qwen2.5-72b", "minicpm3-4b"]
+ARCHS = ["llama3-8b", "qwen1.5-4b", "mistral-24b", "qwen2.5-72b", "minicpm3-4b",
+         "olmoe-1b-7b", "mamba2-370m", "zamba2-2.7b"]
 
 
 def _fields(cfg):

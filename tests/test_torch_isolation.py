@@ -20,6 +20,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 CFG = get_config("granite-8b", reduced=True)
 MLA_CFG = get_config("minicpm3-4b", reduced=True)
+HYBRID_CFG = get_config("zamba2-2.7b", reduced=True)
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -37,7 +38,9 @@ def test_isolation_covers_the_mla_and_maas_modules():
     for mod in ("configs/minicpm3_4b.py", "models/attention.py", "models/kvcache.py",
                 "workloads/__init__.py", "workloads/traces.py", "serving/traces.py",
                 "obs/ledger.py", "obs/slo.py", "serving/maas/__init__.py",
-                "serving/maas/tenant.py", "serving/maas/fleet.py", "launch/serve.py"):
+                "serving/maas/tenant.py", "serving/maas/fleet.py", "launch/serve.py",
+                "models/moe.py", "models/mamba2.py", "core/collectives.py",
+                "configs/olmoe_1b_7b.py", "configs/mamba2_370m.py", "configs/zamba2_2_7b.py"):
         assert f"src/repro_torch/{mod}" in names, mod
 
 
@@ -56,9 +59,11 @@ def test_port_imports_no_jax_and_nothing_of_repro(path):
         lambda: bridge.params_from_numpy({"w": np.zeros(3, np.float32)}),
         lambda: TF.init_params(MLA_CFG, 0),
         lambda: TF.init_caches(MLA_CFG, 1, 8),
+        lambda: TF.init_params(HYBRID_CFG, 0),
+        lambda: TF.init_caches(HYBRID_CFG, 1, 8),
     ],
     ids=["resolve_device", "init_params", "init_caches", "params_from_numpy", "init_params_mla",
-         "init_caches_mla"],
+         "init_caches_mla", "init_params_hybrid", "init_caches_hybrid"],
 )
 def test_entry_points_default_to_cuda_and_raise_without_it(call):
     if torch.cuda.is_available():

@@ -133,7 +133,7 @@ def test_launch_counts_reset():
 
 
 @pytest.mark.parametrize("elem", [2, 4])
-@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("d", [16, 128, 80])
 @pytest.mark.parametrize(
     "b,kv,s", [(1, 1, 1), (1, 2, 4096), (2, 2, 64), (3, 8, 1000), (4, 8, 1024), (64, 8, 1024), (2, 8, 96)]
 )
@@ -182,7 +182,8 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dt):
     FLASH_SHAPES
     + [(1, 100, 100, 8, 8, 64), (2, 128, 256, 4, 1, 16), (1, 300, 300, 32, 8, 128),
        (2, 200, 333, 8, 2, 96), (1, 130, 70, 6, 3, 24),
-       (1, 128, 128, 20, 20, 128), (1, 128, 128, 40, 40, 96)],  # qwen1.5-4b, minicpm3 (n_rep 1)
+       (1, 128, 128, 20, 20, 128), (1, 128, 128, 40, 40, 96),  # qwen1.5-4b, minicpm3 (n_rep 1)
+       (1, 100, 100, 4, 4, 80), (2, 130, 200, 8, 2, 80), (1, 512, 512, 32, 32, 80)],  # zamba2's D = 80
 )
 def test_flash_kernel_matches_plain(cuda, b, sq, sk, h, kv, d, causal, dt):
     _, (q, k, v) = _inputs(6, [(b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)], dt, cuda)
@@ -196,7 +197,9 @@ def test_flash_kernel_matches_plain(cuda, b, sq, sk, h, kv, d, causal, dt):
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize(
     "b,s,h,kv,d",
-    DECODE_SHAPES + [(3, 100, 4, 4, 64), (1, 256, 16, 8, 16), (4, 152, 20, 20, 128)])  # last: qwen1.5-4b
+    DECODE_SHAPES + [(3, 100, 4, 4, 64), (1, 256, 16, 8, 16), (4, 152, 20, 20, 128),  # qwen1.5-4b
+                     (3, 100, 4, 4, 80), (2, 300, 16, 2, 80), (4, 1024, 32, 32, 80),  # zamba2's D = 80
+                     (4, 552, 16, 16, 128), (4, 552, 32, 32, 80)])  # olmoe and zamba2 served
 def test_decode_kernel_matches_plain(cuda, b, s, h, kv, d, dt):
     _, (q, k, v) = _inputs(7, [(b, h, d), (b, kv, s, d), (b, kv, s, d)], dt, cuda)
     lens = torch.from_numpy(_lengths(8, b, s)).to(cuda)
@@ -295,3 +298,46 @@ def test_decode_kernel_ignores_rows_past_length(cuda):
         q, torch.where(past, 99.0, k), torch.where(past, -99.0, v), lens, impl="kernel"
     )
     torch.testing.assert_close(out1, out2, atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
+def test_decode_kernel_head_dim_80(cuda, n_rep, dt):
+    """D = 80 (zamba2): a row is 10 (bf16) or 20 (f32) lanes, so a warp holds
+    whole rows and idle lanes.  Lengths 0, S, 1, one chunk + 1 and one not a
+    multiple of 16, at every n_rep."""
+    b, s, kv, d = 5, 700, 2, 80
+    chunk = decode_plan(b, kv, s, d, 2 if dt == "bf16" else 4).chunk
+    _, (q, k, v) = _inputs(15, [(b, kv * n_rep, d), (b, kv, s, d), (b, kv, s, d)], dt, cuda)
+    lens = torch.tensor([0, s, 1, chunk + 1, 333], dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q, k, v, lens, impl="kernel")
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    _close(got[1:], ref.decode_attention_ref(q, k, v, lens)[1:], dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_attention_kernels_reject_other_head_dims(cuda, dt):
+    """A head dim with no instantiation (here 72, 160 bytes in f32 are 40
+    lanes) raises a clear error in the wrapper, never reaches a launch."""
+    x = torch.zeros(1, 8, 2, 72, device=cuda, dtype=DTYPES[dt])
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        ops.flash_attention(x, x, x, impl="kernel")
+    cache = torch.zeros(1, 2, 8, 72, device=cuda, dtype=DTYPES[dt])
+    lens = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        ops.decode_attention(x[:, 0], cache, cache, lens, impl="kernel")
+
+
+def test_attention_head_dims_cover_zamba2():
+    """zamba2's shared block runs flash and decode at D = d_model / n_heads =
+    80 (full) and at REDUCED's head dim, natively."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as decode
+    from repro_torch.kernels import flash_attention as flash
+
+    assert get_config("zamba2-2.7b").resolved_head_dim == 80
+    for reduced in (False, True):
+        d = get_config("zamba2-2.7b", reduced=reduced).resolved_head_dim
+        assert d in flash.HEAD_DIMS and d in decode.HEAD_DIMS

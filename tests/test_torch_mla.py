@@ -173,18 +173,28 @@ def test_append_mla_never_writes_a_free_or_full_slot():
 
 
 @pytest.mark.parametrize("arch", ["minicpm3-4b", "granite-8b"])  # MLA and GQA decode
-def test_uniform_decode_is_not_ported(arch):
-    cfg = get_config(arch, reduced=True).replace(dtype=torch.float32)
-    params = TF.init_params(cfg, 0, device=CPU)
-    caches = TF.init_caches(cfg, 1, 8, device=CPU)
-    with pytest.raises(NotImplementedError, match="uniform_decode"):
-        TF.decode_step(cfg.replace(uniform_decode=True), params,
-                       torch.zeros(1, dtype=torch.int32), caches)
-
-
-# ---------------------------------------------------------------------------
-# The whole model
-# ---------------------------------------------------------------------------
+def test_uniform_decode_matches_jax(arch):
+    """The lockstep append of a ``uniform_decode`` config (MLA and GQA):
+    with a straggler row (lengths 10 and 7), 4 direct decode steps give
+    JAX's token ids and caches (f32, 1e-4).  Every row writes at the batch's
+    largest length, so the straggler's tokens land past its own length, as
+    in the reference."""
+    jd, td = DTYPES["f32"]
+    jcfg = jax_get_config(arch, reduced=True).replace(dtype=jd, uniform_decode=True)
+    cfg = get_config(arch, reduced=True).replace(dtype=td, uniform_decode=True)
+    jparams = JTF.init_params(jax.random.PRNGKey(3), jcfg)
+    params = bridge.params_from_numpy(_np_tree(jparams), device=CPU)
+    toks = _tokens(cfg, 2, 10)
+    jnxt, jc = JTF.prefill(jcfg, jparams, jnp.asarray(toks), JTF.init_caches(jcfg, 2, 16))
+    jc["layers"]["lengths"] = jc["layers"]["lengths"].at[:, 1].set(7)
+    caches = bridge.caches_from_numpy(_np_tree(jc), device=CPU)
+    nxt = torch.from_numpy(np.array(jnxt))
+    for _ in range(4):
+        jnxt, jc = JTF.decode_step(jcfg, jparams, jnxt, jc)
+        nxt, caches = TF.decode_step(cfg, params, nxt, caches)
+        np.testing.assert_array_equal(nxt.numpy(), np.asarray(jnxt))
+        _assert_caches_close(caches["layers"], jc["layers"])
+    np.testing.assert_array_equal(caches["layers"]["lengths"][0].numpy(), [14, 11])
 
 
 def _jax_logits(jcfg, jparams, toks, dt):

@@ -83,8 +83,9 @@ def test_granite_config_fields_equal_jax(reduced):
 
 
 def test_unported_arch_raises():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("mamba2-370m")
+    for arch in ("whisper-large-v3", "pixtral-12b"):  # enc-dec and VLM: not ported
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            get_config(arch)
 
 
 def test_param_template_matches_jax():
@@ -238,10 +239,18 @@ def test_live_session_and_multiplier_match_jax():
 
 
 def test_other_families_raise():
+    """enc-dec, VLM and the int8 cache raise; so does a family with
+    attention blocks and attn='none'; the MoE, SSM and hybrid families
+    build."""
     cfg = get_config("granite-8b", reduced=True)
-    for bad in (cfg.replace(family="moe", n_experts=4, top_k=2), cfg.replace(family="ssm"),
-                cfg.replace(family="encdec"), cfg.replace(attn="none")):
+    for bad in (cfg.replace(family="encdec"), cfg.replace(family="vlm"),
+                cfg.replace(kv_quant=True)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             TF.param_template(bad)
+    for arch in ("granite-8b", "olmoe-1b-7b", "zamba2-2.7b"):
+        with pytest.raises(ValueError, match="attn 'gqa' or 'mla'"):
+            TF.param_template(get_config(arch, reduced=True).replace(attn="none"))
     with pytest.raises(NotImplementedError):
         TF.init_caches(cfg.replace(kv_quant=True), 1, 8, device=CPU)
+    for arch in ("olmoe-1b-7b", "mamba2-370m", "zamba2-2.7b"):
+        TF.param_template(get_config(arch, reduced=True))

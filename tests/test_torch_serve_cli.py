@@ -99,3 +99,16 @@ def test_default_device_raises_without_cuda():
         serve.main(["--disagg", "--requests", "2"])
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--maas", "--requests", "2"])
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-370m", "zamba2-2.7b"])
+def test_moe_ssm_and_hybrid_archs_serve(arch, capsys):
+    """``--arch`` with the MoE, SSM and hybrid archs: the colocated loop and
+    ``--disagg`` (the SSM state, and the hybrid's shared-block caches,
+    migrate prefill -> decode) run to the end with nothing dropped."""
+    serve.main(CPU + ["--arch", arch, "--requests", "4"])
+    serve.main(CPU + ["--arch", arch, "--disagg", "--requests", "6"])
+    text = capsys.readouterr().out
+    assert "served 4 requests" in text
+    assert "handoffs completed 6/6" in text
+    assert "dropped or token-gapped requests: 0" in text
