@@ -16,7 +16,18 @@ Run from the root of a checkout.  Phases, each of which must pass:
               give it (n_rep 1 at D = 128 and 96, d = 2560, 768, 256); and
               at phase 9's shapes, timed: flash and decode at olmoe's D = 128
               and zamba2's D = 80 (n_rep 1), decode also at the served
-              cache size S = 552, rmsnorm at d = 1024, 2048, 5120
+              cache size S = 552, rmsnorm at d = 1024, 2048, 5120; and at
+              phase 10's shapes, timed: flash at grok-1's n_rep 6,
+              nemotron's D = 192 (96/8 heads), whisper's encoder (1500
+              frames), cross-attention (512 x 1500) and decoder
+              self-attention (512, causal), each at B = 1 and the served B
+              = 4, and pixtral's 1088-token prompt; decode at n_rep 3 (D =
+              16), grok-1's n_rep 6, nemotron's n_rep 12 at D = 192,
+              whisper's cross cache (S = 1500) and self cache, pixtral's
+              n_rep 4, each at the served S = 552 with lengths 0 and 544;
+              rmsnorm at d = 18432 (cold: 37.8 MB) and 1280; untimed, the
+              one-sequence decode of phase 10's parity runs and whisper's
+              128-token split
   3. parity   granite-8b, qwen1.5-4b and minicpm3-4b at full width, 2 layers:
               the kernel path and the plain path agree over a 512-token
               prefill and 16 decode steps (f32: equal token ids; bf16: as
@@ -57,6 +68,23 @@ Run from the root of a checkout.  Phases, each of which must pass:
               step); the idle prefill and the decode step on the wall clock
               and profiled, peak memory; (c) the live split bit for bit at k
               in {0, 1, L/2, L}; (d) zamba2's --disagg, every handoff done
+ 10. last     grok-1-314b (MoE, n_rep 6), nemotron-4-340b (squared ReLU, D =
+              192, n_rep 12), whisper-large-v3 (enc-dec) and pixtral-12b
+              (VLM) at full width, after phase 9's models are freed: (a)
+              parity as in phase 3 (grok-1 and nemotron cut to 1 layer,
+              whisper to 2 + 2 with 1500 frames, pixtral to 2 with 1024
+              patch frames on a 1088-token prompt), and whisper under the
+              reference's init law, 2 + 2 and whole: both f32 paths against
+              a float64 plain run, the kernel path no farther than twice the
+              plain path's distance; (b) grok-1 and nemotron
+              cut to 2 layers (628 and 680 GB in bf16 whole) and pixtral
+              whole through the colocated CLI loop, 8 requests of 512 + 32
+              tokens on 4 slots, launches exact, the idle prefill and the
+              decode step timed and profiled; whisper whole at the model
+              API (the engine passes no frames): 4 prompts of 512 tokens
+              with 1500 frames, 32 steps, launches exact, timed and
+              profiled; (c) the live split of pixtral and whisper bit for
+              bit at k in {0, 1, L/2, L}
 
 It prints one JSON ``kernels`` line and the card's name and power limit before
 its last line, which is ``{"ok": true, "device": {...}}``.  It exits non-zero,
@@ -83,11 +111,15 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # dense tensor-core bf16; f32 without tensor cores
 TOL = {"f32": 3e-5, "bf16": 2e-2}  # tests/test_kernels.py:16-17
-COLD_BYTES = 128e6  # rotating input copies of a cold timing: over 2.5x the H100's 50 MB L2
+L2_BYTES = 50e6  # H100 SXM
+COLD_BYTES = 128e6  # rotating input copies of a cold timing: over 2.5x the L2
 SEED = 0
 # phase 2 cases timed (the first word of the case): the main path's shapes,
 # minicpm3's MLA prefill, and phase 9's families (also at its served cache size)
-TIMED = ("main", "mla", "olmoe", "mamba2", "zamba2", "olmoe-serve", "zamba2-serve")
+TIMED = ("main", "mla", "olmoe", "mamba2", "zamba2", "olmoe-serve", "zamba2-serve",
+         "grok", "grok-serve", "nemotron", "nemotron-serve", "whisper", "whisper-enc",
+         "whisper-cross", "whisper-serve", "whisper-self", "whisper-self-b4", "whisper-enc-b4",
+         "whisper-cross-b4", "pixtral", "pixtral-serve")
 
 KERNELS = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:23"),
@@ -140,7 +172,9 @@ def time_ms(torch, fns: dict, input_sets: list, iters: int = 30) -> dict:
     before them, a few MB that sit in the 50 MB L2.  Decode attention is
     given copies whose bytes together exceed twice the L2 (``cold_sets``),
     because on the path each of the 36 layers reads its own cache (16.8 MB at
-    the serving shape, 604 MB per step), which comes from HBM."""
+    the serving shape, 604 MB per step), which comes from HBM; so is any
+    case whose bytes moved exceed half the L2 (nemotron's rmsnorm, 37.8 MB),
+    which could not sit in it on the path either."""
     n = len(input_sets)
     for fn in fns.values():
         for i in range(max(3, n)):
@@ -273,6 +307,79 @@ def kernel_cases(torch, dt: str):
         ("decode_attention", "zamba2-serve B=4 H=32 KV=32 S=552 D=80 lengths 0, 512, 530, 544",
          lambda: (randn(4, 32, 80), randn(4, 32, 552, 80), randn(4, 32, 552, 80),
                   lens(0, 512, 530, 544)), {}),
+        # phase 10's archs at the shapes their paths give the kernels:
+        # grok-1 (n_rep 6, D = 128), nemotron (n_rep 12, D = 192, d = 18432),
+        # whisper (D = 64, n_rep 1: the encoder's 1500 frames, the decoder's
+        # cross-attention from a 512-token prompt to them, the static cross
+        # cache of 1500 rows and the self cache; d = 1280) and pixtral (n_rep
+        # 4 at a 1088-token prompt); decode at the served max_seq of 552
+        # with lengths 0 and 544 among them; each timed
+        ("rmsnorm", "nemotron N=512 d=18432", lambda: (randn(512, 18432), randn(18432)), {}),
+        ("rmsnorm", "whisper N=512 d=1280", lambda: (randn(512, 1280), randn(1280)), {}),
+        ("flash_attention", "grok B=1 S=512 H=48 KV=8 D=128 causal",
+         lambda: (randn(1, 512, 48, 128), randn(1, 512, 8, 128), randn(1, 512, 8, 128)),
+         {"causal": True}),
+        ("flash_attention", "nemotron B=1 S=512 H=96 KV=8 D=192 causal",
+         lambda: (randn(1, 512, 96, 192), randn(1, 512, 8, 192), randn(1, 512, 8, 192)),
+         {"causal": True}),
+        ("flash_attention", "whisper-enc B=1 S=1500 H=20 KV=20 D=64 non-causal",
+         lambda: (randn(1, 1500, 20, 64), randn(1, 1500, 20, 64), randn(1, 1500, 20, 64)),
+         {"causal": False}),
+        ("flash_attention", "whisper-cross B=1 Sq=512 Sk=1500 H=20 KV=20 D=64 non-causal",
+         lambda: (randn(1, 512, 20, 64), randn(1, 1500, 20, 64), randn(1, 1500, 20, 64)),
+         {"causal": False}),
+        ("flash_attention", "pixtral B=1 S=1088 H=32 KV=8 D=128 causal",
+         lambda: (randn(1, 1088, 32, 128), randn(1, 1088, 8, 128), randn(1, 1088, 8, 128)),
+         {"causal": True}),
+        # whisper's decoder self-attention prefill (one prompt: parity and the
+        # idle prefill; four: the served prefill), and its encoder and cross
+        # prefill at the served B = 4
+        ("flash_attention", "whisper-self B=1 S=512 H=20 KV=20 D=64 causal",
+         lambda: (randn(1, 512, 20, 64), randn(1, 512, 20, 64), randn(1, 512, 20, 64)),
+         {"causal": True}),
+        ("flash_attention", "whisper-self-b4 B=4 S=512 H=20 KV=20 D=64 causal",
+         lambda: (randn(4, 512, 20, 64), randn(4, 512, 20, 64), randn(4, 512, 20, 64)),
+         {"causal": True}),
+        ("flash_attention", "whisper-enc-b4 B=4 S=1500 H=20 KV=20 D=64 non-causal",
+         lambda: (randn(4, 1500, 20, 64), randn(4, 1500, 20, 64), randn(4, 1500, 20, 64)),
+         {"causal": False}),
+        ("flash_attention", "whisper-cross-b4 B=4 Sq=512 Sk=1500 H=20 KV=20 D=64 non-causal",
+         lambda: (randn(4, 512, 20, 64), randn(4, 1500, 20, 64), randn(4, 1500, 20, 64)),
+         {"causal": False}),
+        # untimed: the shapes of phase 10's parity runs (one sequence, max_seq
+        # 1024, pixtral's 1152, at the last decode step's length) and of
+        # whisper's live split (128 tokens)
+        ("flash_attention", "live whisper B=1 S=128 H=20 KV=20 D=64 causal",
+         lambda: (randn(1, 128, 20, 64), randn(1, 128, 20, 64), randn(1, 128, 20, 64)),
+         {"causal": True}),
+        ("decode_attention", "parity grok B=1 H=48 KV=8 S=1024 D=128 length 528",
+         lambda: (randn(1, 48, 128), randn(1, 8, 1024, 128), randn(1, 8, 1024, 128), lens(528)), {}),
+        ("decode_attention", "parity nemotron B=1 H=96 KV=8 S=1024 D=192 length 528",
+         lambda: (randn(1, 96, 192), randn(1, 8, 1024, 192), randn(1, 8, 1024, 192), lens(528)), {}),
+        ("decode_attention", "parity whisper self B=1 H=20 KV=20 S=1024 D=64 length 528",
+         lambda: (randn(1, 20, 64), randn(1, 20, 1024, 64), randn(1, 20, 1024, 64), lens(528)), {}),
+        ("decode_attention", "parity whisper cross B=1 H=20 KV=20 S=1500 D=64 length 1500",
+         lambda: (randn(1, 20, 64), randn(1, 20, 1500, 64), randn(1, 20, 1500, 64), lens(1500)), {}),
+        ("decode_attention", "parity pixtral B=1 H=32 KV=8 S=1152 D=128 length 1104",
+         lambda: (randn(1, 32, 128), randn(1, 8, 1152, 128), randn(1, 8, 1152, 128), lens(1104)), {}),
+        ("decode_attention", "n_rep 3 D=16 B=5 H=6 KV=2 S=600 lengths 0, 600, 1, 33, 333",
+         lambda: (randn(5, 6, 16), randn(5, 2, 600, 16), randn(5, 2, 600, 16),
+                  lens(0, 600, 1, 33, 333)), {}),
+        ("decode_attention", "grok-serve B=4 H=48 KV=8 S=552 D=128 lengths 0, 512, 530, 544",
+         lambda: (randn(4, 48, 128), randn(4, 8, 552, 128), randn(4, 8, 552, 128),
+                  lens(0, 512, 530, 544)), {}),
+        ("decode_attention", "nemotron-serve B=4 H=96 KV=8 S=552 D=192 lengths 0, 512, 530, 544",
+         lambda: (randn(4, 96, 192), randn(4, 8, 552, 192), randn(4, 8, 552, 192),
+                  lens(0, 512, 530, 544)), {}),
+        ("decode_attention", "whisper-cross B=4 H=20 KV=20 S=1500 D=64 lengths 1500 x 4",
+         lambda: (randn(4, 20, 64), randn(4, 20, 1500, 64), randn(4, 20, 1500, 64),
+                  lens(1500, 1500, 1500, 1500)), {}),
+        ("decode_attention", "whisper-serve B=4 H=20 KV=20 S=552 D=64 lengths 0, 512, 530, 544",
+         lambda: (randn(4, 20, 64), randn(4, 20, 552, 64), randn(4, 20, 552, 64),
+                  lens(0, 512, 530, 544)), {}),
+        ("decode_attention", "pixtral-serve B=4 H=32 KV=8 S=552 D=128 lengths 0, 512, 530, 544",
+         lambda: (randn(4, 32, 128), randn(4, 8, 552, 128), randn(4, 8, 552, 128),
+                  lens(0, 512, 530, 544)), {}),
     ]
 
 
@@ -335,13 +442,14 @@ def phase_kernels(torch, ops, ref) -> dict:
             row = {"kernel": name, "case": case, "dtype": dt, "max_abs_err": err}
             tag = case.split()[0]
             if tag in TIMED:
-                sets = cold_sets(inputs) if name == "decode_attention" else [inputs]
+                nbytes, flops = work(name, inputs, kw, dt)
+                cold = name == "decode_attention" or nbytes > L2_BYTES / 2
+                sets = cold_sets(inputs) if cold else [inputs]
                 times = time_ms(torch, {
                     "plain": lambda *a: plain_fn[name](*a, **kw),
                     "kernel": lambda *a: kernel_fn[name](*a, impl="kernel", **kw),
                     "library": library_call(torch, name, inputs, kw),
                 }, sets)
-                nbytes, flops = work(name, inputs, kw, dt)
                 row.update(ms=times["kernel"], plain_ms=times["plain"],
                            library_ms=times["library"], bytes=nbytes, flops=flops,
                            timed="cold" if len(sets) > 1 else "warm", copies=len(sets))
@@ -358,10 +466,52 @@ def phase_kernels(torch, ops, ref) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_parity(torch, np, ops, TF, base_cfg, n_layers: int = 2) -> dict:
+def rescale_fan_in_(params: dict, template: dict, d_model: int) -> None:
+    """Scale every stacked weight drawn from a normal (the layers' and the
+    encoder's leaves with a leading layer axis) from the reference's std
+    1/sqrt(n_layers) to 1/sqrt(d_model), in place."""
+    for k, v in params.items():
+        if isinstance(v, dict):
+            rescale_fan_in_(v, template[k], d_model)
+        elif template[k].init == "normal" and v.dim() > 2:
+            v.mul_(math.sqrt(v.shape[0] / d_model))
+
+
+def stub_frames(torch, cfg, b: int, seed: int):
+    """(b, n_frontend_tokens, d_model) stub frame embeddings, normal x 0.02
+    as the JAX package's data pipeline draws them, from ``seed``."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return torch.randn((b, cfg.n_frontend_tokens, cfg.d_model), generator=gen, device="cuda") * 0.02
+
+
+def _logits_run(torch, ops, TF, cfg, params, impl, tokens, frames, max_seq, feed=None):
+    """Prefill of ``tokens`` (one sequence) and 16 decode steps on ``impl``:
+    (17, V) logits in the run's dtype, and the fed tokens, which are the
+    run's own argmax unless ``feed`` is given."""
+    own = feed is None
+    feed = [] if own else feed
+    with ops.use_impl(impl):
+        caches = TF.init_caches(cfg, 1, max_seq, device="cuda")
+        logits, caches = TF.prefill_logits(cfg, params, tokens, caches, frames)
+        steps = [logits]
+        for t in range(16):
+            if own:
+                feed.append(logits.argmax(-1).to(torch.int32))
+            logits, caches = TF.decode_logits(cfg, params, feed[t], caches)
+            steps.append(logits)
+    return torch.stack(steps)[:, 0, :cfg.vocab_size], feed
+
+
+def phase_parity(torch, np, ops, TF, base_cfg, n_layers: int = 2, prompt_len: int = 512,
+                 fan_in: bool = False, **cut) -> dict:
     """Kernel path against plain path at full width, cut to ``n_layers``
-    layers: a 512-token prefill and 16 decode steps, every run fed the tokens
-    that the f32 kernel path chooses.
+    layers (and the config fields in ``cut``): a ``prompt_len``-token
+    prefill and 16 decode steps, every run fed the tokens that the f32
+    kernel path chooses.  A vlm or encdec config gets n_frontend_tokens
+    stub frames (normal x 0.02, from the seed) in its prefill.  With
+    ``fan_in`` every stacked weight is drawn at std 1/sqrt(d_model) instead
+    of the reference's 1/sqrt(n_layers) (see PARITY_CUTS).
 
     f32: the token ids must be equal.  bf16: the two paths round at other
     places (the plain decode casts the probabilities to bf16 as the reference
@@ -372,35 +522,36 @@ def phase_parity(torch, np, ops, TF, base_cfg, n_layers: int = 2) -> dict:
     and the mean kernel-vs-plain difference must stay within 2e-2.  Run for
     granite-8b (GQA, n_rep 4), qwen1.5-4b (n_rep 1 at D = 128) and
     minicpm3-4b (MLA: flash at D = 96, the absorbed decode in plain
-    products, 4L+1 rmsnorms per pass)."""
+    products, 4L+1 rmsnorms per pass), and in phases 9 and 10 for each arch
+    there.
+
+    The bf16 weights are the f32 ones cast leaf by leaf in place, each f32
+    leaf freed as its bf16 copy is made: nemotron's one-layer cut is 51.5 GB
+    in f32, and a whole bf16 copy beside it would not fit the card."""
     tag = base_cfg.name
     V = base_cfg.vocab_size
-    prompt = np.random.default_rng(SEED).integers(0, V, size=(1, 512))
+    max_seq = max(1024, prompt_len + 64)
+    prompt = np.random.default_rng(SEED).integers(0, V, size=(1, prompt_len))
     tokens = torch.as_tensor(prompt.astype(np.int32), device="cuda")
+    frames = stub_frames(torch, base_cfg, 1, SEED) if base_cfg.family in ("vlm", "encdec") else None
 
     def run(cfg, params, impl, feed=None):
-        own = feed is None
-        feed = [] if own else feed
-        with ops.use_impl(impl):
-            caches = TF.init_caches(cfg, 1, 1024, device="cuda")
-            logits, caches = TF.prefill_logits(cfg, params, tokens, caches)
-            steps = [logits]
-            for t in range(16):
-                if own:
-                    feed.append(logits.argmax(-1).to(torch.int32))
-                logits, caches = TF.decode_logits(cfg, params, feed[t], caches)
-                steps.append(logits)
-        return torch.stack(steps)[:, 0, :V].float(), feed
+        return _logits_run(torch, ops, TF, cfg, params, impl, tokens, frames, max_seq, feed)
 
-    def cast(tree, template):
+    def cast_(tree, template):
         """Each leaf to its dtype in the bf16 model's template (the MoE
-        router and Mamba2's A, dt bias and skip stay f32)."""
-        if isinstance(tree, dict):
-            return {k: cast(v, template[k]) for k, v in tree.items()}
-        return tree.to(template.dtype)
+        router and Mamba2's A, dt bias and skip stay f32), in place."""
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                cast_(v, template[k])
+            else:
+                tree[k] = v.to(template[k].dtype)
+                del v
 
-    cfg32 = base_cfg.replace(n_layers=n_layers, dtype=torch.float32)
+    cfg32 = base_cfg.replace(n_layers=n_layers, dtype=torch.float32, **cut)
     p32 = TF.init_params(cfg32, SEED, device="cuda")
+    if fan_in:
+        rescale_fan_in_(p32, TF.param_template(cfg32), base_cfg.d_model)
     k32, feed = run(cfg32, p32, "kernel")
     r32, _ = run(cfg32, p32, "ref", feed)
     check(bool(torch.isfinite(k32).all()), f"parity {tag} f32: logits not finite")
@@ -412,11 +563,12 @@ def phase_parity(torch, np, ops, TF, base_cfg, n_layers: int = 2) -> dict:
     log(f"[parity] {tag} f32 " + json.dumps(f32))
     check(f32["ids_equal"], f"parity {tag} f32: token ids differ: {k_ids.tolist()} vs {r_ids.tolist()}")
 
-    cfg16 = base_cfg.replace(n_layers=n_layers, dtype=torch.bfloat16)
-    p16 = cast(p32, TF.param_template(cfg16))
+    cfg16 = base_cfg.replace(n_layers=n_layers, dtype=torch.bfloat16, **cut)
+    cast_(p32, TF.param_template(cfg16))
+    p16 = p32
     del p32
-    k16, _ = run(cfg16, p16, "kernel", feed)
-    r16, _ = run(cfg16, p16, "ref", feed)
+    k16 = run(cfg16, p16, "kernel", feed)[0].float()
+    r16 = run(cfg16, p16, "ref", feed)[0].float()
     check(bool(torch.isfinite(k16).all()), f"parity {tag} bf16: logits not finite")
     diff = (k16 - r16).abs()
     bf16 = {"mean_abs_diff": float(diff.mean()), "max_abs_diff": float(diff.max()),
@@ -431,6 +583,63 @@ def phase_parity(torch, np, ops, TF, base_cfg, n_layers: int = 2) -> dict:
     del p16
     torch.cuda.empty_cache()
     return {"f32": f32, "bf16": bf16}
+
+
+WITNESS_RATIO = 2.0  # kernel path's distance from the f64 run, at most this x the plain path's
+
+
+def phase_f64_witness(torch, np, ops, TF, base_cfg, **cut) -> dict:
+    """Both f32 paths against a float64 run of the plain path (the same f32
+    weights widened), under the reference's init law, where phase_parity
+    cannot hold whisper's f32 ids equal (PARITY_CUTS): the encoder's output
+    alone, and phase_parity's 512-token prefill and 16 decode steps, every
+    run fed the tokens that the f32 kernel path picks.  Rounding amplified
+    by the weights puts the two f32 paths at about one distance from the
+    f64 run; a kernel that computed something else at these scores would
+    put the kernel path farther.  Held: the kernel path's max and mean
+    distances (encoder output, logits) within WITNESS_RATIO of the plain
+    path's."""
+    cfg32 = base_cfg.replace(dtype=torch.float32, **cut)
+    tag = f"{base_cfg.name} {cfg32.n_enc_layers} + {cfg32.n_layers}"
+    prompt = np.random.default_rng(SEED).integers(0, cfg32.vocab_size, size=(1, 512))
+    tokens = torch.as_tensor(prompt.astype(np.int32), device="cuda")
+    frames = stub_frames(torch, base_cfg, 1, SEED)
+    p32 = TF.init_params(cfg32, SEED, device="cuda")
+
+    def widen(tree):
+        return {k: widen(v) if isinstance(v, dict) else v.double() for k, v in tree.items()}
+
+    runs = (("kernel", cfg32, p32), ("plain", cfg32, p32),
+            ("f64", cfg32.replace(dtype=torch.float64), widen(p32)))
+    enc, logits, feed = {}, {}, None
+    for name, cfg, p in runs:
+        impl = "kernel" if name == "kernel" else "ref"
+        with ops.use_impl(impl):
+            enc[name] = TF._run_encoder(cfg, p, frames)
+        logits[name], feed = _logits_run(torch, ops, TF, cfg, p, impl, tokens, frames, 1024, feed)
+    del runs
+    row = {}
+    for what, out in (("encoder", enc), ("logits", logits)):
+        truth = out["f64"]
+        for name in ("kernel", "plain"):
+            d = (out[name].double() - truth).abs()
+            row[f"{what}_{name}_max"], row[f"{what}_{name}_mean"] = float(d.max()), float(d.mean())
+        row[f"{what}_scale"] = float(truth.abs().max())
+        row[f"{what}_kernel_vs_plain_max"] = float((out["kernel"] - out["plain"]).abs().max())
+    ids = {name: out.argmax(-1) for name, out in logits.items()}
+    row["ids_equal"] = {name: bool(torch.equal(ids[name], ids["f64"])) for name in ("kernel", "plain")}
+    log(f"[witness] {tag} " + json.dumps(row))
+    check(bool(torch.isfinite(logits["kernel"]).all()), f"witness {tag}: logits not finite")
+    for what in ("encoder", "logits"):
+        for stat in ("max", "mean"):
+            k, r = row[f"{what}_kernel_{stat}"], row[f"{what}_plain_{stat}"]
+            check(k <= WITNESS_RATIO * r,
+                  f"witness {tag}: the kernel path's {stat} {what} distance from f64 {k} exceeds "
+                  f"{WITNESS_RATIO} x the plain path's {r}")
+    del enc, logits, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -528,31 +737,50 @@ def path_launches(cfg, prefills: int, steps: int) -> dict:
     """The kernel launches of ``prefills`` prefills and ``steps`` decode
     steps: flash once per attention block per prefill, decode attention once
     per attention block per step (MLA decodes in plain products), the
-    norms of every pass."""
-    return {"rmsnorm": norms_per_pass(cfg) * (prefills + steps),
+    norms of every pass.  An enc-dec prefill also runs the encoder (flash
+    and 2 norms a layer, and enc_norm), and each decoder block's
+    cross-attention adds a flash per prefill, a decode per step and its
+    norm_x to every pass."""
+    want = {"rmsnorm": norms_per_pass(cfg) * (prefills + steps),
             "flash_attention": attn_blocks(cfg) * prefills,
             "decode_attention": 0 if cfg.attn == "mla" else attn_blocks(cfg) * steps}
+    if cfg.family == "encdec":
+        want["rmsnorm"] += (2 * cfg.n_enc_layers + 1) * prefills + cfg.n_layers * (prefills + steps)
+        want["flash_attention"] += (cfg.n_enc_layers + cfg.n_layers) * prefills
+        want["decode_attention"] += cfg.n_layers * steps
+    return want
 
 
-def phase_live(torch, np, ops, TF, live, cfg, params) -> dict:
-    """cooperative_forward against train_forward at k in {0, 1, L/2, L}, bit
-    for bit: both run the same kernels in the same order on one card."""
+def phase_live(torch, np, ops, TF, live, cfg, params, seq: int = 128, frames=None) -> dict:
+    """cooperative_forward against the monolithic forward at k in {0, 1,
+    L/2, L}, bit for bit: both run the same kernels in the same order on one
+    card.  A vlm's ``frames`` enter both.  An enc-dec model's split runs the
+    decoder layers without cross-attention (the reference's
+    forward_layers_range), so its monolithic forward is the decoder stack
+    run whole the same way, not train_forward."""
     L = cfg.n_layers
     tokens = torch.as_tensor(
-        np.random.default_rng(SEED + 2).integers(0, cfg.vocab_size, size=(1, 128)).astype(np.int32),
+        np.random.default_rng(SEED + 2).integers(0, cfg.vocab_size, size=(1, seq)).astype(np.int32),
         device="cuda")
     ks = (0, 1, L // 2, L)
     ops.reset_launch_counts()
-    full, _ = TF.train_forward(cfg, params, tokens)
+    if cfg.family == "encdec":
+        x = TF.forward_layers_range(cfg, params["layers"], TF._embed(cfg, params, tokens), 0, L,
+                                    TF._positions(tokens))
+        x = ops.rmsnorm(x, params["final_norm"], eps=cfg.norm_eps)
+        full = TF.layers.unembed(params["embed"], x, cfg)
+    else:
+        full, _ = TF.train_forward(cfg, params, tokens, frames)
     check(bool(torch.isfinite(full).all()), f"live {cfg.name}: logits not finite")
     errs = {}
     for k in ks:
-        coop = live.cooperative_forward(cfg, params, tokens, k)
+        coop = live.cooperative_forward(cfg, params, tokens, k, frames)
         diff = (coop.float() - full.float()).abs()
         errs[k] = float(diff.max())
         check(bool(torch.equal(coop, full)), f"live {cfg.name}: split k={k} differs from the monolithic forward by {errs[k]}")
     counts = ops.launch_counts()
-    want = path_launches(cfg, 1 + len(ks), 0)
+    want = path_launches(cfg.replace(family="dense") if cfg.family == "encdec" else cfg,
+                         1 + len(ks), 0)
     check(counts == want, f"live {cfg.name}: launch counts {counts} != the path's {want}")
     row = {"model": cfg.name, "ks": list(ks), "max_abs_diff": errs,
            "launches": counts}
@@ -949,10 +1177,14 @@ def _family_args(serve, arch: str, *extra: str):
          "--seed", str(SEED), "--device", "cuda", *extra])
 
 
-def _family_serve(torch, ops, arch, cfg, params, serve) -> dict:
-    """(b) the CLI's colocated loop at full depth: 8 requests of 512 + 32
-    tokens on 4 slots, until the live-scaled engine holds every layer; every
-    request finishes and the launches are exactly the path's."""
+def _family_serve(torch, ops, arch, cfg, params, serve, whole: bool = True) -> dict:
+    """(b) the CLI's colocated loop: 8 requests of 512 + 32 tokens on 4
+    slots; every request finishes and the launches are exactly the path's.
+    With ``whole`` (a model at full depth) the loop must also outlast the
+    modelled load, so that the live-scaled engine ends holding every
+    layer; a depth cut computes its 8 requests before the flow model has
+    moved its bytes (grok-1's 2-layer cut: ~0.7 s against 1.8 s for 23 GB),
+    and its scaled engine's layers are only reported."""
     n = 8
     args = _family_args(serve, arch, "--requests", str(n))
     torch.cuda.synchronize()
@@ -975,45 +1207,41 @@ def _family_serve(torch, ops, arch, cfg, params, serve) -> dict:
     for r in out["finished"]:
         check(len(r.out_tokens) == args.gen_len and all(0 <= t < cfg.vocab_size for t in r.out_tokens),
               f"families {cfg.name} serve: request {r.rid} has tokens {r.out_tokens}")
-    check(eng1.loaded_layers == cfg.n_layers, f"families {cfg.name} serve: the scaled engine is not whole")
+    check(not whole or eng1.loaded_layers == cfg.n_layers,
+          f"families {cfg.name} serve: the scaled engine is not whole")
     return {"requests": n, "wall_s": wall, "tokens_per_s": n * args.gen_len / wall,
-            "engine_steps": [eng0.steps, eng1.steps], "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "launches": counts}
+            "engine_steps": [eng0.steps, eng1.steps], "scaled_engine_layers": eng1.loaded_layers,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": counts}
 
 
-def _family_timing(torch, np, cfg, params, engine_mod, log_dir) -> dict:
-    """Idle 512-token prefill (TTFT) and the full-batch decode step (4 slots
-    at 512 + ~10 tokens) on the wall clock, each ending in a host read;
-    then torch.profiler over 3 of those steps: device time per step and the
-    card's busy share of the step."""
-    rng = np.random.default_rng(SEED + 3)
-    prompts = [rng.integers(0, cfg.vocab_size, 512).astype(np.int32) for _ in range(4)]
+def _serve_timing(torch, name: str, prefill_one, start, step, log_dir) -> dict:
+    """Idle one-prompt prefill (TTFT: ``prefill_one(i)`` for i in 0..2, each
+    ending in a host read) and, after ``start()`` has filled the 4 slots,
+    the full-batch decode ``step()`` on the wall clock; then torch.profiler
+    over 3 of those steps: device time per step and the card's busy share
+    of the step."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    eng = engine_mod.InstanceEngine(cfg, params, n_slots=4, max_seq=552)
     ttft = []
     for i in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eng.prefill_only(engine_mod.ServeRequest(-1 - i, prompts[i], 1))
+        prefill_one(i)
         ttft.append((time.perf_counter() - t0) * 1e3)
-    for i, p in enumerate(prompts):
-        eng.submit(engine_mod.ServeRequest(i, p, 32))
-    eng.step()  # admits all four
-    check(len(eng.active) == 4, f"families {cfg.name} timing: {len(eng.active)} slots live")
+    start()
     step_ms = []
     for _ in range(8):
         t0 = time.perf_counter()
-        eng.step()
+        step()
         step_ms.append((time.perf_counter() - t0) * 1e3)
 
     def steps():
         for _ in range(3):
-            eng.step()
+            step()
 
-    kernels, wall_ms, host = _traced(torch, steps, 3, log_dir, f"{cfg.name}_decode_trace.json")
+    kernels, wall_ms, host = _traced(torch, steps, 3, log_dir, f"{name}_decode_trace.json")
     device_ms = sum(k[0] for k in kernels) / 3e3
-    check(device_ms > 0, f"families {cfg.name} timing: no device time recorded")
+    check(device_ms > 0, f"{name} timing: no device time recorded")
     med = sorted(step_ms)[len(step_ms) // 2]
     return {"ttft_idle_ms": sorted(ttft)[1], "decode_step_ms_median": med,
             "decode_tokens_per_s": 4 / (med / 1e3), "decode_device_ms": device_ms,
@@ -1022,6 +1250,25 @@ def _family_timing(torch, np, cfg, params, engine_mod, log_dir) -> dict:
             "host_launch_calls": host["launch_calls"],
             "top_kernels_ms": [[k[:90], round(us / 3e3, 5), n / 3] for us, k, n in kernels[:8]],
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _family_timing(torch, np, cfg, params, engine_mod, log_dir) -> dict:
+    """_serve_timing on the engine: 512-token prompts, 4 slots at 512 + ~10
+    tokens."""
+    rng = np.random.default_rng(SEED + 3)
+    prompts = [rng.integers(0, cfg.vocab_size, 512).astype(np.int32) for _ in range(4)]
+    eng = engine_mod.InstanceEngine(cfg, params, n_slots=4, max_seq=552)
+
+    def prefill_one(i):
+        eng.prefill_only(engine_mod.ServeRequest(-1 - i, prompts[i], 1))
+
+    def start():
+        for i, p in enumerate(prompts):
+            eng.submit(engine_mod.ServeRequest(i, p, 32))
+        eng.step()  # admits all four
+        check(len(eng.active) == 4, f"families {cfg.name} timing: {len(eng.active)} slots live")
+
+    return _serve_timing(torch, cfg.name, prefill_one, start, eng.step, log_dir)
 
 
 def phase_families(torch, np, ops, TF, get_config, live, serve, disagg, engine_mod, log_dir) -> dict:
@@ -1058,6 +1305,136 @@ def phase_families(torch, np, ops, TF, get_config, live, serve, disagg, engine_m
         rows[arch] = row
     rows["wall_s"] = time.perf_counter() - t_phase
     log(f"[families] phase passed in {rows['wall_s']:.1f} s")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the last four reference configs at full width
+# ---------------------------------------------------------------------------
+
+LAST_ARCHS = ("grok-1-314b", "nemotron-4-340b", "whisper-large-v3", "pixtral-12b")
+# parity cuts: nemotron's one-layer f32 cut is already 51.5 GB (its embed and
+# unembed are 37.7 GB of it); pixtral's prompt holds its 1024 patch frames.
+# whisper's weights are rescaled to fan-in (rescale_fan_in_): under the
+# reference's init law (std 1/sqrt(n_layers) for every stacked weight, 0.71
+# at this cut and 0.18 whole) each of its 1280-wide products multiplies the
+# activations by ~25, they reach ~8,500 after one encoder layer, and the two
+# paths' f32 rounding grows to a 0.64 logit difference at the 2 + 2 cut and
+# 4.1 whole, so their token ids part.  That law is held by WITNESS_CUTS.
+PARITY_CUTS = {"grok-1-314b": dict(n_layers=1), "nemotron-4-340b": dict(n_layers=1),
+               "whisper-large-v3": dict(n_layers=2, n_enc_layers=2, fan_in=True),
+               "pixtral-12b": dict(n_layers=2, prompt_len=1088)}
+# phase_f64_witness under the reference's init law: whisper at the parity
+# cut and whole
+WITNESS_CUTS = {"whisper-large-v3": (dict(n_layers=2, n_enc_layers=2), {})}
+# serve depth cuts: 314 B and 340 B parameters are 628 and 680 GB in bf16;
+# 2 layers at full width are 23 and 33 GB
+SERVE_LAYERS = {"grok-1-314b": 2, "nemotron-4-340b": 2}
+
+
+def _encdec_serve(torch, np, ops, TF, cfg, params, log_dir) -> dict:
+    """whisper at the model API (the engine passes no frames, as the JAX
+    engine does): 4 prompts of 512 tokens with 1500 frames each in one
+    prefill, then 32 decode steps over the self caches and the static cross
+    cache; tokens in range, the cross cache full, launches exactly the
+    path's.  Then the idle prefill of one prompt (TTFT, ending in a host
+    read) and the 4-row decode step on the wall clock, and torch.profiler
+    over 3 steps."""
+    b, prompt_len, steps = 4, 512, 32
+    max_seq = prompt_len + steps + 8
+    rng = np.random.default_rng(SEED + 6)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(b, prompt_len)).astype(np.int32),
+                           device="cuda")
+    frames = stub_frames(torch, cfg, b, SEED + 6)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    caches = TF.init_caches(cfg, b, max_seq, device="cuda")
+    nxt, caches = TF.prefill(cfg, params, toks, caches, frames)
+    out = [nxt]
+    for _ in range(steps):
+        nxt, caches = TF.decode_step(cfg, params, nxt, caches)
+        out.append(nxt)
+    ids = torch.stack(out, 1).tolist()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = path_launches(cfg, 1, steps)
+    check(counts == want, f"last {cfg.name} serve: launch counts {counts} != the path's {want}")
+    check(all(0 <= t < cfg.vocab_size for row in ids for t in row) and len(ids[0]) == steps + 1,
+          f"last {cfg.name} serve: tokens {ids}")
+    cross = caches["cross"]
+    check(cross["lengths"].tolist() == [cfg.n_frontend_tokens] * b
+          and bool(torch.isfinite(cross["k"]).all()), f"last {cfg.name} serve: cross cache")
+    check(caches["layers"]["lengths"].tolist() == [[prompt_len + steps] * b] * cfg.n_layers,
+          f"last {cfg.name} serve: self-cache lengths")
+    row = {"requests": b, "prompt_tokens": prompt_len, "frames": cfg.n_frontend_tokens,
+           "new_tokens": steps + 1, "wall_s": wall, "tokens_per_s": b * (steps + 1) / wall,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": counts}
+    del caches
+
+    state = {}
+
+    def prefill_one(i):
+        one = TF.init_caches(cfg, 1, max_seq, device="cuda")
+        TF.prefill(cfg, params, toks[i:i + 1], one, frames[i:i + 1])[0].tolist()
+
+    def start():
+        caches = TF.init_caches(cfg, b, max_seq, device="cuda")
+        state["nxt"], state["caches"] = TF.prefill(cfg, params, toks, caches, frames)
+
+    def step():
+        state["nxt"], state["caches"] = TF.decode_step(cfg, params, state["nxt"], state["caches"])
+        state["nxt"].tolist()
+
+    row["timing"] = _serve_timing(torch, cfg.name, prefill_one, start, step, log_dir)
+    return row
+
+
+def phase_last_configs(torch, np, ops, TF, get_config, live, serve, engine_mod, log_dir) -> dict:
+    """Phase 10: grok-1-314b (MoE, n_rep 6), nemotron-4-340b (squared ReLU,
+    flash and decode at D = 192, n_rep 12), whisper-large-v3 (enc-dec) and
+    pixtral-12b (VLM) at full width, one at a time: (a) kernel path against
+    plain path (grok and nemotron cut to 1 layer, whisper to 2 + 2, pixtral
+    to 2 at a 1088-token prompt with its 1024 patch frames), and whisper's
+    two f32 paths against a float64 run under the reference's init law, cut
+    and whole (phase_f64_witness); (b) grok and
+    nemotron cut to 2 layers and pixtral whole through the colocated CLI loop
+    (text only, as the engine serves it), launches exact, the idle prefill
+    and decode step timed and profiled; whisper whole at the model API;
+    (c) the live split of pixtral and whisper at k in {0, 1, L/2, L}."""
+    t_phase = time.perf_counter()
+    rows = {}
+    for i, arch in enumerate(LAST_ARCHS):
+        cfg = get_config(arch)
+        row = {"parity": phase_parity(torch, np, ops, TF, cfg, **PARITY_CUTS[arch])}
+        if arch in WITNESS_CUTS:
+            row["f64_witness"] = [phase_f64_witness(torch, np, ops, TF, cfg, **c)
+                                  for c in WITNESS_CUTS[arch]]
+        scfg = cfg.replace(n_layers=SERVE_LAYERS[arch]) if arch in SERVE_LAYERS else cfg
+        t0 = time.perf_counter()
+        params = TF.init_params(scfg, SEED + 10 + i, device="cuda")
+        torch.cuda.synchronize()
+        row.update(params=scfg.approx_params(), full_params=cfg.approx_params(),
+                   served_layers=scfg.n_layers, init_s=time.perf_counter() - t0)
+        if cfg.family == "encdec":
+            row["serve"] = _encdec_serve(torch, np, ops, TF, scfg, params, log_dir)
+        else:
+            row["serve"] = _family_serve(torch, ops, arch, scfg, params, serve,
+                                         whole=arch not in SERVE_LAYERS)
+            row["timing"] = _family_timing(torch, np, scfg, params, engine_mod, log_dir)
+            log(f"[last] {arch} timing " + json.dumps(row["timing"]))
+        log(f"[last] {arch} serve " + json.dumps(row["serve"]))
+        if cfg.family in ("encdec", "vlm"):
+            vlm = cfg.family == "vlm"
+            row["live"] = phase_live(torch, np, ops, TF, live, scfg, params, seq=1088 if vlm else 128,
+                                     frames=stub_frames(torch, cfg, 1, SEED + 7) if vlm else None)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows[arch] = row
+    rows["wall_s"] = time.perf_counter() - t_phase
+    log(f"[last] phase passed in {rows['wall_s']:.1f} s")
     return rows
 
 
@@ -1131,6 +1508,8 @@ def main(argv: list[str] | None = None) -> int:
     torch.cuda.empty_cache()
     families = phase_families(torch, np, ops, TF, get_config, live, serve_cli, disagg, engine_mod,
                               args.log_dir)
+    last = phase_last_configs(torch, np, ops, TF, get_config, live, serve_cli, engine_mod,
+                              args.log_dir)
 
     line = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
@@ -1145,7 +1524,7 @@ def main(argv: list[str] | None = None) -> int:
         record = {"card": card, "torch": torch.__version__, "build_s": build_s,
                   "kernels": [kern[k] for k in sorted(kern)], "parity": parity,
                   "serve": serve, "live": [live_row, live_mla], "profile": prof, "cluster": cluster,
-                  "maas": fleet_row, "families": families,
+                  "maas": fleet_row, "families": families, "last_configs": last,
                   "wall_s": time.perf_counter() - t_all}
         (args.log_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")

@@ -1,29 +1,35 @@
 """Architecture registry of the port.
 
 ``get_config(name, reduced=False)`` resolves an arch id (dash or underscore
-form).  Only the archs whose model family the port runs are registered: the
-dense decoders with a SwiGLU MLP, with GQA attention or with MLA
-(minicpm3-4b), the MoE olmoe-1b-7b, the SSM mamba2-370m and the hybrid
-zamba2-2.7b.  Every other id (whisper's enc-dec, pixtral's VLM, the int8
-cache) raises ``NotImplementedError``.
+form) to its config, full or REDUCED.  Every arch of the JAX package's
+registry is registered: the dense GQA decoders, minicpm3-4b (MLA),
+nemotron-4-340b (squared-ReLU MLP), the MoE olmoe-1b-7b and grok-1-314b,
+the SSM mamba2-370m, the hybrid zamba2-2.7b, the enc-dec whisper-large-v3
+and the VLM pixtral-12b.  An unknown id raises ``KeyError``; the int8 KV
+cache (``kv_quant``), which no config sets, raises ``NotImplementedError``
+where a model is built.
 """
 
 from __future__ import annotations
 
 from repro_torch.configs import (
     granite_8b,
+    grok_1_314b,
     llama3_8b,
     mamba2_370m,
     minicpm3_4b,
     mistral_24b,
+    nemotron_4_340b,
     olmoe_1b_7b,
+    pixtral_12b,
     qwen1_5_4b,
     qwen2_5_72b,
+    whisper_large_v3,
     zamba2_2_7b,
 )
 from repro_torch.models.config import ModelConfig
 
-_PORTED = {
+ARCHS = {
     "granite_8b": granite_8b,
     "llama3_8b": llama3_8b,
     "qwen1_5_4b": qwen1_5_4b,
@@ -33,11 +39,15 @@ _PORTED = {
     "olmoe_1b_7b": olmoe_1b_7b,
     "mamba2_370m": mamba2_370m,
     "zamba2_2_7b": zamba2_2_7b,
+    "grok_1_314b": grok_1_314b,
+    "nemotron_4_340b": nemotron_4_340b,
+    "whisper_large_v3": whisper_large_v3,
+    "pixtral_12b": pixtral_12b,
 }
 
 
 def get_config(name: str, *, reduced: bool = False) -> ModelConfig:
-    mod = _PORTED.get(name.replace("-", "_").replace(".", "_"))
+    mod = ARCHS.get(name.replace("-", "_").replace(".", "_"))
     if mod is None:
-        raise NotImplementedError(f"{name}: not yet ported")
+        raise KeyError(f"{name}: unknown arch (known: {sorted(ARCHS)})")
     return mod.REDUCED if reduced else mod.CONFIG

@@ -72,10 +72,15 @@ def cooperative_forward(
     params: dict,
     tokens: torch.Tensor,  # (B, S)
     k: int,  # layers loaded on the target
+    frames: torch.Tensor | None = None,  # (B, Sf, d): a vlm's patch frames
 ) -> torch.Tensor:
-    """Target runs layers [0, k), source runs [k, L); returns logits (B, S, V)."""
+    """Target runs layers [0, k), source runs [k, L); returns logits (B, S, V).
+
+    A vlm's frames enter through the embedding.  An enc-dec model's decoder
+    layers run here without cross-attention (``forward_layers_range``), as in
+    the reference."""
     positions = TF._positions(tokens)
-    x = TF._embed(cfg, params, tokens)
+    x = TF._embed(cfg, params, tokens, frames)
     shared = params.get("shared")  # the hybrid's shared block runs on both sides
     # ---- target side: layers [0, k)
     x = TF.forward_layers_range(cfg, params["layers"], x, 0, k, positions, shared)

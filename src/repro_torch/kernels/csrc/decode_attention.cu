@@ -25,14 +25,24 @@
 //   kernel reads the bytes the bound counts.
 // * Scores: threads along D (16-byte loads, conflict-free), n_rep partial
 //   dots per thread reduced across the row's lanes; each K row is read once
-//   for the n_rep query heads that share it.  Online softmax per head by
-//   one warp; PV with threads along D over the chunk's rows.
-// * A row takes TD = D / (16-byte vector) lanes and a warp 32 / TD whole
-//   rows.  At D = 80 (zamba2) TD is 10 (bf16) or 20 (f32), which does not
-//   divide 32: a warp holds 3 or 1 rows in its first 30 or 20 lanes and the
-//   rest idle.  Lane sums (a row's TD lanes; the rows of one warp, TD lanes
-//   apart) go through group_sum: an XOR butterfly over a power-of-two group,
-//   else a shift-down tree that stays inside the group.
+//   for the query heads of the CTA that share it.  Online softmax per head
+//   by one warp (warp w takes heads w, w + 4, ...); PV with threads along D
+//   over the chunk's rows.
+// * A row takes TD lanes of NV 16-byte vectors each (NV = 1, or 2 where one
+//   vector a lane would need more than a warp: D = 192 in f32 is 48
+//   vectors, so 24 lanes of two, the second 24 vectors further along the
+//   row), and a warp 32 / TD whole rows.  Where TD does not divide 32 (D =
+//   80: 10 or 20 lanes; D = 192: 24) a warp holds 3, 1 or 1 rows in its
+//   first 30, 20 or 24 lanes and the rest idle.  Lane sums (a row's TD
+//   lanes; the rows of one warp, TD lanes apart) go through group_sum: an
+//   XOR butterfly over a power-of-two group, else a shift-down tree that
+//   stays inside the group.
+// * A thread keeps its query and output slice of every head of the CTA in
+//   registers (2 x heads x 8 floats at most), so a CTA takes at most 8 of
+//   the n_rep heads of a KV head: at n_rep 12 (nemotron) the wrapper splits
+//   them into 2 groups of 6, each its own cluster over the same cache rows
+//   (grid y = KV x groups); the second group's reads of a chunk mostly hit
+//   the L2 behind the first's.
 // * Each CTA leaves its partial (m, l, acc[n_rep][D]) in its shared memory;
 //   after cluster.sync() the CTAs merge the partials through distributed
 //   shared memory, each rank a slice of the n_rep x D outputs, and write the
@@ -53,12 +63,17 @@ constexpr int kMaxCluster = 8;  // the portable cluster size
 
 template <typename T, int D, int NREP>
 struct Shape {
-  static constexpr int VE = 16 / sizeof(T);  // elements per 16-byte load
-  static constexpr int TD = D / VE;          // threads along one row (2..32)
-  static constexpr int RPW = 32 / TD;        // rows per warp per pass
-  static constexpr int RP = kWarps * RPW;    // rows per CTA pass (and PV row groups)
+  static constexpr int VE = 16 / sizeof(T);             // elements per 16-byte load
+  static constexpr int NV = (D / VE + 31) / 32;         // 16-byte vectors per lane per row
+  static constexpr int EL = NV * VE;                    // elements per lane per row
+  static constexpr int TD = D / EL;                     // threads along one row (2..32)
+  static constexpr int RPW = 32 / TD;                   // rows per warp per pass
+  static constexpr int RP = kWarps * RPW;               // rows per CTA pass (and PV row groups)
   static constexpr int HPW = (NREP + kWarps - 1) / kWarps;  // softmax heads per warp
-  static_assert(TD >= 2 && TD <= 32 && D % VE == 0, "unsupported head dim");
+  static_assert(TD >= 2 && TD <= 32 && D % EL == 0, "unsupported head dim");
+  static_assert(NREP <= 8, "at most 8 query heads per CTA (corr, m and l hold 8)");
+  // the first column of this lane's vector j of a row
+  __device__ static int col(int lane, int j) { return (j * TD + lane % TD) * VE; }
 
   // Dynamic shared memory for chunks of `ch` rows: [K ring | V ring | scores
   // (NREP x ch) | corr (NREP) | partial m, l (NREP each) | partial acc (NREP
@@ -109,13 +124,16 @@ template <typename T, int D, int NREP>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                             const T* __restrict__ vc, const int* __restrict__ lengths,
-                            T* __restrict__ out, int KV, int S, int CH, float scale_log2) {
+                            T* __restrict__ out, int KV, int groups, int S, int CH,
+                            float scale_log2) {
   using SH = Shape<T, D, NREP>;
   using Vec = rt::Vec<T, SH::VE>;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int csize = static_cast<int>(cluster.num_blocks());
-  const int kvh = blockIdx.y, b = blockIdx.z;
+  // blockIdx.y: group g of KV head kvh's query heads, kvh * groups + g; its
+  // NREP heads are kvh * groups * NREP + g * NREP + r = blockIdx.y * NREP + r
+  const int hg = blockIdx.y, kvh = hg / groups, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   extern __shared__ __align__(16) uint8_t smem[];
@@ -157,20 +175,21 @@ __global__ void __launch_bounds__(kThreads)
   if (tid == 0)
     for (int i = 0; i < kStages && i < my_chunks; ++i) issue(i);
 
-  // This thread's 16-byte column slice of every row, and the n_rep query
-  // heads of this KV head (scaled into the log2 domain) at those columns.
-  // Lanes past the warp's last whole row (D = 80 only) load no row.
-  const int col = (lane % SH::TD) * SH::VE;
+  // This thread's column slices of every row (NV vectors), and the CTA's
+  // query heads (scaled into the log2 domain) at those columns.  Lanes past
+  // the warp's last whole row (D = 80, 192) load no row.
   const bool row_lane = lane < SH::RPW * SH::TD;
   const int wrow = warp * SH::RPW + lane / SH::TD;  // this lane's row within a pass
-  float qr[NREP][SH::VE];
-  const T* qh = q + (static_cast<size_t>(b) * KV + kvh) * NREP * D;
+  float qr[NREP][SH::EL];
+  const T* qh = q + (static_cast<size_t>(b) * KV * groups + hg) * NREP * D;
 #pragma unroll
-  for (int r = 0; r < NREP; ++r) {
-    const Vec v = *reinterpret_cast<const Vec*>(qh + r * D + col);
+  for (int r = 0; r < NREP; ++r)
 #pragma unroll
-    for (int e = 0; e < SH::VE; ++e) qr[r][e] = rt::to_float(v.e[e]) * scale_log2;
-  }
+    for (int j = 0; j < SH::NV; ++j) {
+      const Vec v = *reinterpret_cast<const Vec*>(qh + r * D + SH::col(lane, j));
+#pragma unroll
+      for (int e = 0; e < SH::VE; ++e) qr[r][j * SH::VE + e] = rt::to_float(v.e[e]) * scale_log2;
+    }
 
   float m_own[SH::HPW], l_own[SH::HPW];  // heads warp + kWarps*t
 #pragma unroll
@@ -178,11 +197,11 @@ __global__ void __launch_bounds__(kThreads)
     m_own[t] = -INFINITY;
     l_own[t] = 0.f;
   }
-  float acc[NREP][SH::VE];
+  float acc[NREP][SH::EL];
 #pragma unroll
   for (int r = 0; r < NREP; ++r)
 #pragma unroll
-    for (int e = 0; e < SH::VE; ++e) acc[r][e] = 0.f;
+    for (int e = 0; e < SH::EL; ++e) acc[r][e] = 0.f;
 
   for (int i = 0; i < my_chunks; ++i) {
     const int st = i % kStages;
@@ -200,12 +219,15 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int r = 0; r < NREP; ++r) dot[r] = 0.f;
       if (ok) {
-        const Vec kv = *reinterpret_cast<const Vec*>(ks + row * D + col);
 #pragma unroll
-        for (int e = 0; e < SH::VE; ++e) {
-          const float kf = rt::to_float(kv.e[e]);
+        for (int j = 0; j < SH::NV; ++j) {
+          const Vec kv = *reinterpret_cast<const Vec*>(ks + row * D + SH::col(lane, j));
 #pragma unroll
-          for (int r = 0; r < NREP; ++r) dot[r] = fmaf(qr[r][e], kf, dot[r]);
+          for (int e = 0; e < SH::VE; ++e) {
+            const float kf = rt::to_float(kv.e[e]);
+#pragma unroll
+            for (int r = 0; r < NREP; ++r) dot[r] = fmaf(qr[r][j * SH::VE + e], kf, dot[r]);
+          }
         }
       }
 #pragma unroll
@@ -247,18 +269,21 @@ __global__ void __launch_bounds__(kThreads)
     for (int r = 0; r < NREP; ++r) {
       const float c = corr_s[r];
 #pragma unroll
-      for (int e = 0; e < SH::VE; ++e) acc[r][e] *= c;
+      for (int e = 0; e < SH::EL; ++e) acc[r][e] *= c;
     }
     for (int row = row_lane ? wrow : nv; row < nv; row += SH::RP) {
-      const Vec vv = *reinterpret_cast<const Vec*>(vs + row * D + col);
-      float vf[SH::VE];
+      float vf[SH::EL];
 #pragma unroll
-      for (int e = 0; e < SH::VE; ++e) vf[e] = rt::to_float(vv.e[e]);
+      for (int j = 0; j < SH::NV; ++j) {
+        const Vec vv = *reinterpret_cast<const Vec*>(vs + row * D + SH::col(lane, j));
+#pragma unroll
+        for (int e = 0; e < SH::VE; ++e) vf[j * SH::VE + e] = rt::to_float(vv.e[e]);
+      }
 #pragma unroll
       for (int r = 0; r < NREP; ++r) {
         const float p = ps[r * CH + row];
 #pragma unroll
-        for (int e = 0; e < SH::VE; ++e) acc[r][e] = fmaf(p, vf[e], acc[r][e]);
+        for (int e = 0; e < SH::EL; ++e) acc[r][e] = fmaf(p, vf[e], acc[r][e]);
       }
     }
     __syncthreads();  // stage st and the scores are free again
@@ -271,13 +296,16 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int r = 0; r < NREP; ++r)
 #pragma unroll
-    for (int e = 0; e < SH::VE; ++e) acc[r][e] = group_sum<SH::RPW, SH::TD>(acc[r][e], lane / SH::TD);
+    for (int e = 0; e < SH::EL; ++e) acc[r][e] = group_sum<SH::RPW, SH::TD>(acc[r][e], lane / SH::TD);
   float* red = reinterpret_cast<float*>(kring);  // kWarps x NREP x D, in the ring
   if (lane < SH::TD) {
 #pragma unroll
     for (int r = 0; r < NREP; ++r)
 #pragma unroll
-      for (int e = 0; e < SH::VE; ++e) red[(warp * NREP + r) * D + col + e] = acc[r][e];
+      for (int j = 0; j < SH::NV; ++j)
+#pragma unroll
+        for (int e = 0; e < SH::VE; ++e)
+          red[(warp * NREP + r) * D + SH::col(lane, j) + e] = acc[r][j * SH::VE + e];
   }
 #pragma unroll
   for (int t = 0; t < SH::HPW; ++t) {
@@ -301,7 +329,7 @@ __global__ void __launch_bounds__(kThreads)
   // the partials of its head from every rank through distributed shared
   // memory, all loads issued before any is used (ranks past the cluster
   // size repeat the last one and get weight 0).
-  T* o = out + (static_cast<size_t>(b) * KV + kvh) * NREP * D;  // heads kvh*NREP + r
+  T* o = out + (static_cast<size_t>(b) * KV * groups + hg) * NREP * D;  // heads hg*NREP + r
   for (int idx = rank * kThreads + tid; idx < NREP * D; idx += csize * kThreads) {
     const int r = idx / D;
     float pm[kMaxCluster], pl[kMaxCluster], pa[kMaxCluster];
@@ -330,8 +358,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int D, int NREP>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* lengths, void* out,
-                   int B, int KV, int S, int cluster, int CH, float scale_log2, int device,
-                   cudaStream_t stream) {
+                   int B, int KV, int groups, int S, int cluster, int CH, float scale_log2,
+                   int device, cudaStream_t stream) {
   using SH = Shape<T, D, NREP>;
   auto kernel = decode_attention_kernel<T, D, NREP>;
   const size_t smem = SH::smem(CH);
@@ -339,7 +367,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* lengt
   cudaError_t err = optin.ensure(kernel, device, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, KV, B);
+  cfg.gridDim = dim3(cluster, KV * groups, B);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -351,45 +379,52 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* lengt
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
-                           static_cast<const T*>(v), lengths, static_cast<T*>(out), KV, S, CH,
-                           scale_log2);
+                           static_cast<const T*>(v), lengths, static_cast<T*>(out), KV, groups,
+                           S, CH, scale_log2);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
+// heads: query heads per CTA (n_rep / groups)
 template <typename T, int D>
-cudaError_t launch_rep(int nrep, const void* q, const void* k, const void* v, const int* len,
-                       void* out, int B, int KV, int S, int cl, int ch, float sl, int dev,
+cudaError_t launch_rep(int heads, const void* q, const void* k, const void* v, const int* len,
+                       void* out, int B, int KV, int g, int S, int cl, int ch, float sl, int dev,
                        cudaStream_t s) {
-  switch (nrep) {
+  switch (heads) {
     case 1:
-      return launch<T, D, 1>(q, k, v, len, out, B, KV, S, cl, ch, sl, dev, s);
+      return launch<T, D, 1>(q, k, v, len, out, B, KV, g, S, cl, ch, sl, dev, s);
     case 2:
-      return launch<T, D, 2>(q, k, v, len, out, B, KV, S, cl, ch, sl, dev, s);
+      return launch<T, D, 2>(q, k, v, len, out, B, KV, g, S, cl, ch, sl, dev, s);
+    case 3:
+      return launch<T, D, 3>(q, k, v, len, out, B, KV, g, S, cl, ch, sl, dev, s);
     case 4:
-      return launch<T, D, 4>(q, k, v, len, out, B, KV, S, cl, ch, sl, dev, s);
+      return launch<T, D, 4>(q, k, v, len, out, B, KV, g, S, cl, ch, sl, dev, s);
+    case 6:
+      return launch<T, D, 6>(q, k, v, len, out, B, KV, g, S, cl, ch, sl, dev, s);
     case 8:
-      return launch<T, D, 8>(q, k, v, len, out, B, KV, S, cl, ch, sl, dev, s);
+      return launch<T, D, 8>(q, k, v, len, out, B, KV, g, S, cl, ch, sl, dev, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-cudaError_t launch_d(int D, int nrep, const void* q, const void* k, const void* v,
-                     const int* len, void* out, int B, int KV, int S, int cl, int ch, float sl,
-                     int dev, cudaStream_t s) {
+cudaError_t launch_d(int D, int heads, const void* q, const void* k, const void* v,
+                     const int* len, void* out, int B, int KV, int g, int S, int cl, int ch,
+                     float sl, int dev, cudaStream_t s) {
   switch (D) {
     case 16:
-      return launch_rep<T, 16>(nrep, q, k, v, len, out, B, KV, S, cl, ch, sl, dev, s);
+      return launch_rep<T, 16>(heads, q, k, v, len, out, B, KV, g, S, cl, ch, sl, dev, s);
     case 32:
-      return launch_rep<T, 32>(nrep, q, k, v, len, out, B, KV, S, cl, ch, sl, dev, s);
+      return launch_rep<T, 32>(heads, q, k, v, len, out, B, KV, g, S, cl, ch, sl, dev, s);
     case 64:
-      return launch_rep<T, 64>(nrep, q, k, v, len, out, B, KV, S, cl, ch, sl, dev, s);
+      return launch_rep<T, 64>(heads, q, k, v, len, out, B, KV, g, S, cl, ch, sl, dev, s);
     case 80:
-      return launch_rep<T, 80>(nrep, q, k, v, len, out, B, KV, S, cl, ch, sl, dev, s);
+      return launch_rep<T, 80>(heads, q, k, v, len, out, B, KV, g, S, cl, ch, sl, dev, s);
     case 128:
-      return launch_rep<T, 128>(nrep, q, k, v, len, out, B, KV, S, cl, ch, sl, dev, s);
+      return launch_rep<T, 128>(heads, q, k, v, len, out, B, KV, g, S, cl, ch, sl, dev, s);
+    case 192:
+      return launch_rep<T, 192>(heads, q, k, v, len, out, B, KV, g, S, cl, ch, sl, dev, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -397,17 +432,19 @@ cudaError_t launch_d(int D, int nrep, const void* q, const void* k, const void* 
 
 }  // namespace
 
-// cluster: CTAs per (sequence, KV head), 1..8; chunk: cache rows per bulk
-// copy.  Both come from the wrapper's decode_plan.  The caches must be
-// 16-byte aligned.
+// groups: CTA clusters per KV head, each over n_rep / groups of its query
+// heads; cluster: CTAs per (sequence, KV head, group), 1..8; chunk: cache
+// rows per bulk copy.  All three come from the wrapper's decode_plan.  The
+// caches must be 16-byte aligned.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* lengths, void* out, int B, int H, int KV,
-                                       int S, int D, int cluster, int chunk, float softmax_scale,
-                                       int dtype, int device, void* stream) {
+                                       int S, int D, int groups, int cluster, int chunk,
+                                       float softmax_scale, int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B == 0 || H == 0) return cudaSuccess;
-  if (KV == 0 || H % KV != 0 || S == 0 || cluster < 1 || cluster > kMaxCluster || chunk < 1)
+  if (KV == 0 || groups < 1 || H % (KV * groups) != 0 || S == 0 || cluster < 1 ||
+      cluster > kMaxCluster || chunk < 1)
     return cudaErrorInvalidValue;
   if (!rt::aligned16(k) || !rt::aligned16(v) || !rt::aligned16(q))
     return cudaErrorMisalignedAddress;
@@ -416,10 +453,11 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case rt::kF32:
-      return launch_d<float>(D, H / KV, q, k, v, len, out, B, KV, S, cluster, chunk, sl, device, s);
+      return launch_d<float>(D, H / (KV * groups), q, k, v, len, out, B, KV, groups, S, cluster,
+                             chunk, sl, device, s);
     case rt::kBF16:
-      return launch_d<__nv_bfloat16>(D, H / KV, q, k, v, len, out, B, KV, S, cluster, chunk, sl,
-                                     device, s);
+      return launch_d<__nv_bfloat16>(D, H / (KV * groups), q, k, v, len, out, B, KV, groups, S,
+                                     cluster, chunk, sl, device, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -20,9 +20,12 @@
 //   shared memory (the descriptor's transpose bit).  Thread 0 loads Q once
 //   and K/V tiles of 64 rows by TMA into a 2-stage ring completing on
 //   mbarriers, so tile j+1 arrives while tile j is computed.  Tiles are
-//   swizzled (128/64/32-byte mode for D = 128|64 / 96|32 / 80|16); a row
-//   wider than its swizzle span is several boxes: two 64-column boxes at
-//   D = 128, three 32-column boxes in 64-byte mode at D = 96 (MLA's qk dim),
+//   swizzled (128/64/32-byte mode for D = 192|128|64 / 96|32 / 80|16); a row
+//   wider than its swizzle span is several boxes: three 64-column boxes at
+//   D = 192 (nemotron: QK^T is twelve k16 steps, PV m64n192k16 with 96
+//   accumulators a thread; Q and the two rings fill 144 KB, and the O
+//   staging takes the whole K ring), two at D = 128, three 32-column boxes
+//   in 64-byte mode at D = 96 (MLA's qk dim),
 //   since 192 bytes is no multiple of 128, and five 16-column boxes in
 //   32-byte mode at D = 80 (zamba2), since 32 bytes is the widest span that
 //   divides a 160-byte row.  The kv loop stops at the causal diagonal,
@@ -37,10 +40,11 @@
 //   rules out TF32, so this kernel does both products with f32 FMAs from
 //   shared memory: one 128-thread CTA per (64-row q-block, head, sequence), a
 //   loop over 32-row K/V tiles; each thread owns 4 query rows x 4 key columns
-//   of the score tile and 4 rows x D/8 columns of the output (12 at D = 96,
-//   10 at D = 80).
+//   of the score tile and 4 rows x D/8 columns of the output (24 at D = 192,
+//   12 at D = 96, 10 at D = 80); at D = 192 the tiles take 107 KB of shared
+//   memory.
 //
-// Head dims 16, 32, 64, 80, 96 and 128 are instantiated; the wrapper
+// Head dims 16, 32, 64, 80, 96, 128 and 192 are instantiated; the wrapper
 // zero-pads D = 24 to 32.
 #include "hopper.cuh"
 
@@ -87,6 +91,7 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], const uint32_t (&a)[
   if constexpr (N == 80) hp::wgmma_rs_m64n80k16_tb(d, a, b);
   if constexpr (N == 96) hp::wgmma_rs_m64n96k16_tb(d, a, b);
   if constexpr (N == 128) hp::wgmma_rs_m64n128k16_tb(d, a, b);
+  if constexpr (N == 192) hp::wgmma_rs_m64n192k16_tb(d, a, b);
 }
 
 template <int D>
@@ -558,6 +563,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
       return launch_dtype<96>(dtype, q, k, v, o, B, Sq, Sk, H, KV, sl, causal, device, s);
     case 128:
       return launch_dtype<128>(dtype, q, k, v, o, B, Sq, Sk, H, KV, sl, causal, device, s);
+    case 192:
+      return launch_dtype<192>(dtype, q, k, v, o, B, Sq, Sk, H, KV, sl, causal, device, s);
     default:
       return cudaErrorInvalidValue;
   }

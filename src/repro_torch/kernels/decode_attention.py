@@ -10,9 +10,12 @@ each into a 2-stage shared-memory ring, the n_rep query heads that share a KV
 head share every cache read, and the cluster's CTAs merge their partial
 (max, sum, acc) through distributed shared memory, each a slice of the
 output.  No scratch tensor and no second kernel.  :func:`decode_plan` sizes
-the cluster and the chunks.  Head dims 16, 32, 64, 80 (zamba2's shared block,
-a row of 10 or 20 lanes that leaves the rest of the warp idle) and 128; any
-other D raises.  int8 caches are not taken.
+the cluster and the chunks, and splits an n_rep above 8 (nemotron's 12) into
+groups of heads, each its own cluster over the same cache rows.  Head dims
+16, 32, 64, 80 (zamba2's shared block, a row of 10 or 20 lanes that leaves
+the rest of the warp idle), 128 and 192 (nemotron: a row of 24 lanes, each
+of one 16-byte vector in bf16 and two in f32); n_rep 1, 2, 3, 4, 6, 8 and
+12; any other D or n_rep raises.  int8 caches are not taken.
 """
 
 from __future__ import annotations
@@ -25,8 +28,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 80, 128)
-N_REPS = (1, 2, 4, 8)
+HEAD_DIMS = (16, 32, 64, 80, 128, 192)
+N_REPS = (1, 2, 3, 4, 6, 8, 12)
+MAX_HEADS_PER_CTA = 8  # query heads whose q and output slices a thread keeps in registers
 
 launches = 0  # kernel launches since the last reset (see ops.reset_launch_counts)
 
@@ -37,12 +41,14 @@ RING_BYTES = 64 * 1024  # shared memory of the 2-stage ring: 2 x (a K and a V ch
 
 @dataclass(frozen=True)
 class DecodePlan:
-    """How the kernel splits one call: a cluster of ``cluster`` CTAs per
-    (sequence, KV head), the grid ``(cluster, KV, B)``, chunks of
-    ``chunk`` cache rows, and at most ``chunks_per_cta`` chunks per CTA.
-    Chunk ``c`` (rows ``[c*chunk, (c+1)*chunk)``) belongs to cluster rank
-    ``c % cluster``, as the kernel walks it."""
+    """How the kernel splits one call: the n_rep query heads of a KV head in
+    ``groups`` groups, a cluster of ``cluster`` CTAs per (sequence, KV head,
+    group), the grid ``(cluster, KV * groups, B)``, chunks of ``chunk``
+    cache rows, and at most ``chunks_per_cta`` chunks per CTA.  Chunk ``c``
+    (rows ``[c*chunk, (c+1)*chunk)``) belongs to cluster rank ``c %
+    cluster``, as the kernel walks it, in every group's cluster."""
 
+    groups: int
     cluster: int
     chunk: int
     chunks_per_cta: int
@@ -56,25 +62,36 @@ class DecodePlan:
         return rows
 
 
-def decode_plan(b: int, kv: int, s: int, d: int, elem_bytes: int) -> DecodePlan:
-    """Cluster size and chunk rows for a (B, KV, S, D) cache.
+def head_groups(n_rep: int) -> int:
+    """The fewest groups that split n_rep into equal groups of at most
+    ``MAX_HEADS_PER_CTA`` heads (12 -> 2 groups of 6)."""
+    g = -(-n_rep // MAX_HEADS_PER_CTA)
+    while n_rep % g:
+        g += 1
+    return g
 
-    The cluster grows (up to 8) until the B*KV clusters give at least two
-    CTAs per SM.  A chunk is the rows one CTA would own with one chunk each,
+
+def decode_plan(b: int, kv: int, s: int, d: int, elem_bytes: int, n_rep: int = 1) -> DecodePlan:
+    """Head groups, cluster size and chunk rows for a (B, KV, S, D) cache
+    read by n_rep query heads per KV head.
+
+    The cluster grows (up to 8) until the B*KV*groups clusters give at least
+    two CTAs per SM.  A chunk is the rows one CTA would own with one chunk each,
     rounded up to 16 and capped at the largest power of two of rows for which
     the 2-stage ring of K and V chunks fits ``RING_BYTES`` (64 rows at D = 80
-    in bf16): at the serving shape (B=4, KV=8, S=1024, D=128,
+    and 32 at D = 192 in bf16, 16 at D = 192 in f32): at the serving shape (B=4, KV=8, S=1024, D=128,
     bf16) that is clusters of 8 and chunks of 64 rows (16 KB per copy), two
     per CTA.  The cluster never exceeds the number of chunks."""
+    groups = head_groups(n_rep)
     cluster = 1
-    while cluster < MAX_CLUSTER and b * kv * cluster < 2 * N_SM:
+    while cluster < MAX_CLUSTER and b * kv * groups * cluster < 2 * N_SM:
         cluster *= 2
     per_cta = -(-s // cluster)
     fit = RING_BYTES // (4 * d * elem_bytes)
     chunk = min(max(16, 1 << (fit.bit_length() - 1)), 16 * -(-per_cta // 16))
     n_chunks = -(-s // chunk)
     cluster = min(cluster, n_chunks)
-    return DecodePlan(cluster, chunk, -(-n_chunks // cluster), (cluster, kv, b))
+    return DecodePlan(groups, cluster, chunk, -(-n_chunks // cluster), (cluster, kv * groups, b))
 
 
 def decode_attention(
@@ -107,17 +124,17 @@ def decode_attention(
     if q.data_ptr() % 16 or k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError("decode kernel needs 16-byte aligned q and caches (bulk copies)")
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
-    plan = decode_plan(b, kv, s, d, q.element_size())
+    plan = decode_plan(b, kv, s, d, q.element_size(), h // kv)
     out = torch.empty_like(q)
     fn = _build.function(
         "decode_attention",
         "decode_attention_launch",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float]
         + [ctypes.c_int] * 2 + [ctypes.c_void_p],
     )
     err = fn(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, h, kv, s, d, plan.cluster, plan.chunk, scale, _build.DTYPES[q.dtype], dev.index,
+        b, h, kv, s, d, plan.groups, plan.cluster, plan.chunk, scale, _build.DTYPES[q.dtype], dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("decode_attention", err)

@@ -12,8 +12,9 @@ Two kernels, chosen by dtype:
   rounded to bf16 for the PV product.  Needs 16-byte aligned q, k, v.
 * f32: f32 FMAs from shared memory (TF32 would miss the 3e-5 tolerance).
 
-Head dims: 16, 32, 64, 80 (zamba2's shared block), 96 (MLA's qk dim) and 128
-run natively.  D = 24 (the
+Head dims: 16, 32, 64 (whisper, also non-causal with Sq != Sk for its
+cross-attention), 80 (zamba2's shared block), 96 (MLA's qk dim), 128 and 192
+(nemotron) run natively.  D = 24 (the
 REDUCED MLA config) is zero-padded to 32 here and the output sliced back:
 zero columns add nothing to QK^T and give zero output columns.  Any other D
 raises.
@@ -28,7 +29,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 80, 96, 128)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128, 192)
 PADDED_HEAD_DIMS = {24: 32}  # D -> the instantiated width it is zero-padded to
 
 launches = 0  # kernel launches since the last reset (see ops.reset_launch_counts)

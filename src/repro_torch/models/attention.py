@@ -2,7 +2,9 @@
 
 ``gqa_prefill`` runs the prompt through the flash-attention kernel and
 ``gqa_decode`` one token through the decode-attention kernel, both by way of
-:mod:`repro_torch.kernels.ops` (the plain versions on a CPU tensor).
+:mod:`repro_torch.kernels.ops` (the plain versions on a CPU tensor); with a
+static K/V of an encoder output (whisper's cross-attention) the same two
+kernels run non-causal over it, with no RoPE and no append.
 ``mla_prefill`` (minicpm3) expands the latent keys and values per head and
 runs the same flash kernel at the qk head dim; ``mla_decode`` scores one
 token against the latent cache in the absorbed form, in plain products, as
@@ -45,15 +47,24 @@ def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
 
 
-def _gqa_qkv(params: dict, x: torch.Tensor, cfg):
+def _gqa_q(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     q = _proj_heads(x, params["wq"])
+    return q + params["bq"] if cfg.qkv_bias else q
+
+
+def _gqa_qkv(params: dict, x: torch.Tensor, cfg):
     k = _proj_heads(x, params["wk"])
     v = _proj_heads(x, params["wv"])
     if cfg.qkv_bias:
-        q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    return q, k, v
+    return _gqa_q(params, x, cfg), k, v
+
+
+def cross_kv(params: dict, enc_out: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A cross-attention block's K and V (B, frames, KV, D) of the encoder
+    output: no bias and no RoPE, as the reference projects them."""
+    return _proj_heads(enc_out, params["wk"]), _proj_heads(enc_out, params["wv"])
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -70,7 +81,16 @@ def gqa_prefill(
     *,
     causal: bool = True,
     cache: dict | None = None,
+    kv_override: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, dict | None]:
+    """Full-sequence GQA through the flash kernel, writing ``cache`` when
+    given.  With ``kv_override`` (the enc-dec decoder's cross-attention:
+    K/V of the encoder output, ``cross_kv``) only q is projected, neither
+    side takes RoPE and no cache is written; the reference also projects a
+    k and v of ``x`` there and drops them."""
+    if kv_override is not None:
+        out = ops.flash_attention(_gqa_q(params, x, cfg), *kv_override, causal=causal)
+        return _out_proj(out, params["wo"]), None
     q, k, v = _gqa_qkv(params, x, cfg)
     cos, sin = rope_for(positions, cfg.resolved_head_dim, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
@@ -89,10 +109,15 @@ def gqa_decode(
     cache: dict,
     *,
     live: torch.Tensor | None = None,
+    cross_cache: dict | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """One token against the cache.  RoPE takes the length before the append
     as the position; attention reads the length after it.  A
     ``uniform_decode`` config appends in lockstep (``append_kv_uniform``).
+
+    With ``cross_cache`` (one decoder layer's static cross K/V and its
+    lengths) the token's q, without RoPE, attends to it and nothing is
+    appended; the reference also projects a k and v there and drops them.
 
     With a ``live`` mask, rows that are not live keep their cache.  Where
     the rows share the MoE experts' capacity (``n_experts``), a free row
@@ -103,6 +128,10 @@ def gqa_decode(
     the engine (the one caller with a mask, which appends per row) rewrites
     it at the next step before attending, and admission copies the whole
     slot row over it."""
+    if cross_cache is not None:
+        q = _gqa_q(params, x, cfg)[:, 0].contiguous()  # (B, H, D)
+        out = ops.decode_attention(q, cross_cache["k"], cross_cache["v"], cross_cache["lengths"])
+        return _out_proj(out, params["wo"])[:, None], cache
     q, k, v = _gqa_qkv(params, x, cfg)
     pos = cache["lengths"][:, None]  # (B, 1)
     cos, sin = rope_for(pos, cfg.resolved_head_dim, cfg.rope_theta)

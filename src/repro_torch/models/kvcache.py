@@ -1,10 +1,12 @@
-"""Decode-time state of the port: the contiguous GQA cache, the MLA latent
-cache and the Mamba2 SSM state.
+"""Decode-time state of the port: the contiguous GQA cache, the enc-dec
+model's cross-attention cache, the MLA latent cache and the Mamba2 SSM state.
 
 Caches are plain dicts of tensors in the JAX package's layouts: GQA
 ``k``/``v`` ``(B, KV, S, D)``, MLA ``ckv`` ``(B, S, kv_lora)`` and ``krope``
-``(B, S, rope)``, each with per-sequence int32 ``lengths``; the SSM state
-``conv`` ``(B, K-1, d_xbc)`` and ``h`` ``(B, H, P, N)`` in f32.  Unlike the
+``(B, S, rope)``, each with per-sequence int32 ``lengths``; the cross cache
+``k``/``v`` ``(L, B, KV, frames, D)`` stacked over the decoder's layers,
+with one ``lengths`` ``(B,)``; the SSM state ``conv`` ``(B, K-1, d_xbc)``
+and ``h`` ``(B, H, P, N)`` in f32.  Unlike the
 functional JAX versions, the writers here update the cache in place and
 return it: the engine and the model hold one buffer per slot and never need
 the old one.
@@ -110,6 +112,31 @@ def append_kv(
     v[rows, :, pos] = torch.where(keep, v_new.to(v.dtype), v[rows, :, pos])
     cache["lengths"].add_(1 if live is None else live.to(torch.int32))
     return cache
+
+
+def init_cross_cache(
+    n_layers: int, batch: int, n_frames: int, n_kv: int, head_dim: int, dtype, *,
+    device: torch.device,
+) -> dict:
+    """Zeroed cross-attention cache of an enc-dec model, seq-major like the
+    decode cache: k/v (L, B, KV, frames, D), lengths (B,)."""
+    shape = (n_layers, batch, n_kv, n_frames, head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "lengths": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def write_cross_kv(cross: dict, layer: int, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Store one decoder layer's cross K/V (B, frames, KV, D activations)
+    seq-major, and every row's length as the frame count, in place.  The
+    frame count must be the cache's."""
+    if k.shape[1] != cross["k"].shape[3]:
+        raise ValueError(f"cross cache holds {cross['k'].shape[3]} frames, got {k.shape[1]}")
+    cross["k"][layer].copy_(k.transpose(1, 2))
+    cross["v"][layer].copy_(v.transpose(1, 2))
+    cross["lengths"].fill_(k.shape[1])
 
 
 # ---------------------------------------------------------------------------

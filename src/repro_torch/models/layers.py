@@ -87,11 +87,17 @@ def ssm_dt_from_uniform(u: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in f32, where the reference computes in f32; an f64 tensor stays
+    f64, so that a float64 run of the plain path rounds nowhere to f32."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
+    xf = wide(x)
     var = xf.square().mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
-    return (out * w.float()).to(x.dtype)
+    return (out * wide(w)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -117,7 +123,7 @@ def rope_cos_sin(
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """x: (..., S, H, D). cos/sin: broadcastable (..., S, 1, D//2)."""
-    xf = x.float()
+    xf = wide(x)
     x1, x2 = xf.chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -159,7 +165,7 @@ def attention_reference(
     scale = softmax_scale if softmax_scale is not None else 1.0 / float(np.sqrt(d))
     k = _repeat_kv(k, h // kv)
     v = _repeat_kv(v, h // kv)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    logits = torch.einsum("bqhd,bkhd->bhqk", wide(q), wide(k)) * scale
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:
         qpos = torch.arange(sq, device=q.device) + q_offset
@@ -171,7 +177,7 @@ def attention_reference(
         mask = mask & valid[:, None, None, :]
     logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, wide(v))
     return out.to(q.dtype)
 
 
@@ -249,11 +255,11 @@ def decode_attention_reference(
     rep = h // kvh
     scale = softmax_scale if softmax_scale is not None else 1.0 / float(np.sqrt(d))
     qg = q.reshape(b, kvh, rep, d)
-    s = torch.einsum("bgrd,bgsd->bgrs", qg.float(), k_cache.float()) * scale
+    s = torch.einsum("bgrd,bgsd->bgrs", wide(qg), wide(k_cache)) * scale
     valid = torch.arange(smax, device=q.device)[None, :] < lengths[:, None]  # (B, S)
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(v_cache.dtype)
-    out = torch.einsum("bgrs,bgsd->bgrd", p.float(), v_cache.float())
+    out = torch.einsum("bgrs,bgsd->bgrd", wide(p), wide(v_cache))
     return out.reshape(b, h, d).to(q.dtype)
 
 
@@ -274,13 +280,21 @@ def mlp_template(cfg) -> dict[str, TensorSpec]:
 
 
 def mlp_forward(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """x: (..., d_model).  SwiGLU only: the other MLP variants belong to
-    model families the port does not run yet."""
-    if cfg.mlp != "swiglu":
-        raise NotImplementedError(f"mlp={cfg.mlp!r}: not yet ported")
+    """x: (..., d_model).  SwiGLU (gate in f32), nemotron's squared ReLU (in
+    the input dtype, so a bf16 square rounds to bf16 as the reference's
+    does) or whisper's gelu (f32, the tanh form that ``jax.nn.gelu`` takes by
+    default)."""
     up = x @ params["w_up"]
-    gate = x @ params["w_gate"]
-    hidden = F.silu(gate.float()).to(x.dtype) * up
+    if cfg.mlp == "swiglu":
+        gate = x @ params["w_gate"]
+        hidden = F.silu(wide(gate)).to(x.dtype) * up
+    elif cfg.mlp == "relu2":
+        r = F.relu(up)
+        hidden = r * r
+    elif cfg.mlp == "gelu":
+        hidden = F.gelu(wide(up), approximate="tanh").to(x.dtype)
+    else:
+        raise ValueError(f"unknown mlp {cfg.mlp!r}")
     return hidden @ params["w_down"]
 
 

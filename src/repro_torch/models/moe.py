@@ -1,5 +1,5 @@
 """Mixture-of-experts layer of the port (``repro.models.moe``): olmoe's 64
-experts, top-8.
+experts, top-8, and grok-1's 8, top-2 in groups of 512 tokens.
 
 Token-choice top-k routing with GShard one-hot dispatch and per-group
 capacity, as the JAX package computes it: tokens in groups of
@@ -40,8 +40,8 @@ def moe_template(cfg) -> dict[str, TensorSpec]:
 
 def _expert_ffn(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     """x: (G, E, C, d) -> (G, E, C, d), every expert over its own buffer.
-    SwiGLU only, as ``layers.mlp_forward``: grok-1's gelu experts are not
-    ported."""
+    SwiGLU, as olmoe's and grok-1's experts are; no registered config has
+    non-gated experts, and they raise."""
     if not cfg.gated_mlp:
         raise NotImplementedError(f"mlp={cfg.mlp!r} experts: not yet ported")
     up = torch.einsum("gecd,edf->gecf", x, params["w_up"])

@@ -1,12 +1,19 @@
-"""The port's model (``repro.models.transformer``): the dense (GQA or MLA),
-MoE, SSM and hybrid families.
+"""The port's model (``repro.models.transformer``): every family of the JAX
+package.
 
-  dense  : [norm1 -> GQA|MLA -> +res -> norm2 -> MLP -> +res]
-  moe    : [norm1 -> GQA     -> +res -> norm2 -> MoE -> +res]
-  ssm    : [norm1 -> Mamba2  -> +res]
-  hybrid : ssm layers, and one *shared* attention+MLP block (one parameter
-           set, ``params["shared"]``) after every ``attn_every``-th layer,
-           each site with its own cache (``caches["shared"]``, one per site)
+  dense / vlm : [norm1 -> GQA|MLA -> +res -> norm2 -> MLP -> +res]
+  moe         : [norm1 -> GQA     -> +res -> norm2 -> MoE -> +res]
+  ssm         : [norm1 -> Mamba2  -> +res]
+  hybrid      : ssm layers, and one *shared* attention+MLP block (one
+                parameter set, ``params["shared"]``) after every
+                ``attn_every``-th layer, each site with its own cache
+                (``caches["shared"]``, one per site)
+  encdec      : an encoder of non-causal GQA + MLP blocks over the stub
+                frames (``params["encoder"]``, then ``enc_norm``); each
+                decoder block adds [norm_x -> cross-attention to the encoder
+                output -> +res] after its self-attention, with the cross K/V
+                computed once at prefill (``caches["cross"]``)
+  vlm         : the stub patch frames overwrite the first token positions
 
 Parameters and caches are nested dicts of tensors with the JAX package's keys
 and its stacked leading layer axis, so the JAX pytrees carry over one to one
@@ -22,8 +29,11 @@ the JAX package).  Caches are updated in place; a decode step given a
 ``live`` row mask leaves the caches and SSM states of the other rows as they
 were, as the reference engine's select does (in MoE models, apart from the
 one K/V entry at a free row's length, which is never read: see
-``attention.gqa_decode``).  Whisper's enc-dec, pixtral's
-VLM and the int8 cache are not ported and raise.
+``attention.gqa_decode``).  ``frames`` (B, Sf, d) feed the vlm and encdec
+stub frontends in ``train_forward`` and the prefill; decode reads the cross
+cache, and ``forward_layers_range`` runs an enc-dec decoder's layers
+without cross-attention, as the reference's does.  Only the int8 cache
+raises.
 """
 
 from __future__ import annotations
@@ -38,7 +48,7 @@ from repro_torch.models import attention, kvcache, layers, mamba2, moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import TensorSpec
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 # ---------------------------------------------------------------------------
 # Templates and init
@@ -46,11 +56,10 @@ FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in FAMILIES or cfg.kv_quant:
-        raise NotImplementedError(
-            f"{cfg.name}: family={cfg.family!r} kv_quant={cfg.kv_quant}: not yet ported "
-            f"(families {FAMILIES}, no int8 cache)"
-        )
+    if cfg.kv_quant:
+        raise NotImplementedError(f"{cfg.name}: kv_quant (the int8 KV cache): not yet ported")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r} (families {FAMILIES})")
     if cfg.family != "ssm" and cfg.attn not in ("gqa", "mla"):
         raise ValueError(
             f"{cfg.name}: family={cfg.family!r} has attention blocks, which need "
@@ -66,13 +75,17 @@ def _norm_spec(cfg) -> TensorSpec:
     return TensorSpec((cfg.d_model,), init="ones", dtype=cfg.dtype)
 
 
-def attn_layer_template(cfg) -> dict:
-    """One attention block: attention, then the MLP or (MoE) the experts."""
+def attn_layer_template(cfg, *, cross: bool = False) -> dict:
+    """One attention block: attention, with ``cross`` a cross-attention
+    (``norm_x``, ``xattn``), then the MLP or (MoE) the experts."""
     t = {
         "norm1": _norm_spec(cfg),
         "norm2": _norm_spec(cfg),
         "attn": attention.mla_template(cfg) if cfg.attn == "mla" else attention.gqa_template(cfg),
     }
+    if cross:
+        t["norm_x"] = _norm_spec(cfg)
+        t["xattn"] = attention.gqa_template(cfg)
     if cfg.n_experts:
         t["moe"] = moe.moe_template(cfg)
     else:
@@ -84,7 +97,7 @@ def layer_template(cfg) -> dict:
     """The per-layer template of the main stack."""
     if _is_ssm(cfg):
         return {"norm1": _norm_spec(cfg), "mixer": mamba2.mamba2_template(cfg)}
-    return attn_layer_template(cfg)
+    return attn_layer_template(cfg, cross=cfg.family == "encdec")
 
 
 def param_template(cfg: ModelConfig) -> dict:
@@ -97,13 +110,17 @@ def param_template(cfg: ModelConfig) -> dict:
     }
     if cfg.family == "hybrid":
         t["shared"] = attn_layer_template(cfg)
+    if cfg.family == "encdec":
+        t["encoder"] = layers.stack_template(attn_layer_template(cfg), cfg.n_enc_layers)
+        t["enc_norm"] = _norm_spec(cfg)
     return t
 
 
 def n_layer_blocks(cfg: ModelConfig) -> int:
     """Multicast / live-scaling blocks: the main stack's layers, plus the
-    hybrid's one shared block."""
-    return cfg.n_layers + (1 if cfg.family == "hybrid" else 0)
+    enc-dec model's encoder layers or the hybrid's one shared block."""
+    extra = {"encdec": cfg.n_enc_layers, "hybrid": 1}.get(cfg.family, 0)
+    return cfg.n_layers + extra
 
 
 def _init_leaf(spec: TensorSpec, gen: torch.Generator, device: torch.device) -> torch.Tensor:
@@ -173,27 +190,39 @@ def _ffn(cfg, lp: dict, h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | N
 
 def _attn_layer_fwd(
     cfg, lp: dict, x: torch.Tensor, positions: torch.Tensor, *, causal: bool = True,
-    cache: dict | None = None,
+    cache: dict | None = None, cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Full-sequence attention block, writing ``cache`` when given.  Returns
-    (x, the MoE aux loss or None)."""
+    """Full-sequence attention block, writing ``cache`` when given; with
+    ``cross_kv`` (the encoder output's K/V for this block) the
+    cross-attention runs after the self-attention.  Returns (x, the MoE aux
+    loss or None)."""
     h = ops.rmsnorm(x, lp["norm1"], eps=cfg.norm_eps)
     if cfg.attn == "mla":
         a, _ = attention.mla_prefill(lp["attn"], h, positions, cfg, cache=cache)
     else:
         a, _ = attention.gqa_prefill(lp["attn"], h, positions, cfg, causal=causal, cache=cache)
     x = x + a
+    if cross_kv is not None:
+        hx = ops.rmsnorm(x, lp["norm_x"], eps=cfg.norm_eps)
+        ax, _ = attention.gqa_prefill(lp["xattn"], hx, positions, cfg, causal=False,
+                                      kv_override=cross_kv)
+        x = x + ax
     m, aux = _ffn(cfg, lp, ops.rmsnorm(x, lp["norm2"], eps=cfg.norm_eps))
     return x + m, aux
 
 
 def _attn_layer_decode(
-    cfg, lp: dict, x: torch.Tensor, cache: dict, live: torch.Tensor | None = None
+    cfg, lp: dict, x: torch.Tensor, cache: dict, live: torch.Tensor | None = None,
+    cross: dict | None = None,
 ) -> torch.Tensor:
     h = ops.rmsnorm(x, lp["norm1"], eps=cfg.norm_eps)
     decode = attention.mla_decode if cfg.attn == "mla" else attention.gqa_decode
     a, _ = decode(lp["attn"], h, cfg, cache, live=live)
     x = x + a
+    if cross is not None:
+        hx = ops.rmsnorm(x, lp["norm_x"], eps=cfg.norm_eps)
+        ax, _ = attention.gqa_decode(lp["xattn"], hx, cfg, cache, cross_cache=cross)
+        x = x + ax
     m, _ = _ffn(cfg, lp, ops.rmsnorm(x, lp["norm2"], eps=cfg.norm_eps))
     return x + m
 
@@ -238,7 +267,9 @@ def init_caches(
     """Stacked per-layer decode state.  ``layers``: GQA k/v (L, B, KV, S, D)
     and lengths (L, B); MLA ckv (L, B, S, kv_lora) and krope (L, B, S,
     rope); SSM conv (L, B, K-1, d_xbc) and h (L, B, H, P, N).  The hybrid's
-    ``shared``: a GQA cache per site, (n_layers // attn_every, B, ...)."""
+    ``shared``: a GQA cache per site, (n_layers // attn_every, B, ...).  The
+    enc-dec model's ``cross``: k/v (L, B, KV, n_frontend_tokens, D) and
+    lengths (B,), written by the prefill."""
     _check_family(cfg)
     dev = resolve_device(device)
 
@@ -258,11 +289,34 @@ def init_caches(
             batch, max_seq, cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.dtype, device=dev)
     else:
         one = kv()
-    return {"layers": _stack(one, cfg.n_layers)}
+    caches = {"layers": _stack(one, cfg.n_layers)}
+    if cfg.family == "encdec":
+        caches["cross"] = kvcache.init_cross_cache(
+            cfg.n_layers, batch, cfg.n_frontend_tokens, cfg.n_kv_heads, cfg.resolved_head_dim,
+            cfg.dtype, device=dev)
+    return caches
 
 
-def _embed(cfg, params, tokens):
-    return layers.embed_tokens(params["embed"], tokens, cfg)
+def _embed(cfg, params, tokens, frames=None):
+    """Token embeddings (B, S, d); a vlm's patch frames (B, Sf, d), Sf <= S,
+    overwrite the first Sf positions."""
+    x = layers.embed_tokens(params["embed"], tokens, cfg)
+    if cfg.family == "vlm" and frames is not None:
+        x = torch.cat([frames.to(x.dtype), x[:, frames.shape[1]:]], dim=1)
+    return x
+
+
+def _run_encoder(cfg, params, frames) -> torch.Tensor:
+    """The enc-dec model's encoder over the stub frame embeddings (cast to
+    the model dtype): non-causal blocks with RoPE at positions 0..Sf-1, as
+    the reference runs them, then ``enc_norm``."""
+    if frames is None:
+        raise ValueError(f"{cfg.name}: the enc-dec model needs frames (B, Sf, d_model)")
+    x = frames.to(cfg.dtype)
+    pos = _positions(x[..., 0])
+    for i in range(cfg.n_enc_layers):
+        x, _ = _attn_layer_fwd(cfg, layer_slice(params["encoder"], i), x, pos, causal=False)
+    return ops.rmsnorm(x, params["enc_norm"], eps=cfg.norm_eps)
 
 
 def _positions(tokens: torch.Tensor) -> torch.Tensor:
@@ -274,14 +328,17 @@ def _head(cfg, params, x: torch.Tensor) -> torch.Tensor:
     """Final norm + unembed of (B, 1, d) -> masked f32 logits (B, V)."""
     x = ops.rmsnorm(x, params["final_norm"], eps=cfg.norm_eps)
     logits = layers.unembed(params["embed"], x, cfg)[:, 0]
-    return layers.vocab_mask_logits(logits.float(), cfg)
+    return layers.vocab_mask_logits(layers.wide(logits), cfg)
 
 
 def _forward(cfg, params: dict, x: torch.Tensor, positions: torch.Tensor, lo: int, hi: int,
-             *, shared: dict | None = None, caches: dict | None = None):
+             *, shared: dict | None = None, caches: dict | None = None,
+             enc_out: torch.Tensor | None = None):
     """Main-stack layers [lo, hi) over a full sequence, the hybrid's shared
-    block at its sites in that range (when ``shared`` is given), writing
-    ``caches`` when given.  Returns (x, summed MoE aux loss or None)."""
+    block at its sites in that range (when ``shared`` is given), each block's
+    cross-attention to ``enc_out`` (when given), writing ``caches`` (and the
+    cross K/V into ``caches["cross"]``) when given.  Returns (x, summed MoE
+    aux loss or None)."""
     aux = None
     for i in range(int(lo), int(hi)):
         lp = layer_slice(params, i)
@@ -289,7 +346,12 @@ def _forward(cfg, params: dict, x: torch.Tensor, positions: torch.Tensor, lo: in
         if _is_ssm(cfg):
             x = _ssm_layer_fwd(cfg, lp, x, state=c)
         else:
-            x, a = _attn_layer_fwd(cfg, lp, x, positions, cache=c)
+            xkv = None
+            if enc_out is not None:
+                xkv = attention.cross_kv(lp["xattn"], enc_out)
+                if caches is not None:
+                    kvcache.write_cross_kv(caches["cross"], i, *xkv)
+            x, a = _attn_layer_fwd(cfg, lp, x, positions, cache=c, cross_kv=xkv)
             if a is not None:
                 aux = a if aux is None else aux + a
         if shared is not None and _is_site(cfg, i):
@@ -303,13 +365,20 @@ def _forward(cfg, params: dict, x: torch.Tensor, positions: torch.Tensor, lo: in
 # ---------------------------------------------------------------------------
 
 
-def train_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
+def _enc_out(cfg, params, frames):
+    return _run_encoder(cfg, params, frames) if cfg.family == "encdec" else None
+
+
+def train_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                  frames: torch.Tensor | None = None):
     """Returns (logits (B, S, V), the MoE aux loss summed over layers; 0
-    for the other families)."""
+    for the other families).  ``frames``: the vlm's patches or the encdec
+    encoder's input."""
     _check_family(cfg)
     positions = _positions(tokens)
-    x, aux = _forward(cfg, params["layers"], _embed(cfg, params, tokens), positions,
-                      0, _n_layers(params["layers"]), shared=params.get("shared"))
+    x, aux = _forward(cfg, params["layers"], _embed(cfg, params, tokens, frames), positions,
+                      0, _n_layers(params["layers"]), shared=params.get("shared"),
+                      enc_out=_enc_out(cfg, params, frames))
     x = ops.rmsnorm(x, params["final_norm"], eps=cfg.norm_eps)
     logits = layers.unembed(params["embed"], x, cfg)
     if aux is None:
@@ -322,17 +391,20 @@ def train_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def prefill_logits(cfg: ModelConfig, params: dict, tokens: torch.Tensor, caches: dict):
+def prefill_logits(cfg: ModelConfig, params: dict, tokens: torch.Tensor, caches: dict,
+                   frames: torch.Tensor | None = None):
     """Returns (last-position masked f32 logits (B, V), filled caches)."""
     _check_family(cfg)
-    x, _ = _forward(cfg, params["layers"], _embed(cfg, params, tokens), _positions(tokens),
-                    0, _n_layers(params["layers"]), shared=params.get("shared"), caches=caches)
-    return _head(cfg, params, x[:, -1:]), caches
+    x, _ = _forward(cfg, params["layers"], _embed(cfg, params, tokens, frames), _positions(tokens),
+                    0, _n_layers(params["layers"]), shared=params.get("shared"), caches=caches,
+                    enc_out=_enc_out(cfg, params, frames))
+    return _head(cfg, params, x[:, -1:].contiguous()), caches  # the rmsnorm kernel takes rows
 
 
-def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, caches: dict):
+def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, caches: dict,
+            frames: torch.Tensor | None = None):
     """Returns (next-token ids (B,) int32, filled caches)."""
-    logits, caches = prefill_logits(cfg, params, tokens, caches)
+    logits, caches = prefill_logits(cfg, params, tokens, caches, frames)
     return logits.argmax(dim=-1).to(torch.int32), caches
 
 
@@ -350,7 +422,11 @@ def decode_logits(
         if _is_ssm(cfg):
             x = _ssm_layer_decode(cfg, lp, x, c, live)
         else:
-            x = _attn_layer_decode(cfg, lp, x, c, live)
+            cross = None
+            if cfg.family == "encdec":
+                xc = caches["cross"]
+                cross = {"k": xc["k"][i], "v": xc["v"][i], "lengths": xc["lengths"]}
+            x = _attn_layer_decode(cfg, lp, x, c, live, cross)
         if _is_site(cfg, i):
             sc = layer_slice(caches["shared"], i // cfg.attn_every)
             x = _attn_layer_decode(cfg, params["shared"], x, sc, live)
@@ -381,7 +457,9 @@ def forward_layers_range(
     shared: dict | None = None,
 ) -> torch.Tensor:
     """Run layers ``[lo, hi)`` of the main stack, and the hybrid's shared
-    block after each of its sites in that range when ``shared`` is given."""
+    block after each of its sites in that range when ``shared`` is given.
+    An enc-dec decoder's layers run without their cross-attention, as the
+    reference's masked scan runs them (it passes no encoder output)."""
     _check_family(cfg)
     x, _ = _forward(cfg, stacked_layers, x, positions, lo, hi, shared=shared)
     return x

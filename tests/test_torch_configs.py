@@ -1,8 +1,10 @@
 """The other archs of the JAX package registered in the port (dense GQA,
-MLA for minicpm3-4b, MoE olmoe-1b-7b, SSM mamba2-370m, hybrid zamba2-2.7b):
-each config equals the JAX one field by field, at full size and at
-REDUCED, and at REDUCED in f32 the port's prefill logits equal the JAX
-model's on the same (bridged) weights."""
+MLA for minicpm3-4b, MoE olmoe-1b-7b and grok-1-314b, SSM mamba2-370m,
+hybrid zamba2-2.7b, squared-ReLU nemotron-4-340b, enc-dec whisper-large-v3,
+VLM pixtral-12b): each config equals the JAX one field by field, at full
+size and at REDUCED, and at REDUCED in f32 the port's prefill logits equal
+the JAX model's on the same (bridged) weights; the two stub frontends get
+the same frames, drawn with numpy from a seed."""
 
 import dataclasses
 
@@ -22,7 +24,8 @@ from repro_torch.models import bridge  # noqa: E402
 from repro_torch.models import transformer as TF  # noqa: E402
 
 ARCHS = ["llama3-8b", "qwen1.5-4b", "mistral-24b", "qwen2.5-72b", "minicpm3-4b",
-         "olmoe-1b-7b", "mamba2-370m", "zamba2-2.7b"]
+         "olmoe-1b-7b", "mamba2-370m", "zamba2-2.7b", "grok-1-314b", "nemotron-4-340b",
+         "whisper-large-v3", "pixtral-12b"]
 
 
 def _fields(cfg):
@@ -59,10 +62,14 @@ def test_prefill_logits_equal_jax_f32(arch):
             attn[name] = jnp.asarray(rng.standard_normal(attn[name].shape).astype(np.float32))
     params = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     toks = rng.integers(0, cfg.vocab_size, size=(2, 10)).astype(np.int32)
-    jnxt, _ = JTF.prefill(jcfg, jparams, jnp.asarray(toks), JTF.init_caches(jcfg, 2, 32))
-    jlogits, _ = JTF.train_forward(jcfg, jparams, jnp.asarray(toks))
+    frames = jframes = None
+    if cfg.family in ("vlm", "encdec"):
+        frames = (rng.standard_normal((2, cfg.n_frontend_tokens, cfg.d_model)) * 0.02).astype(np.float32)
+        jframes, frames = jnp.asarray(frames), torch.from_numpy(frames)
+    jnxt, _ = JTF.prefill(jcfg, jparams, jnp.asarray(toks), JTF.init_caches(jcfg, 2, 32), jframes)
+    jlogits, _ = JTF.train_forward(jcfg, jparams, jnp.asarray(toks), jframes)
     want = np.asarray(jax_vocab_mask(jlogits[:, -1].astype(jnp.float32), jcfg))
     logits, _ = TF.prefill_logits(cfg, params, torch.from_numpy(toks),
-                                  TF.init_caches(cfg, 2, 32, device="cpu"))
+                                  TF.init_caches(cfg, 2, 32, device="cpu"), frames)
     np.testing.assert_array_equal(logits.argmax(-1).numpy(), np.asarray(jnxt))
     np.testing.assert_allclose(logits.float().numpy(), want, atol=1e-4, rtol=1e-4)

@@ -1,6 +1,8 @@
 """The port's MoE, SSM and hybrid families (olmoe-1b-7b, mamba2-370m,
-zamba2-2.7b, REDUCED) against the JAX package, in f32 where token ids must
-agree exactly.
+zamba2-2.7b) and the two largest reference archs (grok-1-314b, MoE with 8
+SwiGLU experts top-2 in dispatch groups of 512; nemotron-4-340b, dense with
+a squared-ReLU MLP, n_rep 3 at REDUCED), all REDUCED, against the JAX
+package, in f32 where token ids must agree exactly.
 
 Weights are made by the JAX init and carried over through the bridge.  Per
 arch: prefill + decode token ids and caches (1e-4 of each tensor's scale,
@@ -9,8 +11,8 @@ sums in another order) equal to JAX's, through the direct ``decode_step``
 to prefill(S + 1) (tests/test_models.py:48); the split forward against JAX's at every k
 (2e-2, tests/test_live_scaling.py:18-33) and bit-equal to the port's own
 monolithic forward; the engine with slots that live and die against the JAX
-engine, exactly (olmoe's free slots compete for expert capacity with their
-stale tokens, as in the reference); a disagg runtime scenario for the SSM
+engine, exactly (the MoE archs' free slots compete for expert capacity with
+their stale tokens, as in the reference); a disagg runtime scenario for the SSM
 archs against the JAX runtime.  Also the lockstep appends against JAX's and
 the migrated payload of SSM and hybrid caches.
 """
@@ -44,7 +46,7 @@ from repro_torch.core.live_scaling import cooperative_forward  # noqa: E402
 from repro_torch.models import bridge, kvcache  # noqa: E402
 from repro_torch.models import transformer as TF  # noqa: E402
 
-ARCHS = ["olmoe-1b-7b", "mamba2-370m", "zamba2-2.7b"]
+ARCHS = ["olmoe-1b-7b", "mamba2-370m", "zamba2-2.7b", "grok-1-314b", "nemotron-4-340b"]
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 SPLIT_TOL = dict(atol=2e-2, rtol=2e-2)  # tests/test_live_scaling.py:29-33
 
@@ -140,9 +142,9 @@ def test_prefill_and_decode_match_jax_f32(arch):
 def test_decode_continues_prefill(arch):
     """prefill(S) then one decode step of token S gives the token that
     prefill(S + 1) gives (tests/test_models.py:48, which runs the SSM and
-    hybrid archs), and both sides equal JAX's.  olmoe is held to JAX only:
-    its expert capacity scales with the tokens routed together, so a
-    one-token step drops other choices than a prefill of S + 1 tokens."""
+    hybrid archs), and both sides equal JAX's.  The MoE archs are held to
+    JAX only: their expert capacity scales with the tokens routed together,
+    so a one-token step drops other choices than a prefill of S + 1 tokens."""
     jcfg, jparams, cfg, params = _models(arch)
     b, s = 2, 12
     toks = _tokens(cfg, b, s + 1, seed=2)

@@ -21,6 +21,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chi
 CFG = get_config("granite-8b", reduced=True)
 MLA_CFG = get_config("minicpm3-4b", reduced=True)
 HYBRID_CFG = get_config("zamba2-2.7b", reduced=True)
+ENCDEC_CFG = get_config("whisper-large-v3", reduced=True)
+VLM_CFG = get_config("pixtral-12b", reduced=True)
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -44,6 +46,12 @@ def test_isolation_covers_the_mla_and_maas_modules():
         assert f"src/repro_torch/{mod}" in names, mod
 
 
+def test_isolation_covers_the_last_four_configs():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("grok_1_314b", "nemotron_4_340b", "whisper_large_v3", "pixtral_12b"):
+        assert f"src/repro_torch/configs/{mod}.py" in names, mod
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax_and_nothing_of_repro(path):
     bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "flax", "optax"}
@@ -61,9 +69,13 @@ def test_port_imports_no_jax_and_nothing_of_repro(path):
         lambda: TF.init_caches(MLA_CFG, 1, 8),
         lambda: TF.init_params(HYBRID_CFG, 0),
         lambda: TF.init_caches(HYBRID_CFG, 1, 8),
+        lambda: TF.init_params(ENCDEC_CFG, 0),
+        lambda: TF.init_caches(ENCDEC_CFG, 1, 8),
+        lambda: TF.init_params(VLM_CFG, 0),
     ],
     ids=["resolve_device", "init_params", "init_caches", "params_from_numpy", "init_params_mla",
-         "init_caches_mla", "init_params_hybrid", "init_caches_hybrid"],
+         "init_caches_mla", "init_params_hybrid", "init_caches_hybrid", "init_params_encdec",
+         "init_caches_encdec", "init_params_vlm"],
 )
 def test_entry_points_default_to_cuda_and_raise_without_it(call):
     if torch.cuda.is_available():

@@ -31,12 +31,17 @@ FLASH_SHAPES = [  # b, sq, sk, h, kv, d
     (1, 48, 32, 6, 3, 128),  # uneven blocks, D 128
     (1, 80, 80, 5, 5, 96),  # MLA at minicpm3's qk dim, lengths not block multiples
     (2, 40, 40, 4, 4, 24),  # MLA at REDUCED minicpm3's qk dim
+    (1, 40, 40, 12, 1, 192),  # nemotron's head dim at n_rep 12
+    (2, 24, 60, 4, 4, 64),  # whisper's cross-attention: Sq != Sk at D = 64
 ]
 # MLA's qk head dims -> v_head_dim (configs/minicpm3_4b.py, full and REDUCED):
 # at these D, V is zero-padded from v_head_dim and the scale passed
 # explicitly, as mla_prefill calls the kernel
 MLA_V_DIMS = {96: 64, 24: 16}
 DECODE_SHAPES = [(2, 128, 8, 2, 32), (2, 96, 8, 1, 128)]  # b, s, h, kv, d
+# the n_rep of nemotron REDUCED (3), grok-1 (6) and nemotron (12), and
+# nemotron's head dim 192
+NEW_DECODE_SHAPES = [(2, 64, 6, 2, 16), (2, 80, 12, 2, 128), (2, 48, 24, 2, 192)]
 RMS_SHAPES = [(4, 7, 64), (130, 256)]
 
 
@@ -106,7 +111,7 @@ def test_flash_plain_matches_pallas(pallas, b, sq, sk, h, kv, d, causal, dt):
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("b,s,h,kv,d", DECODE_SHAPES)
+@pytest.mark.parametrize("b,s,h,kv,d", DECODE_SHAPES + NEW_DECODE_SHAPES)
 def test_decode_plain_matches_pallas(pallas, b, s, h, kv, d, dt):
     arrs, (qt, kt, vt) = _inputs(2, [(b, h, d), (b, kv, s, d), (b, kv, s, d)], dt)
     lens = _lengths(3, b, s)
@@ -153,6 +158,30 @@ def test_decode_plan_partitions_the_cache(b, kv, s, d, elem):
                    for rank in range(plan.cluster))
 
 
+@pytest.mark.parametrize("n_rep,groups", [(1, 1), (3, 1), (6, 1), (8, 1), (12, 2)])
+@pytest.mark.parametrize("b,kv,s,d,elem", [
+    (4, 8, 552, 192, 2), (4, 8, 552, 192, 4), (3, 8, 1000, 192, 4), (1, 2, 4096, 192, 2),
+    (1, 1, 1, 192, 4), (4, 8, 552, 128, 2), (4, 20, 1500, 64, 2), (1, 1, 100, 16, 4)])
+def test_decode_plan_splits_the_heads_into_groups(n_rep, groups, b, kv, s, d, elem):
+    """n_rep above 8 (nemotron's 12) splits into equal groups of at most 8
+    heads, each group a cluster of its own (grid y = KV x groups) over the
+    same chunks; at D = 192 a chunk is at most 32 rows in bf16 and 16 in f32
+    (the 2-stage ring of K and V chunks fits 64 KB); the chunks cover S,
+    rank 0 needs every chunk slot a CTA is given, and every row below the
+    length is read by exactly one CTA of each group's cluster."""
+    plan = decode_plan(b, kv, s, d, elem, n_rep)
+    assert plan.groups == groups and (n_rep // groups) <= 8 and n_rep % groups == 0
+    assert 1 <= plan.cluster <= 8 and plan.grid == (plan.cluster, kv * groups, b)
+    assert 4 * plan.chunk * d * elem <= 64 * 1024 or plan.chunk == 16
+    if d == 192:
+        assert plan.chunk <= {2: 32, 4: 16}[elem]
+    assert plan.cluster * plan.chunks_per_cta * plan.chunk >= s
+    assert plan.cluster * (plan.chunks_per_cta - 1) * plan.chunk < s
+    for length in sorted({min(n, s) for n in (0, 1, plan.chunk + 1, s // 3, s)}):
+        rows = [r for rank in range(plan.cluster) for r in plan.rows_of(rank, length)]
+        assert sorted(rows) == list(range(length))
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels against their plain versions (on the card only)
 # ---------------------------------------------------------------------------
@@ -183,7 +212,8 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dt):
     + [(1, 100, 100, 8, 8, 64), (2, 128, 256, 4, 1, 16), (1, 300, 300, 32, 8, 128),
        (2, 200, 333, 8, 2, 96), (1, 130, 70, 6, 3, 24),
        (1, 128, 128, 20, 20, 128), (1, 128, 128, 40, 40, 96),  # qwen1.5-4b, minicpm3 (n_rep 1)
-       (1, 100, 100, 4, 4, 80), (2, 130, 200, 8, 2, 80), (1, 512, 512, 32, 32, 80)],  # zamba2's D = 80
+       (1, 100, 100, 4, 4, 80), (2, 130, 200, 8, 2, 80), (1, 512, 512, 32, 32, 80),  # zamba2's D = 80
+       (1, 200, 200, 12, 1, 192), (2, 130, 70, 24, 2, 192), (1, 300, 300, 96, 8, 192)],  # nemotron
 )
 def test_flash_kernel_matches_plain(cuda, b, sq, sk, h, kv, d, causal, dt):
     _, (q, k, v) = _inputs(6, [(b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)], dt, cuda)
@@ -199,7 +229,11 @@ def test_flash_kernel_matches_plain(cuda, b, sq, sk, h, kv, d, causal, dt):
     "b,s,h,kv,d",
     DECODE_SHAPES + [(3, 100, 4, 4, 64), (1, 256, 16, 8, 16), (4, 152, 20, 20, 128),  # qwen1.5-4b
                      (3, 100, 4, 4, 80), (2, 300, 16, 2, 80), (4, 1024, 32, 32, 80),  # zamba2's D = 80
-                     (4, 552, 16, 16, 128), (4, 552, 32, 32, 80)])  # olmoe and zamba2 served
+                     (4, 552, 16, 16, 128), (4, 552, 32, 32, 80),  # olmoe and zamba2 served
+                     # grok-1 (n_rep 6), nemotron (n_rep 12, D = 192), pixtral (n_rep 4)
+                     # served, and whisper's cross cache of 1500 frames
+                     (4, 552, 48, 8, 128), (4, 552, 96, 8, 192), (4, 552, 32, 8, 128),
+                     (4, 1500, 20, 20, 64)])
 def test_decode_kernel_matches_plain(cuda, b, s, h, kv, d, dt):
     _, (q, k, v) = _inputs(7, [(b, h, d), (b, kv, s, d), (b, kv, s, d)], dt, cuda)
     lens = torch.from_numpy(_lengths(8, b, s)).to(cuda)
@@ -251,10 +285,11 @@ def test_flash_head_dims_cover_mla():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("d", [16, 128, 64, 192])
 def test_flash_kernel_cross_lengths_with_scale(cuda, d, dt):
     """Non-causal, Sq != Sk (ragged on both sides), an explicit scale: the
-    bf16 kernel's transposed V operand at the smallest and largest D."""
+    bf16 kernel's transposed V operand at the smallest and largest D, and at
+    whisper's cross-attention (D = 64) and nemotron's D = 192."""
     _, (q, k, v) = _inputs(11, [(2, 200, 8, d), (2, 333, 2, d), (2, 333, 2, d)], dt, cuda)
     got = ops.flash_attention(q, k, v, causal=False, softmax_scale=0.05, impl="kernel")
     _close(got, ref.flash_attention_ref(q, k, v, causal=False, softmax_scale=0.05), dt)
@@ -318,6 +353,76 @@ def test_decode_kernel_head_dim_80(cuda, n_rep, dt):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [16, 128, 192])
+@pytest.mark.parametrize("n_rep", [3, 6, 12])
+def test_decode_kernel_new_n_reps(cuda, n_rep, d, dt):
+    """n_rep 3 (nemotron REDUCED), 6 (grok-1) and 12 (nemotron: two head
+    groups of 6 over one cache) at D = 16, 128 and 192 (a row of 24 lanes;
+    two 16-byte vectors a lane in f32).  Lengths 0, S, 1, one chunk + 1 and
+    ragged."""
+    b, s, kv = 5, 600, 2
+    chunk = decode_plan(b, kv, s, d, 2 if dt == "bf16" else 4, n_rep).chunk
+    _, (q, k, v) = _inputs(16, [(b, kv * n_rep, d), (b, kv, s, d), (b, kv, s, d)], dt, cuda)
+    lens = torch.tensor([0, s, 1, chunk + 1, 333], dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q, k, v, lens, impl="kernel")
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    _close(got[1:], ref.decode_attention_ref(q, k, v, lens)[1:], dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-8b", "whisper-large-v3"])
+def test_batched_prefill_and_decode_run_on_the_kernels(cuda, arch):
+    """A prefill of 3 sequences (the last position of each is a strided
+    slice of the batch: the rmsnorm kernel takes it made contiguous) and two
+    decode steps on the kernels, against the plain path, f32 REDUCED;
+    whisper with its frames.  Logits over the real vocab within 1e-4 of
+    their scale, the model-level f32 tolerance of tests/test_torch_model.py
+    and test_torch_families.py (each kernel's own 3e-5 grows through the
+    layers: whisper's 2 + 2 layers part by 2.5e-4 at logits near 1.5).  A
+    float64 run of the plain path on the same weights tells that growth from
+    a kernel fault: the kernel path may sit no farther from it than the
+    plain path does, plus the kernels' own f32 tolerance, 3e-5 of the
+    scale."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TF
+
+    cfg = get_config(arch, reduced=True).replace(dtype=torch.float32)
+    params = TF.init_params(cfg, 0, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (3, 9))).to(cuda)
+    frames = None
+    if cfg.family == "encdec":
+        shape = (3, cfg.n_frontend_tokens, cfg.d_model)
+        frames = torch.from_numpy(np.random.default_rng(2).standard_normal(shape) * 0.02).float().to(cuda)
+
+    def widen(tree):
+        return {k: widen(v) if isinstance(v, dict) else v.double() for k, v in tree.items()}
+
+    runs = {"kernel": (cfg, params), "ref": (cfg, params),
+            "f64": (cfg.replace(dtype=torch.float64), widen(params))}
+    out, feed = {}, []
+    for name, (c, p) in runs.items():  # all fed the tokens the kernel path picks
+        impl = "kernel" if name == "kernel" else "ref"
+        with ops.use_impl(impl):
+            before = ops.launch_counts()
+            caches = TF.init_caches(c, 3, 16, device=cuda)
+            logits, caches = TF.prefill_logits(c, p, toks.int(), caches, frames)
+            steps = [logits]
+            for t in range(2):
+                if impl == "kernel":
+                    feed.append(steps[-1].argmax(-1).int())
+                logits, caches = TF.decode_logits(c, p, feed[t], caches)
+                steps.append(logits)
+            out[name] = torch.stack(steps)[..., :cfg.vocab_size].double().cpu().numpy()
+            launched = {k: v - before[k] for k, v in ops.launch_counts().items()}
+            assert all(launched.values()) == (impl == "kernel"), launched
+    got, want, f64 = out["kernel"], out["ref"], out["f64"]
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, atol=1e-4 * scale, rtol=1e-4)
+    assert np.abs(got - f64).max() <= np.abs(want - f64).max() + 3e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_attention_kernels_reject_other_head_dims(cuda, dt):
     """A head dim with no instantiation (here 72, 160 bytes in f32 are 40
     lanes) raises a clear error in the wrapper, never reaches a launch."""
@@ -341,3 +446,28 @@ def test_attention_head_dims_cover_zamba2():
     for reduced in (False, True):
         d = get_config("zamba2-2.7b", reduced=reduced).resolved_head_dim
         assert d in flash.HEAD_DIMS and d in decode.HEAD_DIMS
+
+
+def test_attention_head_dims_cover_all_configs():
+    """Every registered config, full and REDUCED, runs its attention on the
+    kernels: the GQA head dim in both wrappers' HEAD_DIMS and its n_rep in
+    the decode kernel's N_REPS; MLA's qk dim in flash's (natively or padded;
+    its decode is plain products); the SSM arch has no attention."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.kernels import decode_attention as decode
+    from repro_torch.kernels import flash_attention as flash
+
+    assert len(ARCHS) == 13
+    for arch in ARCHS:
+        for reduced in (False, True):
+            cfg = get_config(arch, reduced=reduced)
+            if cfg.family == "ssm":
+                continue
+            if cfg.attn == "mla":
+                d = cfg.mla_qk_head_dim
+                assert d in flash.HEAD_DIMS or d in flash.PADDED_HEAD_DIMS, cfg.name
+                continue
+            d, n_rep = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
+            assert d in flash.HEAD_DIMS and d in decode.HEAD_DIMS, cfg.name
+            assert n_rep in decode.N_REPS, cfg.name
+    assert get_config("nemotron-4-340b").resolved_head_dim == 192

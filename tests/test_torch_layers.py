@@ -126,6 +126,29 @@ def test_swiglu_mlp_matches_jax(dt):
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("arch", ["nemotron-4-340b", "whisper-large-v3"], ids=["relu2", "gelu"])
+def test_relu2_and_gelu_mlp_match_jax(arch, dt):
+    """nemotron's squared ReLU (in the input dtype: a bf16 square rounds to
+    bf16) and whisper's f32 gelu, which is jax.nn.gelu's tanh form: in f32
+    the exact erf form misses the reference by more than 3e-5."""
+    rng = np.random.default_rng(6)
+    jcfg = jax_get_config(arch, reduced=True)
+    cfg = get_config(arch, reduced=True)
+    d, f = cfg.d_model, cfg.d_ff
+    pj, pt = {}, {}
+    for name, shape in (("w_up", (d, f)), ("w_down", (f, d))):
+        pj[name], pt[name] = _pair(_randn(rng, *shape) * 2 / np.sqrt(shape[0]), dt)
+    assert TL.mlp_template(cfg).keys() == JL.mlp_template(jcfg).keys() == pt.keys()
+    xj, xt = _pair(_randn(rng, 2, 5, d), dt)
+    want = JL.mlp_forward(pj, xj, jcfg)
+    _close(TL.mlp_forward(pt, xt, cfg), want, dt)
+    if arch == "whisper-large-v3" and dt == "f32":
+        up = xt @ pt["w_up"]
+        erf = torch.nn.functional.gelu(up) @ pt["w_down"]
+        assert np.abs(erf.numpy() - np.asarray(want)).max() > 3e-5
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_embed_unembed_and_vocab_mask_match_jax(dt):
     rng = np.random.default_rng(6)
     jcfg = jax_get_config("granite-8b", reduced=True)

@@ -83,9 +83,18 @@ def test_granite_config_fields_equal_jax(reduced):
 
 
 def test_unported_arch_raises():
-    for arch in ("whisper-large-v3", "pixtral-12b"):  # enc-dec and VLM: not ported
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            get_config(arch)
+    """Every arch id of the JAX registry (ARCH_IDS and the paper's models)
+    resolves, full and REDUCED, in the dash and the underscore form, to the
+    config of that name; only an id the JAX package lacks raises."""
+    from repro.configs import ARCH_IDS, PAPER_IDS
+
+    for arch in ARCH_IDS + PAPER_IDS:
+        for reduced in (False, True):
+            for name in (arch, arch.replace("-", "_").replace(".", "_")):
+                cfg = get_config(name, reduced=reduced)
+                assert cfg.name == jax_get_config(arch, reduced=reduced).name
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-5")
 
 
 def test_param_template_matches_jax():
@@ -239,18 +248,23 @@ def test_live_session_and_multiplier_match_jax():
 
 
 def test_other_families_raise():
-    """enc-dec, VLM and the int8 cache raise; so does a family with
-    attention blocks and attn='none'; the MoE, SSM and hybrid families
-    build."""
+    """The int8 cache raises, on every family; so does a family with
+    attention blocks and attn='none', and an unknown family; the MoE, SSM,
+    hybrid, enc-dec and VLM families build."""
     cfg = get_config("granite-8b", reduced=True)
-    for bad in (cfg.replace(family="encdec"), cfg.replace(family="vlm"),
-                cfg.replace(kv_quant=True)):
+    for arch in ("granite-8b", "whisper-large-v3", "pixtral-12b"):
+        bad = get_config(arch, reduced=True).replace(kv_quant=True)
         with pytest.raises(NotImplementedError, match="not yet ported"):
             TF.param_template(bad)
-    for arch in ("granite-8b", "olmoe-1b-7b", "zamba2-2.7b"):
+    for arch in ("granite-8b", "olmoe-1b-7b", "zamba2-2.7b", "whisper-large-v3"):
         with pytest.raises(ValueError, match="attn 'gqa' or 'mla'"):
             TF.param_template(get_config(arch, reduced=True).replace(attn="none"))
+    with pytest.raises(ValueError, match="unknown family"):
+        TF.param_template(cfg.replace(family="retnet"))
     with pytest.raises(NotImplementedError):
         TF.init_caches(cfg.replace(kv_quant=True), 1, 8, device=CPU)
-    for arch in ("olmoe-1b-7b", "mamba2-370m", "zamba2-2.7b"):
+    for arch in ("olmoe-1b-7b", "mamba2-370m", "zamba2-2.7b", "whisper-large-v3", "pixtral-12b"):
         TF.param_template(get_config(arch, reduced=True))
+    for family in ("encdec", "vlm"):
+        TF.init_caches(cfg.replace(family=family, n_enc_layers=1, n_frontend_tokens=4), 1, 8,
+                       device=CPU)

@@ -29,10 +29,10 @@ from repro_torch.models import bridge, moe  # noqa: E402
 TOL = dict(atol=3e-5, rtol=3e-5)
 
 
-def _layer0(cf: float, dt: str = "f32", seed: int = 0):
+def _layer0(cf: float, dt: str = "f32", seed: int = 0, arch: str = "olmoe-1b-7b"):
     jd, td = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dt]
-    jcfg = jax_get_config("olmoe-1b-7b", reduced=True).replace(capacity_factor=cf, dtype=jd)
-    cfg = get_config("olmoe-1b-7b", reduced=True).replace(capacity_factor=cf, dtype=td)
+    jcfg = jax_get_config(arch, reduced=True).replace(capacity_factor=cf, dtype=jd)
+    cfg = get_config(arch, reduced=True).replace(capacity_factor=cf, dtype=td)
     rng = np.random.default_rng(seed)
     tree = {}
     for name, spec in JMOE.moe_template(jcfg).items():
@@ -62,6 +62,20 @@ def test_moe_forward_matches_jax_f32(cf, group_size):
     jcfg, jp, cfg, p = _layer0(cf)
     x = _x((2, 12, cfg.d_model), 1)
     (jout, jaux), (out, aux) = _both(jcfg, jp, cfg, p, x, group_size=group_size)
+    np.testing.assert_allclose(out, jout, **TOL)
+    np.testing.assert_allclose(aux, jaux, **TOL)
+
+
+@pytest.mark.parametrize("s", [12, 300], ids=["one_group", "two_groups"])
+def test_grok_moe_in_groups_of_512_matches_jax_f32(s):
+    """grok-1's layer (REDUCED: 4 SwiGLU experts, top-2, moe_group_size 512
+    as in the full config): 24 tokens form one group of 24 (capacity
+    ceil(1.25 * 24 * 2 / 4) = 15), 600 tokens a group of 512 (capacity 320)
+    and a padded one; output and aux loss at 3e-5."""
+    jcfg, jp, cfg, p = _layer0(1.25, arch="grok-1-314b")
+    assert cfg.moe_group_size == jcfg.moe_group_size == 512 and cfg.gated_mlp
+    x = _x((2, s, cfg.d_model), 4)
+    (jout, jaux), (out, aux) = _both(jcfg, jp, cfg, p, x)
     np.testing.assert_allclose(out, jout, **TOL)
     np.testing.assert_allclose(aux, jaux, **TOL)
 

@@ -2,8 +2,10 @@
 CPU: the colocated, ``--disagg`` and ``--maas`` modes run to the end,
 ``--disagg`` reports every handoff complete and no request dropped, ``--maas``
 serves the JAX CLI's three default models (granite-8b, qwen1.5-4b and the MLA
-model minicpm3-4b) with nothing dropped, and without ``--device`` a machine
-without CUDA raises instead of running on the CPU."""
+model minicpm3-4b) with nothing dropped, ``--arch`` takes every registered
+arch but whisper-large-v3 (the engine passes no frames, as the JAX
+engine's does), and without ``--device`` a machine without CUDA raises
+instead of running on the CPU."""
 
 import pytest
 
@@ -49,9 +51,8 @@ def test_run_disagg_returns_the_finished_runtime():
     assert all(pe.engine.params is rt.params for pe in rt.pool.all())
 
 
-def test_maas_is_not_ported_yet():
-    """Named before ``--maas`` was ported; it now holds the opposite: the mode
-    runs.  One ``run_maas`` with the CLI's topology, policies and arrival
+def test_run_maas_serves_every_request_with_the_callers_model():
+    """One ``run_maas`` with the CLI's topology, policies and arrival
     compression, given the caller's config and parameters for one model:
     every request is served with no gap, the fleet parks a model at zero and
     cold-starts one back, and each model's engines share its one parameter
@@ -112,3 +113,19 @@ def test_moe_ssm_and_hybrid_archs_serve(arch, capsys):
     assert "served 4 requests" in text
     assert "handoffs completed 6/6" in text
     assert "dropped or token-gapped requests: 0" in text
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "nemotron-4-340b", "pixtral-12b"])
+def test_last_reference_archs_serve_colocated(arch, capsys):
+    """``--arch`` with grok-1's MoE, nemotron's squared-ReLU MLP at n_rep 3
+    and pixtral's VLM (text only: the engine passes no frames): the
+    colocated loop runs to the end."""
+    serve.main(CPU + ["--arch", arch, "--requests", "4"])
+    assert "served 4 requests" in capsys.readouterr().out
+
+
+def test_whisper_needs_frames_the_engine_does_not_pass():
+    """whisper-large-v3 is served at the model API with frames; through the
+    engine, which passes none (as the JAX engine), its encoder raises."""
+    with pytest.raises(ValueError, match="needs frames"):
+        serve.main(CPU + ["--arch", "whisper-large-v3", "--requests", "2"])
