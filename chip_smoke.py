@@ -5,7 +5,8 @@
 
 Run from the root of a checkout.  Phases, each of which must pass:
 
-  1. build    the three hand-written kernels from src/repro_torch/kernels/csrc
+  1. build    the five hand-written kernels (three forward, two backward) from
+              src/repro_torch/kernels/csrc, all at once
   2. kernels  each kernel against its plain PyTorch version at the serving
               path's shapes and ragged ones, in bf16 and f32, timed beside its
               plain version, one PyTorch library call and its bound (decode
@@ -27,7 +28,8 @@ Run from the root of a checkout.  Phases, each of which must pass:
               n_rep 4, each at the served S = 552 with lengths 0 and 544;
               rmsnorm at d = 18432 (cold: 37.8 MB) and 1280; untimed, the
               one-sequence decode of phase 10's parity runs and whisper's
-              128-token split
+              128-token split; timed, phase 11's train microbatch (rmsnorm
+              8192 rows of d = 4096, flash 4 x 2048 x 32/8 x 128 causal)
   3. parity   granite-8b, qwen1.5-4b and minicpm3-4b at full width, 2 layers:
               the kernel path and the plain path agree over a 512-token
               prefill and 16 decode steps (f32: equal token ids; bf16: as
@@ -85,6 +87,26 @@ Run from the root of a checkout.  Phases, each of which must pass:
               with 1500 frames, 32 steps, launches exact, timed and
               profiled; (c) the live split of pixtral and whisper bit for
               bit at k in {0, 1, L/2, L}
+ 11. train    after phase 10's models are freed: (a) the two backward
+              kernels (rmsnorm_bwd, flash_attention_bwd) against their
+              plain versions, bf16 and f32, two runs bit-equal, at the train
+              loop's shapes (rmsnorm 8192 rows of d = 4096, also 18432 and
+              1280; flash 4 x 2048 x 32/8 x 128 causal), whisper's 512 x 1500
+              cross-attention and small at every head dim, timed beside
+              their bound, plain version and library autograd call; (b)
+              gradient parity of granite-8b at full width cut to 2 layers,
+              one 512-token sequence, fan-in weights: f32 every leaf
+              within 3e-5 of its scale, bf16 within 1.05x the plain path's
+              mean error; under the reference's init law (a saturated
+              softmax) a float64 witness: per f32 leaf past 3e-5, and the
+              bf16 kernel path's mean error within 1.25x the plain path's; (c) run_train on granite-8b at full width cut to
+              4 layers, bf16 weights and f32 moments, 8 x 2048 tokens in 2
+              microbatches: 12 steps, launches exactly 12 x one step's
+              (per microbatch flash 2L and rmsnorm 4L+1 with the remat
+              recompute, flash_attention_bwd L, rmsnorm_bwd 2L+1) and a
+              falling loss, a run checkpointed at step 6 and a run resumed
+              from it, whose losses equal the unbroken run's bit for bit;
+              (d) torch.profiler over one more step
 
 It prints one JSON ``kernels`` line and the card's name and power limit before
 its last line, which is ``{"ok": true, "device": {...}}``.  It exits non-zero,
@@ -119,7 +141,7 @@ SEED = 0
 TIMED = ("main", "mla", "olmoe", "mamba2", "zamba2", "olmoe-serve", "zamba2-serve",
          "grok", "grok-serve", "nemotron", "nemotron-serve", "whisper", "whisper-enc",
          "whisper-cross", "whisper-serve", "whisper-self", "whisper-self-b4", "whisper-enc-b4",
-         "whisper-cross-b4", "pixtral", "pixtral-serve")
+         "whisper-cross-b4", "pixtral", "pixtral-serve", "train")
 
 KERNELS = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:23"),
@@ -380,6 +402,12 @@ def kernel_cases(torch, dt: str):
         ("decode_attention", "pixtral-serve B=4 H=32 KV=8 S=552 D=128 lengths 0, 512, 530, 544",
          lambda: (randn(4, 32, 128), randn(4, 8, 552, 128), randn(4, 8, 552, 128),
                   lens(0, 512, 530, 544)), {}),
+        # phase 11's train loop, one microbatch of 4 x 2048 tokens: the
+        # forward kernels (and their recompute under remat); each timed
+        ("rmsnorm", "train N=8192 d=4096", lambda: (randn(8192, 4096), randn(4096)), {}),
+        ("flash_attention", "train B=4 S=2048 H=32 KV=8 D=128 causal",
+         lambda: (randn(4, 2048, 32, 128), randn(4, 2048, 8, 128), randn(4, 2048, 8, 128)),
+         {"causal": True}),
     ]
 
 
@@ -690,9 +718,9 @@ def phase_serve(torch, np, ops, TF, cfg, engine_mod, params) -> dict:
         check(len(r.out_tokens) == new_tokens, f"serve: request {r.rid} has {len(r.out_tokens)} tokens")
         check(all(0 <= t < cfg.vocab_size for t in r.out_tokens), f"serve: request {r.rid} token out of range")
     want = {"rmsnorm": (2 * L + 1) * (n_req + steps), "flash_attention": L * n_req,
-            "decode_attention": L * steps}
+            "decode_attention": L * steps, "rmsnorm_bwd": 0, "flash_attention_bwd": 0}
     check(counts == want, f"serve: launch counts {counts} != the path's {want}")
-    check(all(v > 0 for v in counts.values()), f"serve: a kernel was not launched: {counts}")
+    check(all(counts[k] > 0 for k in FWD_KERNELS), f"serve: a kernel was not launched: {counts}")
 
     tok = torch.as_tensor(prompts[0][None], device="cuda")
     logits, _ = TF.prefill_logits(cfg, params, tok, TF.init_caches(cfg, 1, max_seq, device="cuda"))
@@ -740,10 +768,11 @@ def path_launches(cfg, prefills: int, steps: int) -> dict:
     norms of every pass.  An enc-dec prefill also runs the encoder (flash
     and 2 norms a layer, and enc_norm), and each decoder block's
     cross-attention adds a flash per prefill, a decode per step and its
-    norm_x to every pass."""
+    norm_x to every pass.  Serving takes no gradient: no backward kernel."""
     want = {"rmsnorm": norms_per_pass(cfg) * (prefills + steps),
             "flash_attention": attn_blocks(cfg) * prefills,
-            "decode_attention": 0 if cfg.attn == "mla" else attn_blocks(cfg) * steps}
+            "decode_attention": 0 if cfg.attn == "mla" else attn_blocks(cfg) * steps,
+            "rmsnorm_bwd": 0, "flash_attention_bwd": 0}
     if cfg.family == "encdec":
         want["rmsnorm"] += (2 * cfg.n_enc_layers + 1) * prefills + cfg.n_layers * (prefills + steps)
         want["flash_attention"] += (cfg.n_enc_layers + cfg.n_layers) * prefills
@@ -884,7 +913,7 @@ def _path_launches(counts: dict, cfg, prefills: int, what: str) -> dict:
     steps, rem = divmod(counts["decode_attention"], attn_blocks(cfg))
     want = path_launches(cfg, prefills, steps)
     check(rem == 0 and counts == want, f"{what}: launch counts {counts} != the path's {want}")
-    check(all(v > 0 for v in counts.values()), f"{what}: a kernel was not launched: {counts}")
+    check(all(counts[k] > 0 for k in FWD_KERNELS), f"{what}: a kernel was not launched: {counts}")
     return {"counts": counts, "decode_steps": steps}
 
 
@@ -1150,7 +1179,7 @@ def phase_maas(torch, np, ops, TF, cfgs: dict, params: dict, serve, maas, disagg
     check(served == n_req, f"maas: {served} of {n_req} requests served")
     summed = {k: sum(r["launches"][k] for r in seen.values()) for k in total}
     check(summed == total, f"maas: per-tenant launches {summed} != the run's {total}")
-    check(all(v > 0 for v in total.values()), f"maas: a kernel was not launched: {total}")
+    check(all(total[k] > 0 for k in FWD_KERNELS), f"maas: a kernel was not launched: {total}")
     row = {
         "requests": n_req, "prompt_tokens": prompt_len, "new_tokens": new_tokens, "wall_s": wall,
         "grants": s.grants, "cold_starts": s.cold_starts, "scale_to_zero_events": s.scale_to_zero_events,
@@ -1439,6 +1468,394 @@ def phase_last_configs(torch, np, ops, TF, get_config, live, serve, engine_mod, 
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: training (the backward kernels, gradient parity, the train loop)
+# ---------------------------------------------------------------------------
+
+
+FWD_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
+BWD_KERNELS = {  # port-only: the TPU side has no backward kernel
+    "rmsnorm_bwd": "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+    "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+}
+BWD_TIMED = ("main", "nemotron", "whisper", "whisper-cross")
+GRAD_LAYERS = 2  # gradient parity: granite-8b at full width cut to 2 layers
+TRAIN_LAYERS = 4  # the train loop: ~1.27 B params; all 36 layers need ~99 GB of state
+TRAIN = dict(batch=8, seq=2048, microbatches=2, steps=12, ckpt_at=6)
+WITNESS_GRAD_RATIO = 3.0  # a leaf past 3e-5: its distance from the f64 run, at most this x the plain path's
+# bf16 under the reference's law: the kernel path's mean distance from the f64
+# run at most this x the plain path's (the kernel's bf16 P before PV adds
+# rounding the plain path's f32 P has not)
+BF16_WITNESS_RATIO = 1.25
+
+
+def bwd_cases(torch, dt: str):
+    """(kernel, case, make_inputs, kw): the backward kernels at the train
+    loop's shapes (8192 rows of d = 4096; flash 4 x 2048 x 32/8 x 128,
+    causal), nemotron's and whisper's norm widths, whisper's cross-attention
+    (512 x 1500, non-causal) and, small, every head dim the kernel takes.
+    Flash's inputs carry the forward kernel's output o."""
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def rms(n, d):
+        return randn(n, d), 1 + 0.3 * randn(d), randn(n, d)
+
+    def flash(b, sq, sk, h, kv, d, causal):
+        from repro_torch.kernels import flash_attention as fk
+
+        q, k, v, do = randn(b, sq, h, d), randn(b, sk, kv, d), randn(b, sk, kv, d), randn(b, sq, h, d)
+        return q, k, v, fk.flash_attention(q, k, v, causal=causal), do
+
+    cases = [
+        ("rmsnorm_bwd", "main N=8192 d=4096", lambda: rms(8192, 4096), {}),
+        ("rmsnorm_bwd", "nemotron N=8192 d=18432", lambda: rms(8192, 18432), {}),
+        ("rmsnorm_bwd", "whisper N=8192 d=1280", lambda: rms(8192, 1280), {}),
+        ("flash_attention_bwd", "main B=4 S=2048 H=32 KV=8 D=128 causal",
+         lambda: flash(4, 2048, 2048, 32, 8, 128, True), {"causal": True}),
+        ("flash_attention_bwd", "whisper-cross B=1 Sq=512 Sk=1500 H=20 KV=20 D=64 non-causal",
+         lambda: flash(1, 512, 1500, 20, 20, 64, False), {"causal": False}),
+    ]
+    for d in (16, 24, 32, 64, 80, 96, 128, 192):
+        cases.append(("flash_attention_bwd", f"D={d} B=2 S=200 H=8 KV=2 causal",
+                      lambda d=d: flash(2, 200, 200, 8, 2, d, True), {"causal": True}))
+    return cases
+
+
+def bwd_work(name: str, inputs, kw, dt: str) -> tuple[float, float]:
+    """(bytes, flops) of a backward call on these inputs: each input read and
+    each output written once; flash's operations 2.5x the forward's (4 D per
+    query-key pair, the causal pairs counted as these shapes have them)."""
+    es = 2 if dt == "bf16" else 4
+    if name == "rmsnorm_bwd":
+        x, w, _ = inputs
+        n, d = x.numel() // x.shape[-1], x.shape[-1]
+        return (3 * n * d + 2 * d) * es, 12 * n * d
+    q, k = inputs[0], inputs[1]
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if kw.get("causal", True) else sq * sk
+    return (4 * b * sq * h * d + 4 * b * sk * kv * d) * es, 2.5 * 4 * b * h * d * pairs
+
+
+def bwd_library_call(torch, name: str, kw):
+    """One PyTorch autograd call computing the same gradients (forward and
+    backward; its forward alone is timed apart and taken off): F.rms_norm
+    and SDPA, timed only, never used by the port."""
+    F = torch.nn.functional
+    if name == "rmsnorm_bwd":
+        def fwd(x, w):
+            return F.rms_norm(x, (x.shape[-1],), w, 1e-5)
+
+        def fwd_bwd(x, w, g):
+            x, w = x.detach().requires_grad_(), w.detach().requires_grad_()
+            return torch.autograd.grad(fwd(x, w), (x, w), g)
+
+        return (lambda x, w, g: fwd(x, w)), fwd_bwd
+
+    def fwd(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=kw.get("causal", True), enable_gqa=True)
+
+    def fwd_bwd(q, k, v, o, do):
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        return torch.autograd.grad(fwd(q, k, v), (q, k, v), do.transpose(1, 2))
+
+    return (lambda q, k, v, o, do: fwd(q, k, v)), fwd_bwd
+
+
+def phase_bwd_kernels(torch, ops, ref) -> dict:
+    """11a: each backward kernel against its plain version (bf16 2e-2, f32
+    3e-5 of the value, tests/test_kernels.py:16-17), two runs bit-equal, the
+    timed cases beside their bound, the plain version and the library's
+    forward + backward less its forward."""
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import rmsnorm as rk
+
+    kernel_fn = {"rmsnorm_bwd": rk.fused_rmsnorm_bwd, "flash_attention_bwd": fk.flash_attention_bwd}
+    plain_fn = {"rmsnorm_bwd": ref.rmsnorm_bwd_ref, "flash_attention_bwd": ref.flash_attention_bwd_ref}
+    results = {}
+    for dt in ("bf16", "f32"):
+        for name, case, make, kw in bwd_cases(torch, dt):
+            inputs = make()
+            got = kernel_fn[name](*inputs, **kw)
+            again = kernel_fn[name](*inputs, **kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{name} {case} {dt}: two runs differ (not deterministic)")
+            want = plain_fn[name](*inputs, **kw)
+            errs = []
+            for g, w in zip(got, want):
+                # a summed gradient (dw; dk and dv over the sequence) is held
+                # at the tolerance of its largest magnitude
+                sc = max(1.0, float(w.float().abs().max()))
+                max_err(torch, g / sc, w / sc, dt)
+                errs.append(float((g.float() - w.float()).abs().max()))
+            err = max(errs)
+            row = {"kernel": name, "case": case, "dtype": dt, "max_abs_err": err, "deterministic": True}
+            tag = case.split()[0]
+            if tag in BWD_TIMED:
+                nbytes, flops = bwd_work(name, inputs, kw, dt)
+                lib_fwd, lib_fwd_bwd = bwd_library_call(torch, name, kw)
+                iters = 10 if nbytes > L2_BYTES or flops > 1e11 else 30
+                times = time_ms(torch, {
+                    "plain": lambda *a: plain_fn[name](*a, **kw),
+                    "kernel": lambda *a: kernel_fn[name](*a, **kw),
+                    "library": lib_fwd_bwd, "library_fwd": lib_fwd,
+                }, [inputs], iters=iters)
+                row.update(ms=times["kernel"], plain_ms=times["plain"],
+                           library_ms=times["library"] - times["library_fwd"],
+                           library_fwd_bwd_ms=times["library"], bytes=nbytes, flops=flops, iters=iters)
+                row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dt)
+                results[(name, dt) if tag == "main" else (name, dt, tag)] = row
+            log("[train] kernels " + json.dumps(row))
+            del inputs, got, again, want
+    torch.cuda.empty_cache()
+    return results
+
+
+def _loss_and_grads(torch, ops, TF, cfg, params, tokens, labels, impl: str):
+    """lm_loss and its gradient per leaf (by path) on ``impl``."""
+    from repro_torch.training.optimizer import tree_paths
+
+    def alias(t):
+        return {k: alias(v) for k, v in t.items()} if isinstance(t, dict) else t.detach().requires_grad_()
+
+    ap = alias(params)
+    paths, leaves = zip(*tree_paths(ap))
+    with ops.use_impl(impl):
+        loss = TF.lm_loss(cfg, ap, tokens, labels)
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), dict(zip(paths, grads))
+
+
+def phase_grad_parity(torch, np, ops, TF, base_cfg) -> dict:
+    """11b: lm_loss and every gradient leaf of granite-8b at full width, cut
+    to 2 layers, on one 512-token sequence (labels: the next tokens, every
+    8th -100), the kernel path against the plain path, on two draws of the
+    weights.  Fan-in (every stacked weight at std 1/sqrt(d_model), as
+    phase 10 draws whisper's): f32 every leaf within 3e-5 of its largest
+    magnitude and the loss within 3e-5; bf16 the kernel path's mean
+    relative error against the f32 plain run at most 1.05x the plain
+    path's.  The reference's law (std 1/sqrt(2) for a 2-layer cut): q and k
+    come out ~45 a component, the attention logits run to the thousands and
+    the softmax saturates, so either path's gradient through it is mostly
+    rounding noise; there a float64 run of the plain path witnesses both
+    dtypes: an f32 leaf past 3e-5 of the plain path's may be no farther
+    from it than WITNESS_GRAD_RATIO x the plain path, and the bf16 kernel
+    path's mean relative distance from it may be at most BF16_WITNESS_RATIO
+    x the plain path's."""
+    cfg32 = base_cfg.replace(n_layers=GRAD_LAYERS, dtype=torch.float32)
+    rng = np.random.default_rng(SEED + 11)
+    seq = rng.integers(0, cfg32.vocab_size, size=(1, 513))
+    labels = seq[:, 1:].copy()
+    labels[:, ::8] = -100
+    tokens = torch.as_tensor(seq[:, :-1].astype(np.int32), device="cuda")
+    labels = torch.as_tensor(labels.astype(np.int32), device="cuda")
+
+    def cast(t, dtype):
+        return {k: cast(v, dtype) for k, v in t.items()} if isinstance(t, dict) else t.to(dtype)
+
+    def mean_rel(g, base):
+        """The mean over the leaves of |g - base| / |base|, each a leaf's mean."""
+        return float(np.mean([float((g[k].double() - base[k]).abs().mean()
+                                    / base[k].double().abs().mean().clamp_min(1e-30)) for k in base]))
+
+    def f32_run(params, law: str, g64=None):
+        lk, gk = _loss_and_grads(torch, ops, TF, cfg32, params, tokens, labels, "kernel")
+        lr_, gr = _loss_and_grads(torch, ops, TF, cfg32, params, tokens, labels, "ref")
+        check(bool(torch.isfinite(lk)) and all(bool(torch.isfinite(g).all()) for g in gk.values()),
+              f"grad parity f32 {law}: loss or gradients not finite")
+        check(abs(float(lk) - float(lr_)) <= TOL["f32"] * abs(float(lr_)),
+              f"grad parity f32 {law}: loss {float(lk)} vs {float(lr_)}")
+        rel = {k: float((gk[k] - gr[k]).abs().max()) / max(float(gr[k].abs().max()), 1e-30) for k in gr}
+        row = {"weights": law, "loss_kernel": float(lk), "loss_plain": float(lr_), "leaves": len(rel),
+               "max_rel_leaf_err": max(rel.values()), "worst_leaf": max(rel, key=rel.get),
+               "rel_leaf_err": rel}
+        far = [k for k, r in rel.items() if r > TOL["f32"]]
+        if g64 is None:
+            check(not far, f"grad parity f32 {law}: leaves past 3e-5 of their scale: "
+                           + ", ".join(f"{k} {rel[k]:.3g}" for k in far))
+        elif far:
+            wit = {}
+            for k in far:
+                dk_, dr_ = float((gk[k] - g64[k]).abs().max()), float((gr[k] - g64[k]).abs().max())
+                wit[k] = {"kernel_vs_f64": dk_, "plain_vs_f64": dr_, "ratio": dk_ / max(dr_, 1e-30)}
+                check(dk_ <= WITNESS_GRAD_RATIO * dr_,
+                      f"grad parity f32 {law}: leaf {k} {rel[k]:.3g} from the plain path and {dk_} "
+                      f"from f64 (plain {dr_})")
+            row["f64_witness"] = wit
+        log(f"[train] grad parity f32 {law} " + json.dumps({k: v for k, v in row.items() if k != "rel_leaf_err"}))
+        del gk
+        return row, gr
+
+    def bf16_run(params32, law: str, base, limit: float, against: str):
+        p16 = cast(params32, torch.bfloat16)  # every leaf of granite is bf16 in the bf16 model
+        cfg16 = cfg32.replace(dtype=torch.bfloat16)
+        _, k16 = _loss_and_grads(torch, ops, TF, cfg16, p16, tokens, labels, "kernel")
+        _, r16 = _loss_and_grads(torch, ops, TF, cfg16, p16, tokens, labels, "ref")
+        row = {"weights": law, "against": against, "kernel_mean_rel_err": mean_rel(k16, base),
+               "plain_mean_rel_err": mean_rel(r16, base), "limit_ratio": limit}
+        row["ratio"] = row["kernel_mean_rel_err"] / max(row["plain_mean_rel_err"], 1e-30)
+        log(f"[train] grad parity bf16 {law} " + json.dumps(row))
+        check(row["kernel_mean_rel_err"] <= limit * row["plain_mean_rel_err"],
+              f"grad parity bf16 {law}: the kernel path's gradients are {row['ratio']:.3f}x as far "
+              f"from the {against} gradients as the plain path's (limit {limit}x)")
+        return row
+
+    p32 = TF.init_params(cfg32, SEED, device="cuda")
+    _, g64 = _loss_and_grads(torch, ops, TF, cfg32.replace(dtype=torch.float64),
+                             cast(p32, torch.float64), tokens, labels, "ref")
+    ref_law, _ = f32_run(p32, "reference law", g64=g64)
+    ref_law16 = bf16_run(p32, "reference law", g64, BF16_WITNESS_RATIO, "float64")
+    del g64
+    gc.collect()
+    torch.cuda.empty_cache()
+    rescale_fan_in_(p32, TF.param_template(cfg32), base_cfg.d_model)
+    fan_in, gr = f32_run(p32, "fan-in")
+    fan_in16 = bf16_run(p32, "fan-in", gr, 1.05, "f32 plain")
+    del p32, gr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"f32": fan_in, "f32_reference_law": ref_law, "bf16": fan_in16, "bf16_reference_law": ref_law16}
+
+
+def train_launches(cfg, microbatches: int) -> dict:
+    """Kernel launches of one train step with remat: per microbatch the
+    forward (flash L, rmsnorm 2L+1), the recompute of each checkpointed layer
+    in the backward (flash L, rmsnorm 2L) and the backward kernels (flash
+    L, rmsnorm 2L+1: the final norm is not checkpointed)."""
+    L = cfg.n_layers
+    return {"rmsnorm": (4 * L + 1) * microbatches, "flash_attention": 2 * L * microbatches,
+            "decode_attention": 0, "rmsnorm_bwd": (2 * L + 1) * microbatches,
+            "flash_attention_bwd": L * microbatches}
+
+
+def phase_train_loop(torch, np, ops, TF, base_cfg, train_cli, opt_mod, step_mod, log_dir) -> dict:
+    """11c and 11d: run_train on granite-8b at full width cut to 4 layers,
+    bf16 weights and f32 moments, 8 x 2048 tokens a step in 2 microbatches:
+    (A) 12 steps unbroken, 12 x one step's launches exactly, the loss finite and
+    falling; (B) a second run stopped after its checkpoint at step 6 (its
+    losses equal A's); (C) a third resuming from that checkpoint, whose
+    losses for steps 6-11 equal A's bit for bit.  Then torch.profiler over
+    one more step: device time, busy share, tokens/s, model TFLOP/s."""
+    import tempfile
+
+    cfg = base_cfg.replace(n_layers=TRAIN_LAYERS)
+    t = TRAIN
+    opt_cfg = opt_mod.AdamWConfig(lr=1e-3, warmup_steps=3, total_steps=t["steps"])
+    kw = dict(batch=t["batch"], seq=t["seq"], microbatches=t["microbatches"], log_every=1,
+              seed=SEED, device="cuda")
+    want = train_launches(cfg, t["microbatches"])
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    a = train_cli.run_train(cfg, opt_cfg, steps=t["steps"], **kw)
+    wall_a = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    totals = ops.launch_counts()
+    check(totals == {k: v * t["steps"] for k, v in want.items()},
+          f"train: launch counts {totals} != {t['steps']} steps of the path's {want}")
+    check(all(totals[k] > 0 for k in ("rmsnorm", "flash_attention", *BWD_KERNELS)),
+          f"train: a kernel of the path was not launched: {totals}")
+    losses = a["losses"]
+    check(all(math.isfinite(x) for x in losses + a["grad_norms"]), f"train: losses {losses}")
+    check(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
+    n_params = sum(p.numel() for p in opt_mod.tree_leaves(a["params"]))
+    embed = a["params"]["embed"]["tok"].numel()
+    step_s = a["step_s"]
+    del a
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+        t0 = time.perf_counter()
+        b = train_cli.run_train(cfg, opt_cfg, steps=t["ckpt_at"], ckpt_dir=ckpt_dir,
+                                ckpt_every=t["ckpt_at"], **kw)
+        b_s = time.perf_counter() - t0
+        check(b["losses"] == losses[: t["ckpt_at"]], f"train: a second run from step 0 gave {b['losses']}")
+        del b
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        c = train_cli.run_train(cfg, opt_cfg, steps=t["steps"], ckpt_dir=ckpt_dir,
+                                ckpt_every=t["steps"] + 1, **kw)
+        c_s = time.perf_counter() - t0
+    check(c["start_step"] == t["ckpt_at"], f"train: resumed from step {c['start_step']}")
+    check(c["losses"] == losses[t["ckpt_at"]:],
+          f"train: resumed losses {c['losses']} != the unbroken run's {losses[t['ckpt_at']:]}")
+
+    # 11d: one more step, profiled
+    step_fn = step_mod.build_train_step(cfg, opt_cfg, microbatches=t["microbatches"])
+    batch = train_cli._device_batch(cfg, t["batch"], t["seq"], t["steps"], SEED, torch.device("cuda"))
+    state = {"p": c["params"], "o": c["opt_state"]}
+    del c
+
+    def one_step():
+        state["p"], state["o"], m = step_fn(state["p"], state["o"], batch)
+        float(m["loss"])
+
+    kernels, prof_ms, host = _traced(torch, one_step, 1, log_dir, "train_step_trace.json")
+    device_ms = sum(k[0] for k in kernels) / 1e3
+    check(device_ms > 0, "train profile: no device time recorded")
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # model FLOPs of a step: 6 per parameter of the products per token (the
+    # embedding gather has none) and attention's 4 D per causal query-key
+    # pair, x3 for forward and backward; remat's recompute not counted
+    tokens = t["batch"] * t["seq"]
+    pairs = t["seq"] * (t["seq"] + 1) // 2
+    d_head = cfg.resolved_head_dim
+    model_flops = (6 * (n_params - embed) * tokens
+                   + 3 * 4 * t["batch"] * cfg.n_heads * d_head * pairs * cfg.n_layers)
+    med_ms = sorted(step_s)[len(step_s) // 2] * 1e3
+    row = {
+        "model": cfg.name, "layers": cfg.n_layers, "params": n_params, "dtype": "bf16",
+        "moments": "f32", "batch": t["batch"], "seq": t["seq"], "microbatches": t["microbatches"],
+        "steps": t["steps"], "losses": losses, "loss_first": losses[0], "loss_last": losses[-1],
+        "launches_per_step": want, "launches_total": totals,
+        "step_ms": [x * 1e3 for x in step_s], "step_ms_median": med_ms,
+        "tokens_per_s": tokens / (med_ms / 1e3), "model_tflops_per_step": model_flops / 1e12,
+        "model_tflop_per_s": model_flops / (med_ms / 1e3) / 1e12,
+        "model_flops_share_of_989": model_flops / (med_ms / 1e3) / PEAK_FLOPS["bf16"],
+        "peak_mem_gib": peak_gib, "wall_s_unbroken": wall_a, "wall_s_to_checkpoint": b_s,
+        "wall_s_resumed": c_s, "resumed_from": t["ckpt_at"], "resumed_losses_equal": True,
+        "profile": {"device_ms": device_ms, "profiled_wall_ms": prof_ms,
+                    "device_busy_share": device_ms / med_ms, "kernels_launched": sum(n for *_, n in kernels),
+                    "host_launch_calls": host["launch_calls"],
+                    "top_kernels_ms": [[k[:90], round(us / 1e3, 5), n] for us, k, n in kernels[:14]]},
+    }
+    log("[train] loop " + json.dumps({k: v for k, v in row.items() if k != "profile"}))
+    log("[train] profile " + json.dumps(row["profile"]))
+    return row
+
+
+def phase_train(torch, np, ops, ref, TF, get_config, train_cli, opt_mod, step_mod, log_dir) -> dict:
+    """Phase 11: 11a the backward kernels, 11b gradient parity, 11c the
+    train loop and 11d its profile."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("granite-8b")
+    rows = {"kernels": phase_bwd_kernels(torch, ops, ref),
+            "grad_parity": phase_grad_parity(torch, np, ops, TF, cfg),
+            "loop": phase_train_loop(torch, np, ops, TF, cfg, train_cli, opt_mod, step_mod, log_dir)}
+    rows["wall_s"] = time.perf_counter() - t_phase
+    log(f"[train] phase passed in {rows['wall_s']:.1f} s")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1458,9 +1875,12 @@ def main(argv: list[str] | None = None) -> int:
     from repro_torch.core import live_scaling as live
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
     from repro_torch.models import transformer as TF
     from repro_torch.serving import disagg, maas
     from repro_torch.serving import engine as engine_mod
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train_step as step_mod
 
     t_all = time.perf_counter()
     card = card_line()
@@ -1510,6 +1930,8 @@ def main(argv: list[str] | None = None) -> int:
                               args.log_dir)
     last = phase_last_configs(torch, np, ops, TF, get_config, live, serve_cli, engine_mod,
                               args.log_dir)
+    train = phase_train(torch, np, ops, ref, TF, get_config, train_cli, opt_mod, step_mod,
+                        args.log_dir)
 
     line = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
@@ -1520,11 +1942,20 @@ def main(argv: list[str] | None = None) -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+    for name, source in BWD_KERNELS.items():
+        r = train["kernels"][(name, "bf16")]
+        line["kernels"].append({
+            "name": name, "route": "cuda", "source": source, "replaces": None,
+            "launches": train["loop"]["launches_total"][name], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
     if args.log_dir is not None:
         record = {"card": card, "torch": torch.__version__, "build_s": build_s,
                   "kernels": [kern[k] for k in sorted(kern)], "parity": parity,
                   "serve": serve, "live": [live_row, live_mla], "profile": prof, "cluster": cluster,
                   "maas": fleet_row, "families": families, "last_configs": last,
+                  "train": {**train, "kernels": [train["kernels"][k] for k in sorted(train["kernels"])]},
                   "wall_s": time.perf_counter() - t_all}
         (args.log_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")

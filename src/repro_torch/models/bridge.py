@@ -1,4 +1,5 @@
-"""Weight and cache bridge: nested dicts of numpy arrays -> the port's tensors.
+"""Weight, cache and optimizer-state bridge: nested dicts of numpy arrays ->
+the port's tensors.
 
 The JAX side hands its pytrees over as ``jax.tree.map(np.asarray, tree)``;
 keys and the stacked leading layer axis carry over one to one.  bf16 arrays
@@ -17,19 +18,24 @@ import torch
 from repro_torch.device import resolve_device
 
 
-def _from_numpy(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(a.copy().view(np.uint16)).view(torch.bfloat16)
+def tensor_from_numpy(a: np.ndarray, device: str | torch.device,
+                      dtype_name: str | None = None) -> torch.Tensor:
+    """One numpy array -> a tensor on ``device``, a copy; a 0-d array (AdamW's
+    step) stays 0-d.  bf16 moves bit for bit through an int16 view: an
+    ml_dtypes array, or 2-byte storage named ``dtype_name="bfloat16"`` (the
+    checkpoint's uint16 files)."""
+    a = np.array(a, order="C")
+    if (dtype_name or a.dtype.name) == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+        t = torch.from_numpy(a)
     return t.to(device)
 
 
 def _tree(tree: Any, device: torch.device) -> Any:
     if isinstance(tree, dict):
         return {k: _tree(v, device) for k, v in tree.items()}
-    return _from_numpy(tree, device)
+    return tensor_from_numpy(tree, device)
 
 
 def params_from_numpy(tree: dict, *, device: str | torch.device | None = None) -> dict:
@@ -39,4 +45,11 @@ def params_from_numpy(tree: dict, *, device: str | torch.device | None = None) -
 
 def caches_from_numpy(tree: dict, *, device: str | torch.device | None = None) -> dict:
     """JAX cache pytree (numpy leaves) -> the port's cache dict."""
+    return _tree(tree, resolve_device(device))
+
+
+def opt_state_from_numpy(tree: dict, *, device: str | torch.device | None = None) -> dict:
+    """JAX AdamW state ``{"m": ..., "v": ..., "step": ()}`` (numpy leaves) ->
+    the port's (:mod:`repro_torch.training.optimizer`): moments in their
+    dtype, ``step`` a 0-d int32 tensor."""
     return _tree(tree, resolve_device(device))

@@ -321,8 +321,11 @@ def vocab_mask_logits(logits: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def embed_tokens(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    tok = params["tok"]
-    return tok.index_select(0, tokens.reshape(-1)).reshape(*tokens.shape, tok.shape[-1])
+    """A row gather.  ``F.embedding``, not ``index_select``: on CUDA its
+    backward sums each row's gradients in a fixed order, where
+    ``index_select``'s accumulates them with float atomics, so a training
+    step's bits would change from run to run."""
+    return F.embedding(tokens, params["tok"])
 
 
 def unembed(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:

@@ -34,6 +34,15 @@ stub frontends in ``train_forward`` and the prefill; decode reads the cross
 cache, and ``forward_layers_range`` runs an enc-dec decoder's layers
 without cross-attention, as the reference's does.  Only the int8 cache
 raises.
+
+Training: ``lm_loss`` is the reference's cross-entropy (plus the MoE aux
+loss) over ``train_forward``'s logits, and autograd differentiates it; on the
+card the norms and the attentions take their backward kernels
+(:mod:`repro_torch.kernels.ops`).  With ``cfg.remat`` and grad enabled,
+``train_forward`` runs each layer (the hybrid: each group of ``attn_every``
+layers and its shared block) under ``torch.utils.checkpoint``, the
+counterpart of the reference's ``jax.checkpoint``: only the layer's input is
+kept, and the backward recomputes the layer.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -361,7 +371,7 @@ def _forward(cfg, params: dict, x: torch.Tensor, positions: torch.Tensor, lo: in
 
 
 # ---------------------------------------------------------------------------
-# Train forward (full sequence, no caches; forward only)
+# Train forward (full sequence, no caches, remat over layers) and the loss
 # ---------------------------------------------------------------------------
 
 
@@ -373,17 +383,52 @@ def train_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                   frames: torch.Tensor | None = None):
     """Returns (logits (B, S, V), the MoE aux loss summed over layers; 0
     for the other families).  ``frames``: the vlm's patches or the encdec
-    encoder's input."""
+    encoder's input.  With ``cfg.remat`` and grad enabled each layer (a
+    hybrid's group of ``attn_every`` layers with its shared block) is
+    checkpointed, as the reference's ``jax.checkpoint`` of its scan body;
+    the encoder is not, as in the reference."""
     _check_family(cfg)
     positions = _positions(tokens)
-    x, aux = _forward(cfg, params["layers"], _embed(cfg, params, tokens, frames), positions,
-                      0, _n_layers(params["layers"]), shared=params.get("shared"),
-                      enc_out=_enc_out(cfg, params, frames))
+    stacked, shared = params["layers"], params.get("shared")
+    enc_out = _enc_out(cfg, params, frames)
+    n = _n_layers(stacked)
+    x = _embed(cfg, params, tokens, frames)
+    if cfg.remat and torch.is_grad_enabled():
+        unit = cfg.attn_every if cfg.family == "hybrid" else 1
+        aux = None
+        for lo in range(0, n, unit):
+            x, a = checkpoint(
+                lambda x, lo=lo: _forward(cfg, stacked, x, positions, lo, min(lo + unit, n),
+                                          shared=shared, enc_out=enc_out),
+                x, use_reentrant=False)
+            if a is not None:
+                aux = a if aux is None else aux + a
+    else:
+        x, aux = _forward(cfg, stacked, x, positions, 0, n, shared=shared, enc_out=enc_out)
     x = ops.rmsnorm(x, params["final_norm"], eps=cfg.norm_eps)
     logits = layers.unembed(params["embed"], x, cfg)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     return logits, aux
+
+
+def lm_loss(cfg: ModelConfig, params: dict, tokens: torch.Tensor, labels: torch.Tensor,
+            frames: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token cross-entropy over the labels that are not -100, plus
+    the MoE aux loss (the reference's ``lm_loss``): vocab-masked logits, an
+    f32 log-sum-exp and the gold logit.  The reference's sharding
+    annotations (the vocab-sharded logits) have no counterpart on one
+    device."""
+    logits, aux = train_forward(cfg, params, tokens, frames)
+    lf = layers.wide(layers.vocab_mask_logits(logits, cfg))
+    valid = labels != -100
+    safe = torch.where(valid, labels, 0).long()
+    m = lf.amax(dim=-1)
+    lse = torch.log(torch.exp(lf - m[..., None]).sum(dim=-1)) + m
+    gold = lf.gather(-1, safe[..., None])[..., 0]
+    nll = lse - gold
+    loss = (nll * valid).sum() / valid.sum().clamp_min(1)
+    return loss + aux
 
 
 # ---------------------------------------------------------------------------

@@ -12,9 +12,11 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import decode_attention, flash_attention, ops, rmsnorm  # noqa: E402
+from repro_torch.launch.train import run_train  # noqa: E402
 from repro_torch.models import bridge  # noqa: E402
 from repro_torch.models import transformer as TF  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.training.optimizer import AdamWConfig  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -52,6 +54,13 @@ def test_isolation_covers_the_last_four_configs():
         assert f"src/repro_torch/configs/{mod}.py" in names, mod
 
 
+def test_isolation_covers_the_training_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("training/optimizer.py", "training/train_step.py", "training/checkpoint.py",
+                "data/pipeline.py", "launch/train.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax_and_nothing_of_repro(path):
     bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "flax", "optax"}
@@ -72,10 +81,12 @@ def test_port_imports_no_jax_and_nothing_of_repro(path):
         lambda: TF.init_params(ENCDEC_CFG, 0),
         lambda: TF.init_caches(ENCDEC_CFG, 1, 8),
         lambda: TF.init_params(VLM_CFG, 0),
+        lambda: bridge.opt_state_from_numpy({"step": np.zeros((), np.int32)}),
+        lambda: run_train(CFG, AdamWConfig(), steps=1),
     ],
     ids=["resolve_device", "init_params", "init_caches", "params_from_numpy", "init_params_mla",
          "init_caches_mla", "init_params_hybrid", "init_caches_hybrid", "init_params_encdec",
-         "init_caches_encdec", "init_params_vlm"],
+         "init_caches_encdec", "init_params_vlm", "opt_state_from_numpy", "run_train"],
 )
 def test_entry_points_default_to_cuda_and_raise_without_it(call):
     if torch.cuda.is_available():
@@ -120,8 +131,11 @@ def test_kernel_impl_on_cpu_tensor_raises(name):
         (flash_attention.flash_attention, (torch.zeros(1, 4, 4, 16),) + (torch.zeros(1, 4, 2, 16),) * 2),
         (decode_attention.decode_attention,
          (torch.zeros(1, 4, 16),) + (torch.zeros(1, 2, 8, 16),) * 2 + (torch.ones(1, dtype=torch.int32),)),
+        (rmsnorm.fused_rmsnorm_bwd, (torch.zeros(2, 16), torch.ones(16), torch.zeros(2, 16))),
+        (flash_attention.flash_attention_bwd,
+         (torch.zeros(1, 4, 4, 16),) + (torch.zeros(1, 4, 2, 16),) * 2 + (torch.zeros(1, 4, 4, 16),) * 2),
     ],
-    ids=["rmsnorm", "flash_attention", "decode_attention"],
+    ids=["rmsnorm", "flash_attention", "decode_attention", "rmsnorm_bwd", "flash_attention_bwd"],
 )
 def test_kernel_wrappers_refuse_cpu_tensors(wrapper, args):
     before = ops.launch_counts()

@@ -134,7 +134,8 @@ def test_ops_auto_on_cpu_is_the_plain_version():
 
 def test_launch_counts_reset():
     ops.reset_launch_counts()
-    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0}
+    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
+                                   "rmsnorm_bwd": 0, "flash_attention_bwd": 0}
 
 
 @pytest.mark.parametrize("elem", [2, 4])
@@ -414,7 +415,9 @@ def test_batched_prefill_and_decode_run_on_the_kernels(cuda, arch):
                 steps.append(logits)
             out[name] = torch.stack(steps)[..., :cfg.vocab_size].double().cpu().numpy()
             launched = {k: v - before[k] for k, v in ops.launch_counts().items()}
-            assert all(launched.values()) == (impl == "kernel"), launched
+            fwd = [launched[k] for k in ("rmsnorm", "flash_attention", "decode_attention")]
+            assert all(fwd) == (impl == "kernel"), launched
+            assert launched["rmsnorm_bwd"] == launched["flash_attention_bwd"] == 0, launched
     got, want, f64 = out["kernel"], out["ref"], out["f64"]
     scale = max(1.0, float(np.abs(want).max()))
     np.testing.assert_allclose(got, want, atol=1e-4 * scale, rtol=1e-4)
@@ -471,3 +474,126 @@ def test_attention_head_dims_cover_all_configs():
             assert d in flash.HEAD_DIMS and d in decode.HEAD_DIMS, cfg.name
             assert n_rep in decode.N_REPS, cfg.name
     assert get_config("nemotron-4-340b").resolved_head_dim == 192
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels (port-only: the TPU side has none) against their plain
+# versions, on the card
+# ---------------------------------------------------------------------------
+
+
+def _rand(seed, shape, dt, device, scale=1.0):
+    a = np.random.default_rng(seed).standard_normal(shape).astype(np.float32) * scale
+    return torch.from_numpy(a).to(device=device, dtype=DTYPES[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(4, 7, 64), (130, 256), (5, 13), (3000, 1280), (2, 18432), (1, 4096)])
+def test_rmsnorm_bwd_kernel_matches_plain(cuda, shape, dt):
+    """dx and dw against the explicit formula in f32; ragged d (13: the
+    scalar path), many row tiles (3000 rows: 3 rows a tile) and nemotron's
+    d = 18432 (a 72 KB shared dw partial)."""
+    from repro_torch.kernels import rmsnorm as rms
+
+    x, g = _rand(20, shape, dt, cuda), _rand(21, shape, dt, cuda)
+    w = 1 + _rand(22, shape[-1:], dt, cuda, 0.3)
+    before = ops.launch_counts()["rmsnorm_bwd"]
+    dx, dw = rms.fused_rmsnorm_bwd(x, w, g)
+    assert ops.launch_counts()["rmsnorm_bwd"] == before + 1
+    want_dx, want_dw = ref.rmsnorm_bwd_ref(x, w, g)
+    assert dx.dtype == x.dtype and dw.dtype == w.dtype
+    _close(dx, want_dx, dt)
+    # dw sums over every row: held at the tolerance of its scale
+    scale = max(1.0, float(want_dw.float().abs().max()))
+    np.testing.assert_allclose(dw.float().cpu().numpy(), want_dw.float().cpu().numpy(),
+                               atol=TOL[dt]["atol"] * scale, rtol=TOL[dt]["rtol"])
+
+
+BWD_FLASH_SHAPES = [  # b, sq, sk, h, kv, d, causal
+    (2, 64, 64, 4, 2, 16, True), (1, 100, 100, 8, 2, 64, True), (2, 130, 130, 8, 2, 128, True),
+    (1, 300, 300, 32, 8, 128, True), (2, 200, 333, 4, 1, 64, False), (1, 77, 150, 4, 4, 16, False),
+    (1, 96, 96, 4, 4, 32, True), (1, 100, 100, 4, 4, 80, True), (2, 70, 70, 6, 3, 96, True),
+    (1, 40, 40, 4, 4, 24, True), (1, 90, 90, 12, 1, 192, True), (1, 64, 120, 4, 2, 192, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", BWD_FLASH_SHAPES)
+def test_flash_bwd_kernel_matches_plain(cuda, b, sq, sk, h, kv, d, causal, dt):
+    """dq, dk, dv against the plain backward (P materialised, f32) on the
+    kernel's own forward output: causal with Sq = Sk, non-causal with Sq !=
+    Sk (whisper's cross-attention), n_rep 1-12, every head dim the forward
+    takes (24 zero-padded to 32), ragged lengths."""
+    from repro_torch.kernels import flash_attention as flash
+
+    q, do = _rand(23, (b, sq, h, d), dt, cuda), _rand(24, (b, sq, h, d), dt, cuda)
+    k, v = _rand(25, (b, sk, kv, d), dt, cuda), _rand(26, (b, sk, kv, d), dt, cuda)
+    for scale in (None, 0.3):
+        o = flash.flash_attention(q, k, v, causal=causal, softmax_scale=scale)
+        before = ops.launch_counts()["flash_attention_bwd"]
+        got = flash.flash_attention_bwd(q, k, v, o, do, causal=causal, softmax_scale=scale)
+        assert ops.launch_counts()["flash_attention_bwd"] == before + 1
+        want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal, softmax_scale=scale)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == w.dtype
+            scale_w = max(1.0, float(w.float().abs().max()))
+            np.testing.assert_allclose(g.float().cpu().numpy(), w.float().cpu().numpy(),
+                                       atol=TOL[dt]["atol"] * scale_w, rtol=TOL[dt]["rtol"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_backward_kernels_are_deterministic(cuda, dt):
+    """No float atomics: two runs on one input give equal bits."""
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import rmsnorm as rms
+
+    x, g, w = _rand(27, (2048, 4096), dt, cuda), _rand(28, (2048, 4096), dt, cuda), _rand(29, (4096,), dt, cuda)
+    a, b = rms.fused_rmsnorm_bwd(x, w, g), rms.fused_rmsnorm_bwd(x, w, g)
+    assert all(torch.equal(s, t) for s, t in zip(a, b))
+    q, do = _rand(30, (2, 512, 16, 128), dt, cuda), _rand(31, (2, 512, 16, 128), dt, cuda)
+    k, v = _rand(32, (2, 512, 4, 128), dt, cuda), _rand(33, (2, 512, 4, 128), dt, cuda)
+    o = flash.flash_attention(q, k, v)
+    a, b = flash.flash_attention_bwd(q, k, v, o, do), flash.flash_attention_bwd(q, k, v, o, do)
+    assert all(torch.equal(s, t) for s, t in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_bwd_rejects_other_head_dims(cuda, dt):
+    from repro_torch.kernels import flash_attention as flash
+
+    x = torch.zeros(1, 8, 2, 72, device=cuda, dtype=DTYPES[dt])
+    with pytest.raises(ValueError, match="D=72"):
+        flash.flash_attention_bwd(x, x, x, x, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_ops_gradients_go_through_the_backward_kernels(cuda, dt):
+    """autograd through ops.rmsnorm and ops.flash_attention on the card
+    takes the Functions: the backward kernels launch once each, and the
+    gradients, for one fixed upstream gradient, match autograd of the
+    plain versions within the tolerance of each gradient's scale."""
+    x = _rand(34, (3, 50, 256), dt, cuda).requires_grad_()
+    w = (1 + _rand(35, (256,), dt, cuda, 0.3)).requires_grad_()
+    q = _rand(36, (2, 50, 8, 64), dt, cuda).requires_grad_()
+    k, v = (_rand(s, (2, 50, 2, 64), dt, cuda).requires_grad_() for s in (37, 38))
+    gy, go = _rand(39, (3, 50, 256), dt, cuda), _rand(40, (2, 50, 8, 64), dt, cuda)
+    grads = {}
+    for impl in ("kernel", "ref"):
+        before = ops.launch_counts()
+        with ops.use_impl(impl):
+            torch.autograd.backward([ops.rmsnorm(x, w), ops.flash_attention(q, k, v)], [gy, go])
+        launched = {n: c - before[n] for n, c in ops.launch_counts().items()}
+        on = int(impl == "kernel")
+        assert launched == {"rmsnorm": on, "flash_attention": on, "decode_attention": 0,
+                            "rmsnorm_bwd": on, "flash_attention_bwd": on}
+        grads[impl] = [t.grad.float().cpu().numpy() for t in (x, w, q, k, v)]
+        for t in (x, w, q, k, v):
+            t.grad = None
+    for g, want in zip(grads["kernel"], grads["ref"]):
+        scale = max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(g, want, atol=TOL[dt]["atol"] * scale, rtol=TOL[dt]["rtol"])
