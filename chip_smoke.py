@@ -29,7 +29,11 @@ Run from the root of a checkout.  Phases, each of which must pass:
               rmsnorm at d = 18432 (cold: 37.8 MB) and 1280; untimed, the
               one-sequence decode of phase 10's parity runs and whisper's
               128-token split; timed, phase 11's train microbatch (rmsnorm
-              8192 rows of d = 4096, flash 4 x 2048 x 32/8 x 128 causal)
+              8192 rows of d = 4096, flash 4 x 2048 x 32/8 x 128 causal);
+              at the serving prefill and the train microbatch, flash's
+              log-sum-exp output (the training path's call) against its
+              plain version, the output bit-equal to the call without it,
+              and in bf16 timed beside that call
   3. parity   granite-8b, qwen1.5-4b and minicpm3-4b at full width, 2 layers:
               the kernel path and the plain path agree over a 512-token
               prefill and 16 decode steps (f32: equal token ids; bf16: as
@@ -87,8 +91,10 @@ Run from the root of a checkout.  Phases, each of which must pass:
               with 1500 frames, 32 steps, launches exact, timed and
               profiled; (c) the live split of pixtral and whisper bit for
               bit at k in {0, 1, L/2, L}
- 11. train    after phase 10's models are freed: (a) the two backward
-              kernels (rmsnorm_bwd, flash_attention_bwd) against their
+ 11. train    after phase 10's models are freed: (a) the flash backward
+              library's SASS holds HGMMA (wgmma) in each bf16 pass at every
+              head dim, and ptxas reports no spill (registers logged); the
+              two backward kernels (rmsnorm_bwd, flash_attention_bwd) against their
               plain versions, bf16 and f32, two runs bit-equal, at the train
               loop's shapes (rmsnorm 8192 rows of d = 4096, also 18432 and
               1280; flash 4 x 2048 x 32/8 x 128 causal), whisper's 512 x 1500
@@ -450,7 +456,27 @@ def library_call(torch, name: str, inputs, kw):
         q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
 
 
+# phase 2's flash cases that also check and time the forward's log-sum-exp
+# output (the training path's call): the serving prefill and the train microbatch
+LSE_TIMED = ("main", "train")
+
+
+def check_forward_lse(torch, ref, inputs, kw, dt: str) -> dict:
+    """flash_attention(return_lse=True): the output bit-equal to the call
+    without it, each row's log-sum-exp within the kernel's tolerance of
+    ``ref.flash_attention_lse_ref``."""
+    from repro_torch.kernels import flash_attention as fk
+
+    o, lse = fk.flash_attention(*inputs, return_lse=True, **kw)
+    check(torch.equal(o, fk.flash_attention(*inputs, **kw)),
+          f"flash forward {dt}: the output with return_lse differs from the output without it")
+    want = ref.flash_attention_lse_ref(inputs[0], inputs[1], **kw)
+    return {"lse_max_abs_err": max_err(torch, lse, want, dt), "lse_out_bit_equal": True}
+
+
 def phase_kernels(torch, ops, ref) -> dict:
+    from repro_torch.kernels import flash_attention as fk
+
     kernel_fn = {"rmsnorm": ops.rmsnorm, "flash_attention": ops.flash_attention,
                  "decode_attention": ops.decode_attention}
     plain_fn = {"rmsnorm": ref.rmsnorm_ref, "flash_attention": ref.flash_attention_ref,
@@ -469,18 +495,26 @@ def phase_kernels(torch, ops, ref) -> dict:
             err = max_err(torch, got, want, dt)
             row = {"kernel": name, "case": case, "dtype": dt, "max_abs_err": err}
             tag = case.split()[0]
+            lse = name == "flash_attention" and tag in LSE_TIMED
+            if lse:
+                row.update(check_forward_lse(torch, ref, inputs, kw, dt))
             if tag in TIMED:
                 nbytes, flops = work(name, inputs, kw, dt)
                 cold = name == "decode_attention" or nbytes > L2_BYTES / 2
                 sets = cold_sets(inputs) if cold else [inputs]
-                times = time_ms(torch, {
+                fns = {
                     "plain": lambda *a: plain_fn[name](*a, **kw),
                     "kernel": lambda *a: kernel_fn[name](*a, impl="kernel", **kw),
                     "library": library_call(torch, name, inputs, kw),
-                }, sets)
+                }
+                if lse and dt == "bf16":  # the training path's forward, beside serving's
+                    fns["kernel_lse"] = lambda *a: fk.flash_attention(*a, return_lse=True, **kw)
+                times = time_ms(torch, fns, sets)
                 row.update(ms=times["kernel"], plain_ms=times["plain"],
                            library_ms=times["library"], bytes=nbytes, flops=flops,
                            timed="cold" if len(sets) > 1 else "warm", copies=len(sets))
+                if "kernel_lse" in times:
+                    row["lse_ms"] = times["kernel_lse"]
                 del sets
                 row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dt)
                 results[(name, dt) if tag == "main" else (name, dt, tag)] = row
@@ -1493,7 +1527,7 @@ def bwd_cases(torch, dt: str):
     loop's shapes (8192 rows of d = 4096; flash 4 x 2048 x 32/8 x 128,
     causal), nemotron's and whisper's norm widths, whisper's cross-attention
     (512 x 1500, non-causal) and, small, every head dim the kernel takes.
-    Flash's inputs carry the forward kernel's output o."""
+    Flash's inputs carry the forward kernel's output o and log-sum-exp."""
     dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 11)
@@ -1508,7 +1542,8 @@ def bwd_cases(torch, dt: str):
         from repro_torch.kernels import flash_attention as fk
 
         q, k, v, do = randn(b, sq, h, d), randn(b, sk, kv, d), randn(b, sk, kv, d), randn(b, sq, h, d)
-        return q, k, v, fk.flash_attention(q, k, v, causal=causal), do
+        o, lse = fk.flash_attention(q, k, v, causal=causal, return_lse=True)
+        return q, k, v, o, do, lse
 
     cases = [
         ("rmsnorm_bwd", "main N=8192 d=4096", lambda: rms(8192, 4096), {}),
@@ -1527,8 +1562,9 @@ def bwd_cases(torch, dt: str):
 
 def bwd_work(name: str, inputs, kw, dt: str) -> tuple[float, float]:
     """(bytes, flops) of a backward call on these inputs: each input read and
-    each output written once; flash's operations 2.5x the forward's (4 D per
-    query-key pair, the causal pairs counted as these shapes have them)."""
+    each output written once (flash: q, k, v, o, do, the f32 lse; dq, dk,
+    dv); flash's operations 2.5x the forward's (4 D per query-key pair, the
+    causal pairs counted as these shapes have them)."""
     es = 2 if dt == "bf16" else 4
     if name == "rmsnorm_bwd":
         x, w, _ = inputs
@@ -1538,7 +1574,8 @@ def bwd_work(name: str, inputs, kw, dt: str) -> tuple[float, float]:
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     pairs = sum(min(i + 1, sk) for i in range(sq)) if kw.get("causal", True) else sq * sk
-    return (4 * b * sq * h * d + 4 * b * sk * kv * d) * es, 2.5 * 4 * b * h * d * pairs
+    return ((4 * b * sq * h * d + 4 * b * sk * kv * d) * es + 4 * b * h * sq,
+            2.5 * 4 * b * h * d * pairs)
 
 
 def bwd_library_call(torch, name: str, kw):
@@ -1561,11 +1598,62 @@ def bwd_library_call(torch, name: str, kw):
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=kw.get("causal", True), enable_gqa=True)
 
-    def fwd_bwd(q, k, v, o, do):
+    def fwd_bwd(q, k, v, o, do, lse):
         q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
         return torch.autograd.grad(fwd(q, k, v), (q, k, v), do.transpose(1, 2))
 
-    return (lambda q, k, v, o, do: fwd(q, k, v)), fwd_bwd
+    return (lambda q, k, v, o, do, lse: fwd(q, k, v)), fwd_bwd
+
+
+# the bf16 backward's wgmma kernels, one per pass and head dim
+BWD_SM90 = [f"flash_bwd_{p}_sm90ILi{d}E" for p in ("dkv", "dq") for d in (16, 32, 64, 80, 96, 128, 192)]
+
+
+def bwd_build_report() -> dict:
+    """The flash backward library as built: every bf16 pass at every head
+    dim must hold HGMMA (wgmma) in its SASS and spill nothing; the
+    registers, stack and spills of each instantiation from ptxas -v, and
+    whether ptxas serialized its wgmma (its C7520 note)."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    lib, log_text = _build.lib_path("flash_attention_bwd"), _build.log_path("flash_attention_bwd").read_text()
+    kernels, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            kernels[name] = {}
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            kernels[name]["registers"] = int(m.group(1))
+        elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            kernels[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+    serialized = set(re.findall(r"wgmma.mma_async instructions are serialized.* in the function '(\S+)'", log_text))
+    cuobjdump = str(Path(_build._nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    hgmma, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            hgmma[fn] = 0
+        elif fn and "HGMMA" in line:
+            hgmma[fn] += 1
+    for want in BWD_SM90:
+        got = [f for f in hgmma if want in f]
+        check(len(got) == 1 and hgmma[got[0]] > 0, f"flash backward: {want} has no HGMMA in its SASS: {got}")
+        reg = [v for k, v in kernels.items() if want in k]
+        check(len(reg) == 1, f"flash backward: no ptxas report of {want}")
+        check(reg[0].get("spill_stores", 0) == 0 and reg[0].get("spill_loads", 0) == 0,
+              f"flash backward: {want} spills registers: {reg[0]}")
+    rows = {}  # short name (flash_bwd_dkv_sm90<Li128>) -> ptxas's report, + HGMMA count
+    for k, v in kernels.items():
+        m = re.search(r"(flash_bwd_[a-z0-9_]+?)I(\w+?)E", k)
+        rows[f"{m.group(1)}<{m.group(2)}>" if m else k] = {
+            **v, "hgmma": next((n for f, n in hgmma.items() if k in f), 0), "wgmma_serialized": k in serialized}
+    log("[train] flash backward SASS and ptxas " + json.dumps(rows))
+    return rows
 
 
 def phase_bwd_kernels(torch, ops, ref) -> dict:
@@ -1847,7 +1935,7 @@ def phase_train(torch, np, ops, ref, TF, get_config, train_cli, opt_mod, step_mo
     gc.collect()
     torch.cuda.empty_cache()
     cfg = get_config("granite-8b")
-    rows = {"kernels": phase_bwd_kernels(torch, ops, ref),
+    rows = {"build": bwd_build_report(), "kernels": phase_bwd_kernels(torch, ops, ref),
             "grad_parity": phase_grad_parity(torch, np, ops, TF, cfg),
             "loop": phase_train_loop(torch, np, ops, TF, cfg, train_cli, opt_mod, step_mod, log_dir)}
     rows["wall_s"] = time.perf_counter() - t_phase

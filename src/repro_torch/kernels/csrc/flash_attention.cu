@@ -44,6 +44,13 @@
 //   12 at D = 96, 10 at D = 80); at D = 192 the tiles take 107 KB of shared
 //   memory.
 //
+// Both kernels can also write each row's log-sum-exp (the training path asks
+// for it, serving never does): with `lse` non-null the epilogue stores
+// m + log2(l) of the row's running max m and sum l, in the log2 domain of
+// the scaled scores (+inf for a row with no valid key), into an f32 (B, H,
+// ls) array, rows < Sq; the backward (flash_attention_bwd.cu) reads it
+// instead of recomputing it.  With `lse` null nothing else changes.
+//
 // Head dims 16, 32, 64, 80, 96, 128 and 192 are instantiated; the wrapper
 // zero-pads D = 24 to 32.
 #include "hopper.cuh"
@@ -62,18 +69,10 @@ constexpr int BK = 64;                // key rows per K/V tile
 constexpr int kStages = 2;
 
 // Shared-memory layout of one CTA at head dim D: [Q | K x kStages | V x
-// kStages | barriers].  Each tile is NBOX boxes of (rows x SW bytes), one box
-// per SW-byte column slice of the row, each swizzled by TMA in SW-byte mode.
-// SW is the widest swizzle span that divides the row: a 192-byte row (D = 96)
-// takes 64-byte mode, a 160-byte row (D = 80) 32-byte mode.  The wgmma descriptors' layout field follows SW, and a
-// box's 8-row group is 8 * SW bytes, as the TMA swizzle lays it out.
+// kStages | barriers].  Each tile is NBOX boxes of (rows x SW bytes), as
+// hp::RowBoxes<D> lays a row out.
 template <int D>
-struct Layout {
-  static constexpr int SW = (D * 2) % 128 == 0 ? 128 : (D * 2) % 64 == 0 ? 64 : 32;  // bytes
-  static_assert((D * 2) % SW == 0 && SW >= 32, "a row is whole swizzle spans");
-  static constexpr int BOX = SW / 2;                     // bf16 columns per box
-  static constexpr int NBOX = D / BOX;
-  static constexpr hp::Swizzle kSw = SW == 128 ? hp::kSw128 : SW == 64 ? hp::kSw64 : hp::kSw32;
+struct Layout : hp::RowBoxes<D> {
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;  // one K or V tile
   static constexpr int K_OFF = Q_BYTES;
@@ -83,22 +82,12 @@ struct Layout {
   static_assert(2 * 64 * D * 2 <= kStages * KV_BYTES, "the O staging reuses the K ring");
 };
 
-template <int N>
-__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (N == 16) hp::wgmma_rs_m64n16k16_tb(d, a, b);
-  if constexpr (N == 32) hp::wgmma_rs_m64n32k16_tb(d, a, b);
-  if constexpr (N == 64) hp::wgmma_rs_m64n64k16_tb(d, a, b);
-  if constexpr (N == 80) hp::wgmma_rs_m64n80k16_tb(d, a, b);
-  if constexpr (N == 96) hp::wgmma_rs_m64n96k16_tb(d, a, b);
-  if constexpr (N == 128) hp::wgmma_rs_m64n128k16_tb(d, a, b);
-  if constexpr (N == 192) hp::wgmma_rs_m64n192k16_tb(d, a, b);
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                   const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int Sq,
-                   int Sk, int H, int KV, float scale_log2, int causal) {
+                   const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                   float* __restrict__ lse, int ls, int Sq, int Sk, int H, int KV, float scale_log2,
+                   int causal) {
   using L = Layout<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -225,16 +214,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
 
-      // P as the A operand: k-step t covers keys 16t..16t+15, i.e. score
-      // blocks 2t and 2t+1 of the accumulator layout.
-      uint32_t pa[BK / 16][4];
-#pragma unroll
-      for (int t = 0; t < BK / 16; ++t) {
-        pa[t][0] = hp::pack_bf16(sc[8 * t + 0], sc[8 * t + 1]);
-        pa[t][1] = hp::pack_bf16(sc[8 * t + 2], sc[8 * t + 3]);
-        pa[t][2] = hp::pack_bf16(sc[8 * t + 4], sc[8 * t + 5]);
-        pa[t][3] = hp::pack_bf16(sc[8 * t + 6], sc[8 * t + 7]);
-      }
+      uint32_t pa[BK / 16][4];  // P as the A operand, k-step t: keys 16t..16t+15
+      hp::acc_to_a<BK>(pa, sc);
       hp::mbar_wait(&bar_v[s], parity);
       hp::wgmma_fence();
 #pragma unroll
@@ -242,7 +223,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         // V is MN-major: 16 key rows per k-step, 8-row groups sbo apart,
         // BOX-column boxes lbo apart.
         const uint64_t dv = hp::make_desc(v_base + t * 16 * L::SW, BK * L::SW, 8 * L::SW, L::kSw);
-        wgmma_pv<D>(acc, pa[t], dv);
+        hp::wgmma_rs_tb<D>(acc, pa[t], dv);
       }
       hp::wgmma_commit();
       hp::wgmma_wait_all();
@@ -253,107 +234,46 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   // Epilogue: full row sums across the quad, then O / max(l, 1e-30) in bf16
-  // staged through the (now idle) K ring with 16-byte chunks XOR-swizzled by
-  // row within aligned groups of a power-of-two size (4 of the 12 chunks of a
-  // D = 96 row, 2 of the 10 of a D = 80 row), so that no chunk leaves its
-  // row, and stored as 16-byte row pieces.
-  constexpr int NCH = D / 8;  // 16-byte chunks per output row
-  constexpr int SWZ = ((NCH & -NCH) < 8 ? (NCH & -NCH) : 8) - 1;
-  uint8_t* stage = smem + L::K_OFF + wg * 64 * D * 2;
-  float inv[2];
+  // staged through the (now idle) K ring; the log-sum-exp if asked for.
+  float l_row[2], inv[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float l = l_run[i];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l_row[i] = l;
     inv[i] = 1.f / fmaxf(l, 1e-30f);
   }
+  hp::store_rows<D>(acc, inv, smem + L::K_OFF + wg * 64 * D * 2,
+                    o + static_cast<size_t>(b) * Sq * H * D + static_cast<size_t>(h) * D,
+                    static_cast<size_t>(H) * D, wg_row0, Sq, 1 + wg);
+  if (lse != nullptr && lane % 4 == 0) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r_lo + 8 * i;
-#pragma unroll
-    for (int c = 0; c < NCH; ++c) {
-      const uint32_t v =
-          hp::pack_bf16(acc[4 * c + 2 * i] * inv[i], acc[4 * c + 2 * i + 1] * inv[i]);
-      *reinterpret_cast<uint32_t*>(stage + r * D * 2 + ((c ^ (r & SWZ)) * 16) + col2 * 2) = v;
-    }
-  }
-  hp::named_sync(1 + wg, 128);
-  const size_t row_stride = static_cast<size_t>(H) * D;
-  for (int idx = tid % 128; idx < 64 * NCH; idx += 128) {
-    const int r = idx / NCH, c = idx % NCH;
-    const int qpos = wg_row0 + r;
-    if (qpos < Sq) {
-      const uint4 v = *reinterpret_cast<const uint4*>(stage + r * D * 2 + ((c ^ (r & SWZ)) * 16));
-      *reinterpret_cast<uint4*>(o + (static_cast<size_t>(b) * Sq + qpos) * row_stride +
-                                static_cast<size_t>(h) * D + c * 8) = v;
+    for (int i = 0; i < 2; ++i) {
+      const int qpos = wg_row0 + r_lo + 8 * i;
+      if (qpos < Sq)
+        lse[(static_cast<size_t>(b) * H + h) * ls + qpos] =
+            l_row[i] > 0.f ? m_run[i] + log2f(l_row[i]) : INFINITY;
     }
   }
 }
 
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so that
-// the library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &status);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
-#endif
-    if (err != cudaSuccess || status != cudaDriverEntryPointSuccess) p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A (B, S, heads, D) bf16 tensor as the 4-D map {D, heads, S, B}; a box is
-// {D-slice of SW bytes, 1 head, `rows` positions, 1 sequence}.  Rows past S
-// are filled with zeros.
 template <int D>
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int rows) {
-  using L = Layout<D>;
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(heads) * D * 2,
-                                 static_cast<cuuint64_t>(S) * heads * D * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(L::BOX), 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle sw = L::SW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : L::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                              : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
-                   int H, int KV, float scale_log2, int causal, int device, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int ls,
+                   int B, int Sq, int Sk, int H, int KV, float scale_log2, int causal, int device,
+                   cudaStream_t stream) {
   static rt::SmemOptIn optin;
   cudaError_t err = optin.ensure(flash_fwd_sm90<D>, device, Layout<D>::SMEM);
   if (err != cudaSuccess) return err;
   if (!rt::aligned16(q) || !rt::aligned16(k) || !rt::aligned16(v) || !rt::aligned16(o))
     return cudaErrorMisalignedAddress;
   CUtensorMap tq, tk, tv;
-  if ((err = make_map<D>(&tq, q, B, Sq, H, BQ)) != cudaSuccess) return err;
-  if ((err = make_map<D>(&tk, k, B, Sk, KV, BK)) != cudaSuccess) return err;
-  if ((err = make_map<D>(&tv, v, B, Sk, KV, BK)) != cudaSuccess) return err;
+  if ((err = hp::make_map<D>(&tq, q, B, Sq, H, BQ)) != cudaSuccess) return err;
+  if ((err = hp::make_map<D>(&tk, k, B, Sk, KV, BK)) != cudaSuccess) return err;
+  if ((err = hp::make_map<D>(&tv, v, B, Sk, KV, BK)) != cudaSuccess) return err;
   const dim3 grid(H, (Sq + BQ - 1) / BQ, B);
   flash_fwd_sm90<D><<<grid, kThreads, Layout<D>::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, KV, scale_log2, causal);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, ls, Sq, Sk, H, KV, scale_log2, causal);
   return cudaGetLastError();
 }
 
@@ -377,8 +297,8 @@ constexpr int smem_floats() {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk, int H,
-                  int KV, float scale_log2, int causal) {
+                  const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                  int ls, int Sq, int Sk, int H, int KV, float scale_log2, int causal) {
   constexpr int DP = D + 1;    // padded smem row stride of Q and K (bank spread)
   constexpr int BKP = BK + 1;  // padded smem row stride of P
   constexpr int DC = D / 8;    // output columns per thread
@@ -502,13 +422,16 @@ __global__ void __launch_bounds__(kThreads)
       const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int c = 0; c < DC; ++c) obase[qpos * q_stride + tx + 8 * c] = acc[i][c] / denom;
+      if (lse != nullptr && tx == 0)
+        lse[(static_cast<size_t>(b) * H + h) * ls + qpos] = l[i] > 0.f ? m[i] + log2f(l[i]) : INFINITY;
     }
   }
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
-                   int H, int KV, float scale_log2, int causal, int device, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int ls,
+                   int B, int Sq, int Sk, int H, int KV, float scale_log2, int causal, int device,
+                   cudaStream_t stream) {
   constexpr size_t smem = smem_floats<D>() * sizeof(float);
   static rt::SmemOptIn optin;
   const cudaError_t err = optin.ensure(flash_fwd_fma<D>, device, smem);
@@ -516,21 +439,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_fma<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), Sq, Sk, H, KV, scale_log2, causal);
+      static_cast<float*>(o), lse, ls, Sq, Sk, H, KV, scale_log2, causal);
   return cudaGetLastError();
 }
 
 }  // namespace simt
 
 template <int D>
-cudaError_t launch_dtype(int dtype, const void* q, const void* k, const void* v, void* o, int B,
-                         int Sq, int Sk, int H, int KV, float sl, int causal, int device,
-                         cudaStream_t s) {
+cudaError_t launch_dtype(int dtype, const void* q, const void* k, const void* v, void* o,
+                         float* lse, int ls, int B, int Sq, int Sk, int H, int KV, float sl,
+                         int causal, int device, cudaStream_t s) {
   switch (dtype) {
     case rt::kF32:
-      return simt::launch<D>(q, k, v, o, B, Sq, Sk, H, KV, sl, causal, device, s);
+      return simt::launch<D>(q, k, v, o, lse, ls, B, Sq, Sk, H, KV, sl, causal, device, s);
     case rt::kBF16:
-      return sm90::launch<D>(q, k, v, o, B, Sq, Sk, H, KV, sl, causal, device, s);
+      return sm90::launch<D>(q, k, v, o, lse, ls, B, Sq, Sk, H, KV, sl, causal, device, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -539,32 +462,34 @@ cudaError_t launch_dtype(int dtype, const void* q, const void* k, const void* v,
 }  // namespace
 
 // softmax_scale is the plain scale (1/sqrt(D) by default); the kernels work in
-// the log2 domain.  bf16 takes the wgmma kernel, f32 the FMA kernel.
+// the log2 domain.  bf16 takes the wgmma kernel, f32 the FMA kernel.  lse:
+// null, or an f32 (B, H, ls) array (ls >= Sq) for each row's log-sum-exp.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      int B, int Sq, int Sk, int H, int KV, int D,
-                                      float softmax_scale, int causal, int dtype, int device,
-                                      void* stream) {
+                                      void* lse, int ls, int B, int Sq, int Sk, int H, int KV,
+                                      int D, float softmax_scale, int causal, int dtype,
+                                      int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B == 0 || Sq == 0 || H == 0) return cudaSuccess;
-  if (Sk == 0 || KV == 0 || H % KV != 0) return cudaErrorInvalidValue;
+  if (Sk == 0 || KV == 0 || H % KV != 0 || (lse != nullptr && ls < Sq)) return cudaErrorInvalidValue;
+  float* lf = static_cast<float*>(lse);
   const float sl = softmax_scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch_dtype<16>(dtype, q, k, v, o, B, Sq, Sk, H, KV, sl, causal, device, s);
+      return launch_dtype<16>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, device, s);
     case 32:
-      return launch_dtype<32>(dtype, q, k, v, o, B, Sq, Sk, H, KV, sl, causal, device, s);
+      return launch_dtype<32>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, device, s);
     case 64:
-      return launch_dtype<64>(dtype, q, k, v, o, B, Sq, Sk, H, KV, sl, causal, device, s);
+      return launch_dtype<64>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, device, s);
     case 80:
-      return launch_dtype<80>(dtype, q, k, v, o, B, Sq, Sk, H, KV, sl, causal, device, s);
+      return launch_dtype<80>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, device, s);
     case 96:
-      return launch_dtype<96>(dtype, q, k, v, o, B, Sq, Sk, H, KV, sl, causal, device, s);
+      return launch_dtype<96>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, device, s);
     case 128:
-      return launch_dtype<128>(dtype, q, k, v, o, B, Sq, Sk, H, KV, sl, causal, device, s);
+      return launch_dtype<128>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, device, s);
     case 192:
-      return launch_dtype<192>(dtype, q, k, v, o, B, Sq, Sk, H, KV, sl, causal, device, s);
+      return launch_dtype<192>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, device, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -34,6 +34,11 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
+// One arrival (no transactions) on `bar`.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
 __device__ __forceinline__ uint64_t globaltimer_ns() {
   uint64_t t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
@@ -114,6 +119,11 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
+// Waits until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
 
 // Keeps the compiler from moving register reads or writes of an accumulator
 // across the asynchronous wgmma that owns it.
@@ -148,6 +158,33 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 32, f32) (+)= A (64 x 16, bf16, K-major) * B (32 x 16, bf16,
+// K-major), both from shared memory.  scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x N) (+)= A B^T, both K-major in shared memory, N in {32, 64}.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  static_assert(N == 32 || N == 64, "wgmma_ss: N is 32 or 64");
+  if constexpr (N == 32) wgmma_ss_m64n32k16(d, desc_a, desc_b, scale_d);
+  if constexpr (N == 64) wgmma_ss_m64n64k16(d, desc_a, desc_b, scale_d);
 }
 
 // D (64 x 16, f32) += A (64 x 16, bf16, registers) * B (16 x 16, bf16,
@@ -296,9 +333,137 @@ __device__ __forceinline__ void wgmma_rs_m64n192k16_tb(float (&d)[96], const uin
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
 }
 
+// D (64 x N) += A (registers) * B (MN-major in shared memory), N a head dim.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 16) wgmma_rs_m64n16k16_tb(d, a, b);
+  if constexpr (N == 32) wgmma_rs_m64n32k16_tb(d, a, b);
+  if constexpr (N == 64) wgmma_rs_m64n64k16_tb(d, a, b);
+  if constexpr (N == 80) wgmma_rs_m64n80k16_tb(d, a, b);
+  if constexpr (N == 96) wgmma_rs_m64n96k16_tb(d, a, b);
+  if constexpr (N == 128) wgmma_rs_m64n128k16_tb(d, a, b);
+  if constexpr (N == 192) wgmma_rs_m64n192k16_tb(d, a, b);
+}
+
+// The A operand of an m64k16 product from an m64nN f32 accumulator: k-step
+// t covers the accumulator's columns 16t..16t+15, i.e. its 8-column blocks
+// 2t and 2t + 1, rounded to bf16.
+template <int N>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[N / 16][4], const float (&c)[N / 2]) {
+#pragma unroll
+  for (int t = 0; t < N / 16; ++t) {
+    a[t][0] = pack_bf16(c[8 * t + 0], c[8 * t + 1]);
+    a[t][1] = pack_bf16(c[8 * t + 2], c[8 * t + 3]);
+    a[t][2] = pack_bf16(c[8 * t + 4], c[8 * t + 5]);
+    a[t][3] = pack_bf16(c[8 * t + 6], c[8 * t + 7]);
+  }
+}
+
 // Named barrier over `threads` threads (a warpgroup: 128), id 1..15.
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// --- bf16 rows as TMA boxes ----------------------------------------------------
+
+// How a row of D bf16 values lies in shared memory: NBOX boxes of SW bytes,
+// one box per SW-byte column slice of the row, each swizzled by TMA in
+// SW-byte mode.  SW is the widest swizzle span that divides the row: a
+// 192-byte row (D = 96) takes 64-byte mode, a 160-byte row (D = 80) 32-byte
+// mode.  A tile of R rows is NBOX boxes of R x SW bytes; the wgmma
+// descriptors' layout field follows SW, and a box's 8-row group is 8 * SW
+// bytes, as the TMA swizzle lays it out.
+template <int D>
+struct RowBoxes {
+  static constexpr int SW = (D * 2) % 128 == 0 ? 128 : (D * 2) % 64 == 0 ? 64 : 32;  // bytes
+  static_assert((D * 2) % SW == 0 && SW >= 32, "a row is whole swizzle spans");
+  static constexpr int BOX = SW / 2;  // bf16 columns per box
+  static constexpr int NBOX = D / BOX;
+  static constexpr Swizzle kSw = SW == 128 ? kSw128 : SW == 64 ? kSw64 : kSw32;
+};
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
+// (cudaGetDriverEntryPoint), so that a library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &status);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
+#endif
+    if (err != cudaSuccess || status != cudaDriverEntryPointSuccess) p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A (B, S, heads, D) bf16 tensor as the 4-D map {D, heads, S, B}; a box is
+// {D-slice of SW bytes, 1 head, `rows` positions, 1 sequence}, laid out as
+// RowBoxes<D> says.  Rows past S are filled with zeros.
+template <int D>
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int rows) {
+  using L = RowBoxes<D>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(heads) * D * 2,
+                                 static_cast<cuuint64_t>(S) * heads * D * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(L::BOX), 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle sw = L::SW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : L::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                              : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// 64 rows of an m64nD f32 accumulator (this warpgroup's), the thread's row
+// r_lo + 8i times mul[i] (r_lo as in the accumulator layout), as
+// bf16 through shared memory `stage` (64 x D x 2 bytes) into rows
+// [row0, row0 + 64) of a (rows, stride) bf16 array at `out`; rows at or past
+// `rows` are not written.  16-byte chunks are XOR-swizzled by row within
+// aligned groups of a power-of-two size (4 of the 12 chunks of a D = 96 row,
+// 2 of the 10 of a D = 80 row), so that no chunk leaves its row, and stored
+// as 16-byte row pieces.  `bar` is a named barrier id of this warpgroup.
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2], const float (&mul)[2],
+                                           uint8_t* stage,
+                                           __nv_bfloat16* out, size_t stride, int row0, int rows,
+                                           int bar) {
+  constexpr int NCH = D / 8;  // 16-byte chunks per row
+  constexpr int SWZ = ((NCH & -NCH) < 8 ? (NCH & -NCH) : 8) - 1;
+  const int t = threadIdx.x % 128;
+  const int r_lo = (t / 32) * 16 + (t % 32) / 4, col2 = (t % 4) * 2;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r_lo + 8 * i;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      const uint32_t v = pack_bf16(acc[4 * c + 2 * i] * mul[i], acc[4 * c + 2 * i + 1] * mul[i]);
+      *reinterpret_cast<uint32_t*>(stage + r * D * 2 + ((c ^ (r & SWZ)) * 16) + col2 * 2) = v;
+    }
+  }
+  named_sync(bar, 128);
+  for (int idx = t; idx < 64 * NCH; idx += 128) {
+    const int r = idx / NCH, c = idx % NCH;
+    if (row0 + r < rows) {
+      const uint4 v = *reinterpret_cast<const uint4*>(stage + r * D * 2 + ((c ^ (r & SWZ)) * 16));
+      *reinterpret_cast<uint4*>(out + static_cast<size_t>(row0 + r) * stride + c * 8) = v;
+    }
+  }
 }
 
 }  // namespace hp

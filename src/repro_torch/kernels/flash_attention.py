@@ -19,10 +19,16 @@ REDUCED MLA config) is zero-padded to 32 here and the output sliced back:
 zero columns add nothing to QK^T and give zero output columns.  Any other D
 raises.
 
+``return_lse=True`` also returns each row's log-sum-exp, (B, H, Sq) f32 in
+the log2 domain of the scaled scores (``ref.flash_attention_lse_ref``); only
+the training path asks for it.  Its storage rows are ``lse_stride(Sq)`` long
+(a multiple of 128), which the backward needs.
+
 ``flash_attention_bwd`` wraps the backward (``csrc/flash_attention_bwd.cu``),
 which has no TPU counterpart: the JAX package differentiates its plain
 attention, but the port's model calls this kernel, so its gradient is a
-kernel too.  It takes the same head dims (24 padded as here).
+kernel too.  It takes the forward's output and log-sum-exp, and the same
+head dims (24 padded as here).
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 80, 96, 128, 192)
 PADDED_HEAD_DIMS = {24: 32}  # D -> the instantiated width it is zero-padded to
+LSE_ALIGN = 128  # the log-sum-exp's rows are padded to a multiple of this
 
 launches = 0  # kernel launches since the last reset (see ops.reset_launch_counts)
 bwd_launches = 0  # the same, of the backward kernel
@@ -48,7 +55,9 @@ def flash_attention(
     *,
     causal: bool = True,
     softmax_scale: float | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+    """Attention out (B, Sq, H, D); with ``return_lse`` also (out, lse)."""
     global launches
     _check(q, k, v)
     b, sq, h, d = q.shape
@@ -60,20 +69,29 @@ def flash_attention(
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash kernel needs 16-byte aligned bf16 q, k, v (TMA)")
     out = torch.empty_like(q)
+    ls = lse_stride(sq)
+    lse = torch.empty(b, h, ls, dtype=torch.float32, device=q.device) if return_lse else None
     fn = _build.function(
         "flash_attention",
         "flash_attention_launch",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
         + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     )
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if return_lse else None, ls,
         b, sq, sk, h, kv, q.shape[3], scale, int(causal), _build.DTYPES[q.dtype], q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check("flash_attention", err)
     launches += 1
-    return out[..., :d]  # a padded D's zero columns dropped; else the whole of out
+    out = out[..., :d]  # a padded D's zero columns dropped; else the whole of out
+    return (out, lse[..., :sq]) if return_lse else out
+
+
+def lse_stride(sq: int) -> int:
+    """The length of the log-sum-exp's storage rows for Sq query rows."""
+    return -(-sq // LSE_ALIGN) * LSE_ALIGN
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -101,17 +119,19 @@ def flash_attention_bwd(
     v: torch.Tensor,  # (B, Sk, KV, D)
     o: torch.Tensor,  # (B, Sq, H, D): flash_attention's output
     do: torch.Tensor,  # (B, Sq, H, D): its gradient
+    lse: torch.Tensor | None = None,  # (B, H, Sq): flash_attention's, return_lse=True
     *,
     causal: bool = True,
     softmax_scale: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``flash_attention(q, k, v)``.  No TPU counterpart.
 
-    Bound on the H100: operations, 2.5x the forward's.  Two deterministic
-    passes with f32 FMAs (see the source's header): a dQ pass per (q-block,
-    head) that recomputes each row's log-sum-exp and writes it and delta =
-    rowsum(do * o) to an f32 scratch (2 x B x H x Sq, from ``torch.empty``),
-    then a dK/dV pass per (k-block, KV head) over its query heads."""
+    Bound on the H100: operations, 2.5x the forward's.  Deterministic (no
+    atomics; see the source's header): delta = rowsum(do * o) into an f32
+    scratch (``torch.empty``), then for bf16 a dK/dV pass per (128-key
+    block, KV head) over its query heads and a dQ pass per (128-row q-block,
+    head), both on ``wgmma`` with TMA rings, P rebuilt from ``lse``; for f32
+    the same two passes with f32 FMAs."""
     global bwd_launches
     _check(q, k, v)
     b, sq, h, d = q.shape
@@ -122,23 +142,32 @@ def flash_attention_bwd(
                              f"got {tuple(t.shape)} {t.dtype} on {t.device}")
     if sq == 0:
         raise ValueError("flash backward needs Sq > 0")
+    ls = lse_stride(sq)
+    if lse is None:
+        raise ValueError("flash backward needs the forward's lse (flash_attention(..., return_lse=True))")
+    if (lse.shape != (b, h, sq) or lse.dtype != torch.float32 or lse.device != q.device
+            or lse.stride() != (h * ls, ls, 1)):
+        raise ValueError(f"flash backward needs lse as flash_attention returns it: ({b}, {h}, {sq}) "
+                         f"f32, rows of {ls}; got {tuple(lse.shape)} {lse.dtype} strides {lse.stride()}")
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     if d in PADDED_HEAD_DIMS:  # o is then the forward's sliced output
         pad = PADDED_HEAD_DIMS[d] - d
         q, k, v, o, do = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v, o, do))
     if not (o.is_contiguous() and do.is_contiguous()):
         raise ValueError("flash backward needs contiguous o and do")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v, do)):
+        raise ValueError("flash backward needs 16-byte aligned bf16 q, k, v, do (TMA)")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stats = torch.empty(2 * b * h * sq, dtype=torch.float32, device=q.device)
+    delta = torch.empty(b, h, ls, dtype=torch.float32, device=q.device)
     fn = _build.function(
         "flash_attention_bwd",
         "flash_attention_bwd_launch",
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float]
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float]
         + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     )
     err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), ls,
         b, sq, sk, h, kv, q.shape[3], scale, int(causal), _build.DTYPES[q.dtype], q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream,
     )

@@ -15,9 +15,10 @@ On the kernel path ``rmsnorm`` and ``flash_attention`` go through a
 backward is the backward kernel (``rmsnorm_bwd``, ``flash_attention_bwd``),
 but only when grad is enabled and an input requires it: otherwise (every
 serving step) they launch the forward kernel directly, with no autograd node
-and no saved tensors.  A gradient through a kernel is a backward kernel or
-an error, never the plain version.  ``decode_attention`` serves decode only
-and has no gradient.
+and no saved tensors.  Only the Function asks the flash kernel for each
+row's log-sum-exp, which its backward reads.  A gradient through a kernel is
+a backward kernel or an error, never the plain version.
+``decode_attention`` serves decode only and has no gradient.
 """
 
 from __future__ import annotations
@@ -83,16 +84,17 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, softmax_scale):
-        o = _flash.flash_attention(q, k, v, causal=causal, softmax_scale=softmax_scale)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = _flash.flash_attention(q, k, v, causal=causal, softmax_scale=softmax_scale,
+                                        return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.softmax_scale = causal, softmax_scale
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = _flash.flash_attention_bwd(
-            q, k, v, o, do.contiguous(), causal=ctx.causal, softmax_scale=ctx.softmax_scale)
+            q, k, v, o, do.contiguous(), lse, causal=ctx.causal, softmax_scale=ctx.softmax_scale)
         return dq, dk, dv, None, None
 
 

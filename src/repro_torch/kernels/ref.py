@@ -19,6 +19,24 @@ from repro_torch.models.layers import attention_reference, decode_attention_refe
 from repro_torch.models.layers import rmsnorm as rmsnorm_ref  # noqa: F401  (the plain rmsnorm)
 
 
+_LOG2E = 1.4426950408889634
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool, softmax_scale: float | None) -> torch.Tensor:
+    """scale Q K^T in f32, (B, H, Sq, Sk), -inf where the causal mask drops a
+    key (k_pos > q_pos); GQA's KV heads repeated over their query heads."""
+    sq, h, d = q.shape[1:]
+    sk, kv = k.shape[1:3]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    qf = q.float().transpose(1, 2)
+    kr = k.float().transpose(1, 2).repeat_interleave(h // kv, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kr) * scale
+    if causal:
+        keep = torch.arange(sq, device=q.device)[:, None] >= torch.arange(sk, device=q.device)[None, :]
+        s = s.masked_fill(~keep, float("-inf"))
+    return s
+
+
 def flash_attention_ref(
     q: torch.Tensor,  # (B, Sq, H, D)
     k: torch.Tensor,  # (B, Sk, KV, D)
@@ -28,6 +46,21 @@ def flash_attention_ref(
     softmax_scale: float | None = None,
 ) -> torch.Tensor:
     return attention_reference(q, k, v, causal=causal, softmax_scale=softmax_scale)
+
+
+def flash_attention_lse_ref(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Sk, KV, D)
+    *,
+    causal: bool = True,
+    softmax_scale: float | None = None,
+) -> torch.Tensor:
+    """Each row's log-sum-exp in the kernels' convention, (B, H, Sq) f32: the
+    log2 domain of the scaled scores, log2(sum_k 2^(s_k log2(e))) with s =
+    scale Q K^T, the causal mask keeping k_pos <= q_pos; +inf for a row with
+    no valid key (its P is then 0)."""
+    lse = torch.logsumexp(_scores(q, k, causal, softmax_scale), dim=-1) * _LOG2E
+    return lse.masked_fill(lse == float("-inf"), float("inf"))
 
 
 def decode_attention_ref(
@@ -66,6 +99,7 @@ def flash_attention_bwd_ref(
     v: torch.Tensor,  # (B, Sk, KV, D)
     o: torch.Tensor,  # (B, Sq, H, D): the forward's output
     do: torch.Tensor,  # (B, Sq, H, D): its gradient
+    lse: torch.Tensor | None = None,  # (B, H, Sq): the forward's log-sum-exp
     *,
     causal: bool = True,
     softmax_scale: float | None = None,
@@ -74,7 +108,9 @@ def flash_attention_bwd_ref(
     dV = P^T dO, dP = dO V^T, dS = P * (dP - delta) with delta = rowsum(dO * O),
     dQ = scale dS K, dK = scale dS^T Q.  For GQA, dk and dv sum over each KV
     head's n_rep query heads.  The causal mask keeps k_pos <= q_pos (the
-    diagonal at 0, as the kernels)."""
+    diagonal at 0, as the kernels).  P is softmax(S); given the forward's
+    ``lse`` (as ``flash_attention_lse_ref`` gives it), P = exp2(S log2(e) -
+    lse), as the kernels rebuild it."""
     b, sq, h, d = q.shape
     _, sk, kv, _ = k.shape
     n_rep = h // kv
@@ -82,11 +118,11 @@ def flash_attention_bwd_ref(
     qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))  # (B, heads, S, D)
     of, dof = o.float().transpose(1, 2), do.float().transpose(1, 2)
     kr, vr = kf.repeat_interleave(n_rep, dim=1), vf.repeat_interleave(n_rep, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", qf, kr) * scale
-    if causal:
-        keep = torch.arange(sq, device=q.device)[:, None] >= torch.arange(sk, device=q.device)[None, :]
-        s = s.masked_fill(~keep, float("-inf"))
-    p = torch.softmax(s, dim=-1)
+    s = _scores(q, k, causal, softmax_scale)
+    if lse is None:
+        p = torch.softmax(s, dim=-1)
+    else:
+        p = torch.exp2(s * _LOG2E - lse.float()[..., None])
     dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vr)
     delta = (dof * of).sum(dim=-1, keepdim=True)

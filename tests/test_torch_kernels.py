@@ -515,6 +515,11 @@ BWD_FLASH_SHAPES = [  # b, sq, sk, h, kv, d, causal
     (1, 300, 300, 32, 8, 128, True), (2, 200, 333, 4, 1, 64, False), (1, 77, 150, 4, 4, 16, False),
     (1, 96, 96, 4, 4, 32, True), (1, 100, 100, 4, 4, 80, True), (2, 70, 70, 6, 3, 96, True),
     (1, 40, 40, 4, 4, 24, True), (1, 90, 90, 12, 1, 192, True), (1, 64, 120, 4, 2, 192, False),
+    # many tiles with ragged tails: the train shape's heads, nemotron's n_rep
+    # 12 at D = 192, whisper's cross-attention, zamba2's D = 80, MLA's 96, D = 24
+    (1, 1031, 1031, 32, 8, 128, True), (1, 2048, 2048, 32, 8, 128, True),
+    (1, 333, 333, 96, 8, 192, True), (1, 512, 1500, 20, 20, 64, False),
+    (2, 257, 257, 10, 5, 80, True), (1, 190, 190, 40, 40, 96, True), (1, 129, 129, 4, 4, 24, True),
 ]
 
 
@@ -523,17 +528,17 @@ BWD_FLASH_SHAPES = [  # b, sq, sk, h, kv, d, causal
 @pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", BWD_FLASH_SHAPES)
 def test_flash_bwd_kernel_matches_plain(cuda, b, sq, sk, h, kv, d, causal, dt):
     """dq, dk, dv against the plain backward (P materialised, f32) on the
-    kernel's own forward output: causal with Sq = Sk, non-causal with Sq !=
-    Sk (whisper's cross-attention), n_rep 1-12, every head dim the forward
-    takes (24 zero-padded to 32), ragged lengths."""
+    kernel's own forward output and log-sum-exp: causal with Sq = Sk,
+    non-causal with Sq != Sk (whisper's cross-attention), n_rep 1-12, every
+    head dim the forward takes (24 zero-padded to 32), ragged lengths."""
     from repro_torch.kernels import flash_attention as flash
 
     q, do = _rand(23, (b, sq, h, d), dt, cuda), _rand(24, (b, sq, h, d), dt, cuda)
     k, v = _rand(25, (b, sk, kv, d), dt, cuda), _rand(26, (b, sk, kv, d), dt, cuda)
     for scale in (None, 0.3):
-        o = flash.flash_attention(q, k, v, causal=causal, softmax_scale=scale)
+        o, lse = flash.flash_attention(q, k, v, causal=causal, softmax_scale=scale, return_lse=True)
         before = ops.launch_counts()["flash_attention_bwd"]
-        got = flash.flash_attention_bwd(q, k, v, o, do, causal=causal, softmax_scale=scale)
+        got = flash.flash_attention_bwd(q, k, v, o, do, lse, causal=causal, softmax_scale=scale)
         assert ops.launch_counts()["flash_attention_bwd"] == before + 1
         want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal, softmax_scale=scale)
         for g, w in zip(got, want):
@@ -545,19 +550,56 @@ def test_flash_bwd_kernel_matches_plain(cuda, b, sq, sk, h, kv, d, causal, dt):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-def test_backward_kernels_are_deterministic(cuda, dt):
-    """No float atomics: two runs on one input give equal bits."""
+@pytest.mark.parametrize("seq", [512, 2048])
+def test_backward_kernels_are_deterministic(cuda, dt, seq):
+    """No float atomics: two runs on one input give equal bits (flash also
+    at the train microbatch's 2048 tokens)."""
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.kernels import rmsnorm as rms
 
     x, g, w = _rand(27, (2048, 4096), dt, cuda), _rand(28, (2048, 4096), dt, cuda), _rand(29, (4096,), dt, cuda)
     a, b = rms.fused_rmsnorm_bwd(x, w, g), rms.fused_rmsnorm_bwd(x, w, g)
     assert all(torch.equal(s, t) for s, t in zip(a, b))
-    q, do = _rand(30, (2, 512, 16, 128), dt, cuda), _rand(31, (2, 512, 16, 128), dt, cuda)
-    k, v = _rand(32, (2, 512, 4, 128), dt, cuda), _rand(33, (2, 512, 4, 128), dt, cuda)
-    o = flash.flash_attention(q, k, v)
-    a, b = flash.flash_attention_bwd(q, k, v, o, do), flash.flash_attention_bwd(q, k, v, o, do)
+    q, do = _rand(30, (2, seq, 16, 128), dt, cuda), _rand(31, (2, seq, 16, 128), dt, cuda)
+    k, v = _rand(32, (2, seq, 4, 128), dt, cuda), _rand(33, (2, seq, 4, 128), dt, cuda)
+    o, lse = flash.flash_attention(q, k, v, return_lse=True)
+    a, b = flash.flash_attention_bwd(q, k, v, o, do, lse), flash.flash_attention_bwd(q, k, v, o, do, lse)
     assert all(torch.equal(s, t) for s, t in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", BWD_FLASH_SHAPES)
+def test_flash_forward_lse_matches_plain(cuda, b, sq, sk, h, kv, d, causal, dt):
+    """return_lse: each row's log-sum-exp against the plain one (log2
+    domain, f32 scores from the same inputs) at the kernel's tolerance, and
+    the output bit-equal to the forward without it."""
+    from repro_torch.kernels import flash_attention as flash
+
+    q = _rand(41, (b, sq, h, d), dt, cuda)
+    k, v = _rand(42, (b, sk, kv, d), dt, cuda), _rand(43, (b, sk, kv, d), dt, cuda)
+    for scale in (None, 0.3):
+        before = ops.launch_counts()["flash_attention"]
+        o, lse = flash.flash_attention(q, k, v, causal=causal, softmax_scale=scale, return_lse=True)
+        plain_o = flash.flash_attention(q, k, v, causal=causal, softmax_scale=scale)
+        assert ops.launch_counts()["flash_attention"] == before + 2
+        assert torch.equal(o, plain_o)
+        want = ref.flash_attention_lse_ref(q, k, causal=causal, softmax_scale=scale)
+        assert lse.shape == want.shape == (b, h, sq) and lse.dtype == torch.float32
+        np.testing.assert_allclose(lse.cpu().numpy(), want.cpu().numpy(), **TOL[dt])
+
+
+@pytest.mark.cuda
+def test_flash_bwd_needs_the_forwards_lse(cuda):
+    from repro_torch.kernels import flash_attention as flash
+
+    q = _rand(44, (1, 40, 4, 64), "bf16", cuda)
+    k = _rand(45, (1, 40, 2, 64), "bf16", cuda)
+    o, lse = flash.flash_attention(q, k, k, return_lse=True)
+    with pytest.raises(ValueError, match="lse"):
+        flash.flash_attention_bwd(q, k, k, o, o)
+    with pytest.raises(ValueError, match="lse"):
+        flash.flash_attention_bwd(q, k, k, o, o, lse.contiguous())
 
 
 @pytest.mark.cuda

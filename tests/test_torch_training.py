@@ -449,8 +449,9 @@ def test_make_batch_equals_the_reference(arch):
 @pytest.fixture
 def fake_kernels(monkeypatch):
     """``_use_kernel`` forced on, and each kernel wrapper swapped for its
-    plain version with a launch counter: the kernel path's control flow on
-    the CPU."""
+    plain version with a launch counter (flash's with its log-sum-exp, which
+    the backward must be given): the kernel path's control flow on the
+    CPU."""
     calls = types.SimpleNamespace(rms=0, rms_bwd=0, flash=0, flash_bwd=0)
 
     def counted(name, fn):
@@ -459,11 +460,21 @@ def fake_kernels(monkeypatch):
             return fn(*a, **kw)
         return wrapper
 
+    def flash(q, k, v, *, causal=True, softmax_scale=None, return_lse=False):
+        o = ref.flash_attention_ref(q, k, v, causal=causal, softmax_scale=softmax_scale)
+        if not return_lse:
+            return o
+        return o, ref.flash_attention_lse_ref(q, k, causal=causal, softmax_scale=softmax_scale)
+
+    def flash_bwd(q, k, v, o, do, lse=None, **kw):
+        assert lse is not None, "the kernel path's backward takes the forward's log-sum-exp"
+        return ref.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+
     monkeypatch.setattr(ops, "_use_kernel", lambda impl, t: (impl or ops._default[0]) != "ref")
     monkeypatch.setattr(_rmsnorm, "fused_rmsnorm", counted("rms", ref.rmsnorm_ref))
     monkeypatch.setattr(_rmsnorm, "fused_rmsnorm_bwd", counted("rms_bwd", ref.rmsnorm_bwd_ref))
-    monkeypatch.setattr(_flash, "flash_attention", counted("flash", ref.flash_attention_ref))
-    monkeypatch.setattr(_flash, "flash_attention_bwd", counted("flash_bwd", ref.flash_attention_bwd_ref))
+    monkeypatch.setattr(_flash, "flash_attention", counted("flash", flash))
+    monkeypatch.setattr(_flash, "flash_attention_bwd", counted("flash_bwd", flash_bwd))
     return calls
 
 

@@ -1,0 +1,95 @@
+#!/usr/bin/env python3
+"""Hold this checkout's flash_attention forward against another checkout's on one card.
+
+    python3 tools/ab_flash_forward.py OTHER_ROOT [--rounds 2] [--json FILE]
+
+OTHER_ROOT is the root of another checkout, for example a parent commit
+unpacked with ``git archive <commit> | tar -x -C <dir>``.  Each side runs in
+a process of its own, in turns (other, this, this, other for two rounds), on
+the flash cases of chip_smoke.py's phase 2 (the serving prefill, ragged and
+non-causal shapes, every family's shapes, the train microbatch), bf16 and
+f32, as serving calls the kernel: without the log-sum-exp.  It reports
+whether every output is bit-equal across the two checkouts, and each run's
+mean device ms of phase 2's timed flash cases (``chip_smoke.time_ms``, cold
+where phase 2 times cold).  Exits non-zero if an output differs.  Needs a
+CUDA device; builds each side's kernels in that side's ``build/``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+
+
+def worker(root: Path) -> dict:
+    """Run the flash cases with ``root``'s kernels: {case: [sha256 of the
+    output's bytes, ms or None]}."""
+    sys.path.insert(0, str(HERE))
+    import chip_smoke as cs  # inputs and timing from this checkout, the same for both sides
+
+    sys.path.insert(0, str(root / "src"))  # ahead of the checkout that chip_smoke put first
+    import torch
+
+    from repro_torch.kernels import flash_attention as fk
+
+    if not fk.__file__.startswith(str(root)):
+        raise RuntimeError(f"imported {fk.__file__}, not {root}'s kernels")
+    out = {}
+    for dt in ("bf16", "f32"):
+        for name, case, make, kw in cs.kernel_cases(torch, dt):
+            inputs = make()
+            if name != "flash_attention":
+                continue
+            o = fk.flash_attention(*inputs, **kw)
+            torch.cuda.synchronize()
+            digest = hashlib.sha256(o.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+            ms = None
+            if case.split()[0] in cs.TIMED:
+                nbytes, _ = cs.work(name, inputs, kw, dt)
+                sets = cs.cold_sets(inputs) if nbytes > cs.L2_BYTES / 2 else [inputs]
+                ms = cs.time_ms(torch, {"k": lambda *a: fk.flash_attention(*a, **kw)}, sets)["k"]
+                del sets
+            out[f"{case} {dt}"] = [digest, ms]
+            del inputs, o
+    return out
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("other", type=Path, help="root of the other checkout")
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--json", type=Path, default=None, help="also write every run here")
+    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.worker:  # one side: print its results as the last line
+        print(json.dumps(worker(args.other.resolve())))
+        return 0
+
+    sides = {"other": args.other.resolve(), "this": HERE}
+    order = [s for r in range(args.rounds) for s in (("other", "this") if r % 2 == 0 else ("this", "other"))]
+    runs = []
+    for side in order:
+        p = subprocess.run([sys.executable, __file__, "--worker", str(sides[side])],
+                           capture_output=True, text=True, check=True)
+        runs.append((side, json.loads(p.stdout.strip().splitlines()[-1])))
+    cases = list(runs[0][1])
+    differ = [c for c in cases if len({r[c][0] for _, r in runs}) != 1]
+    report = {"order": order, "cases": len(cases), "outputs_bit_equal": not differ, "differ": differ,
+              "ms": {c: {side: [r[c][1] for s, r in runs if s == side] for side in sides}
+                     for c in cases if runs[0][1][c][1] is not None}}
+    for c, t in report["ms"].items():
+        print(f"{c}: other {t['other']} this {t['this']}")
+    print(json.dumps({k: v for k, v in report.items() if k != "ms"}))
+    if args.json is not None:
+        args.json.write_text(json.dumps({"report": report, "runs": runs}, indent=1))
+    return 1 if differ else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
