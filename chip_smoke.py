@@ -93,13 +93,16 @@ Run from the root of a checkout.  Phases, each of which must pass:
               bit at k in {0, 1, L/2, L}
  11. train    after phase 10's models are freed: (a) the flash backward
               library's SASS holds HGMMA (wgmma) in each bf16 pass at every
-              head dim, and ptxas reports no spill (registers logged); the
-              two backward kernels (rmsnorm_bwd, flash_attention_bwd) against their
-              plain versions, bf16 and f32, two runs bit-equal, at the train
-              loop's shapes (rmsnorm 8192 rows of d = 4096, also 18432 and
-              1280; flash 4 x 2048 x 32/8 x 128 causal), whisper's 512 x 1500
-              cross-attention and small at every head dim, timed beside
-              their bound, plain version and library autograd call; (b)
+              head dim, and ptxas reports no spill in any instantiation of
+              either backward library (registers and shared memory logged);
+              the two backward kernels (rmsnorm_bwd, flash_attention_bwd)
+              against their plain versions, bf16 and f32, two runs
+              bit-equal, at the train loop's shapes (rmsnorm 8192 rows of d
+              = 4096, also 18432 and 1280; flash 4 x 2048 x 32/8 x 128
+              causal), whisper's 512 x 1500 cross-attention and small at
+              every head dim, timed beside their bound, plain version and
+              library autograd call, with their time by launch from a
+              torch.profiler trace; (b)
               gradient parity of granite-8b at full width cut to 2 layers,
               one 512-token sequence, fan-in weights: f32 every leaf
               within 3e-5 of its scale, bf16 within 1.05x the plain path's
@@ -112,7 +115,8 @@ Run from the root of a checkout.  Phases, each of which must pass:
               recompute, flash_attention_bwd L, rmsnorm_bwd 2L+1) and a
               falling loss, a run checkpointed at step 6 and a run resumed
               from it, whose losses equal the unbroken run's bit for bit;
-              (d) torch.profiler over one more step
+              (d) torch.profiler over one more step (also the backward
+              kernels' time by launch within it)
 
 It prints one JSON ``kernels`` line and the card's name and power limit before
 its last line, which is ``{"ok": true, "device": {...}}``.  It exits non-zero,
@@ -1607,18 +1611,21 @@ def bwd_library_call(torch, name: str, kw):
 
 # the bf16 backward's wgmma kernels, one per pass and head dim
 BWD_SM90 = [f"flash_bwd_{p}_sm90ILi{d}E" for p in ("dkv", "dq") for d in (16, 32, 64, 80, 96, 128, 192)]
+# the f32 backward's FMA kernel (both passes, one launch), one per head dim
+BWD_FMA = [f"flash_bwd_fmaILi{d}E" for d in (16, 32, 64, 80, 96, 128, 192)]
+# rmsnorm_bwd's rows kernel per dtype: the ring at 1, 2 and 4 rows a step and
+# the scalar path; and its column sum
+RMS_BWD = [f"rmsnorm_bwd_rowsI{t}Li{v}ELb1ELi{r}EE" for t, v in (("f", 4), ("13__nv_bfloat16", 8))
+           for r in (1, 2, 4)] + [
+    "rmsnorm_bwd_rowsIfLi1ELb0ELi1EE", "rmsnorm_bwd_rowsI13__nv_bfloat16Li1ELb0ELi1EE",
+    "rmsnorm_bwd_colsumIfE", "rmsnorm_bwd_colsumI13__nv_bfloat16E"]
 
 
-def bwd_build_report() -> dict:
-    """The flash backward library as built: every bf16 pass at every head
-    dim must hold HGMMA (wgmma) in its SASS and spill nothing; the
-    registers, stack and spills of each instantiation from ptxas -v, and
-    whether ptxas serialized its wgmma (its C7520 note)."""
+def _ptxas_report(log_text: str) -> dict:
+    """Mangled kernel name -> registers, static shared bytes, stack and
+    spills, from ptxas -v."""
     import re
 
-    from repro_torch.kernels import _build
-
-    lib, log_text = _build.lib_path("flash_attention_bwd"), _build.log_path("flash_attention_bwd").read_text()
     kernels, name = {}, None
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -1627,12 +1634,42 @@ def bwd_build_report() -> dict:
             kernels[name] = {}
         elif name and (m := re.search(r"Used (\d+) registers", line)):
             kernels[name]["registers"] = int(m.group(1))
+            if sm := re.search(r"(\d+) bytes smem", line):
+                kernels[name]["static_smem"] = int(sm.group(1))
         elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)):
             kernels[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+    return kernels
+
+
+def bwd_build_report() -> dict:
+    """Both backward libraries as built: every bf16 flash pass at every head
+    dim must hold HGMMA (wgmma) in its SASS; every instantiation of both
+    libraries (the bf16 passes, the f32 FMA kernel at every head dim,
+    rmsnorm_bwd's rows and column-sum kernels) must be there and spill
+    nothing.  Logged per instantiation: ptxas's registers, static shared
+    memory, stack and spills, the f32 kernel's dynamic shared memory, and
+    whether ptxas serialized a kernel's wgmma (its C7520 note)."""
+    import ctypes
+    import re
+
+    from repro_torch.kernels import _build
+
+    kernels, wanted = {}, {}
+    for lib_name, want in (("flash_attention_bwd", BWD_SM90 + BWD_FMA), ("rmsnorm_bwd", RMS_BWD)):
+        found = _ptxas_report(_build.log_path(lib_name).read_text())
+        for w in want:
+            hits = [k for k in found if w in k]
+            check(len(hits) == 1, f"{lib_name}: no single ptxas report of {w}: {hits}")
+            wanted[hits[0]] = w
+        kernels.update(found)
+    for k, v in kernels.items():
+        check("registers" in v and v.get("spill_stores", 0) == 0 and v.get("spill_loads", 0) == 0,
+              f"backward kernel {k} spills registers: {v}")
+    log_text = _build.log_path("flash_attention_bwd").read_text()
     serialized = set(re.findall(r"wgmma.mma_async instructions are serialized.* in the function '(\S+)'", log_text))
     cuobjdump = str(Path(_build._nvcc()).parent / "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True, check=True,
-                          timeout=300).stdout
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.lib_path("flash_attention_bwd"))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
     hgmma, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -1643,17 +1680,42 @@ def bwd_build_report() -> dict:
     for want in BWD_SM90:
         got = [f for f in hgmma if want in f]
         check(len(got) == 1 and hgmma[got[0]] > 0, f"flash backward: {want} has no HGMMA in its SASS: {got}")
-        reg = [v for k, v in kernels.items() if want in k]
-        check(len(reg) == 1, f"flash backward: no ptxas report of {want}")
-        check(reg[0].get("spill_stores", 0) == 0 and reg[0].get("spill_loads", 0) == 0,
-              f"flash backward: {want} spills registers: {reg[0]}")
-    rows = {}  # short name (flash_bwd_dkv_sm90<Li128>) -> ptxas's report, + HGMMA count
+    smem_of = _build.function("flash_attention_bwd", "flash_attention_bwd_f32_smem", [ctypes.c_int])
+    rows = {}  # short name (flash_bwd_fma<Li128>) -> ptxas's report, + HGMMA count
     for k, v in kernels.items():
-        m = re.search(r"(flash_bwd_[a-z0-9_]+?)I(\w+?)E", k)
-        rows[f"{m.group(1)}<{m.group(2)}>" if m else k] = {
-            **v, "hgmma": next((n for f, n in hgmma.items() if k in f), 0), "wgmma_serialized": k in serialized}
-    log("[train] flash backward SASS and ptxas " + json.dumps(rows))
+        m = re.search(r"(flash_bwd_[a-z0-9_]+?|rmsnorm_bwd_(?:rows|colsum))I(\w+?)E(?:v|E)", k)
+        short = f"{m.group(1)}<{m.group(2)}>" if m else k
+        row = {**v, "hgmma": next((n for f, n in hgmma.items() if k in f), 0),
+               "wgmma_serialized": k in serialized}
+        if (d := re.fullmatch(r"flash_bwd_fmaILi(\d+)E", wanted.get(k, ""))):
+            row["dynamic_smem"] = smem_of(int(d.group(1)))
+        rows[short] = row
+    log("[train] backward kernels' SASS and ptxas " + json.dumps(rows))
     return rows
+
+
+def _bwd_kernel_ms(kernels: list) -> dict:
+    """Short backward-kernel name -> mean device ms of its launches in
+    _traced's kernels.  The mean is over the launches the trace holds: late
+    in a long process the profiler has been seen to record only some of a
+    short window's launches.  rmsnorm_bwd's column sum is a programmatic
+    dependent launch, so its span includes its wait for the rows kernel."""
+    import re
+
+    tot = {}
+    for us, key, n in kernels:
+        if m := re.search(r"((?:flash|rmsnorm)_bwd_[a-z0-9_]+)", key):
+            t = tot.setdefault(m.group(1), [0.0, 0])
+            t[0] += us
+            t[1] += n
+    return {k: us / (n * 1e3) for k, (us, n) in tot.items()}
+
+
+def launch_split(torch, fn, iters: int = 10) -> dict:
+    """Device ms per launch of each kernel that ``fn()`` launches, from a
+    torch.profiler trace of ``iters`` calls (short kernel name -> ms)."""
+    kernels, _, _ = _traced(torch, lambda: [fn() for _ in range(iters)], iters, None, "")
+    return _bwd_kernel_ms(kernels)
 
 
 def phase_bwd_kernels(torch, ops, ref) -> dict:
@@ -1699,6 +1761,13 @@ def phase_bwd_kernels(torch, ops, ref) -> dict:
                            library_ms=times["library"] - times["library_fwd"],
                            library_fwd_bwd_ms=times["library"], bytes=nbytes, flops=flops, iters=iters)
                 row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dt)
+                # the time by launch: flash's delta and passes, rmsnorm's rows and column sum
+                row["launch_ms"] = launch_split(torch, lambda: kernel_fn[name](*inputs, **kw))
+                if name == "rmsnorm_bwd":
+                    x = inputs[0]
+                    row["plan"] = rk.bwd_plan(x.numel() // x.shape[-1], x.shape[-1], x.element_size(), True)
+                    if "rmsnorm_bwd_rows" in row["launch_ms"]:  # the column sum's own share of a call
+                        row["colsum_own_ms"] = row["ms"] - row["launch_ms"]["rmsnorm_bwd_rows"]
                 results[(name, dt) if tag == "main" else (name, dt, tag)] = row
             log("[train] kernels " + json.dumps(row))
             del inputs, got, again, want
@@ -1894,6 +1963,7 @@ def phase_train_loop(torch, np, ops, TF, base_cfg, train_cli, opt_mod, step_mod,
     kernels, prof_ms, host = _traced(torch, one_step, 1, log_dir, "train_step_trace.json")
     device_ms = sum(k[0] for k in kernels) / 1e3
     check(device_ms > 0, "train profile: no device time recorded")
+    bwd_split = _bwd_kernel_ms(kernels)  # the backward kernels by launch, at 11a's main shapes
     del state, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -1918,7 +1988,7 @@ def phase_train_loop(torch, np, ops, TF, base_cfg, train_cli, opt_mod, step_mod,
         "model_flops_share_of_989": model_flops / (med_ms / 1e3) / PEAK_FLOPS["bf16"],
         "peak_mem_gib": peak_gib, "wall_s_unbroken": wall_a, "wall_s_to_checkpoint": b_s,
         "wall_s_resumed": c_s, "resumed_from": t["ckpt_at"], "resumed_losses_equal": True,
-        "profile": {"device_ms": device_ms, "profiled_wall_ms": prof_ms,
+        "profile": {"device_ms": device_ms, "profiled_wall_ms": prof_ms, "bwd_launch_ms": bwd_split,
                     "device_busy_share": device_ms / med_ms, "kernels_launched": sum(n for *_, n in kernels),
                     "host_launch_calls": host["launch_calls"],
                     "top_kernels_ms": [[k[:90], round(us / 1e3, 5), n] for us, k, n in kernels[:14]]},

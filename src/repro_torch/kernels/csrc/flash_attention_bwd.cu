@@ -14,8 +14,8 @@
 // log-sum-exp that the forward kept (lse, f32 (B, H, ls), log2 domain).
 //
 // Bound on the H100: operations, 2.5x the forward's (5 products of 2 D per
-// query-key pair), half of them masked when causal.  Three launches, no
-// atomics anywhere, so two runs give the same bits (the train loop's resume
+// query-key pair), half of them masked when causal.  Three launches (two in
+// f32), no atomics anywhere, so two runs give the same bits (the train loop's resume
 // is checked bit for bit):
 //
 // * flash_bwd_delta (both dtypes): delta = rowsum(dO * O) into an f32 (B, H,
@@ -48,12 +48,21 @@
 // swizzle modes); TMA zero-fills rows past Sq and Sk, and the tiles that
 // cross the diagonal or a tail are masked explicitly.
 //
-// * f32: flash_bwd_dq_fma and flash_bwd_dkv_fma, f32 FMAs from shared memory
-//   (f32 must hold 3e-5, which rules out TF32 and bf16 tensor cores).  The
-//   dQ pass is one 128-thread CTA per (64-row q-block, head, sequence) over
-//   32-row K/V tiles; the dK/dV pass one per (32-row k-block, KV head,
-//   sequence) over the group's 64-row q-tiles; rows padded by one float
-//   (bank spread); 153 and 162 KB of shared memory at D = 192.
+// * f32, flash_bwd_fma: f32 FMAs only (f32 must hold 3e-5, which rules out
+//   TF32 and the bf16 tensor cores), both passes as the CTAs of one launch
+//   (256 threads), the heavier kind first so that a short grid such as
+//   whisper's 160 dQ CTAs fills the card: dQ CTAs per (64-row q-block, head,
+//   sequence) over K/V tiles and dK/dV CTAs per (64-key block, KV head,
+//   sequence) over the group's Q/dO tiles, 64 rows each (128 at D <= 64, 32
+//   for Q/dO at D = 192).  Warps 0-3 compute S (or S^T) while warps 4-7
+//   compute dP (or dP^T) beside them; P and dS meet in shared memory; dQ
+//   runs on all 8 warps, dK on warps 0-3 beside dV on warps 4-7.  Every
+//   product is register-tiled (8 x 8 outputs a thread for dK and dV at D =
+//   128, 4 x 8 for S, dP and dQ) from rows padded by 4 floats, read as
+//   float4 with the reduction index innermost (S, dP) or outermost (dQ, dK,
+//   dV), free of bank conflicts; D = 80 runs 96 wide on zero columns.  The
+//   streamed tiles ride a cp.async ring, 2 stages where shared memory
+//   allows; no float atomics.
 //
 // Head dims 16, 32, 64, 80, 96, 128 and 192 are instantiated; the wrapper
 // zero-pads D = 24 to 32, as the forward's does.
@@ -526,310 +535,479 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 }  // namespace sm90
 
 // ---------------------------------------------------------------------------
-// f32: FMAs from shared memory
+// f32: register-tiled FMA products on a cp.async ring
 // ---------------------------------------------------------------------------
 namespace simt {
 
-constexpr int kThreads = 128;
-constexpr int BQ = 64;   // dQ pass: query rows per CTA
-constexpr int BK = 32;   // dQ pass: key rows per K/V tile
-constexpr int BKV = 32;  // dK/dV pass: key rows per CTA
-constexpr int BQ2 = 64;  // dK/dV pass: query rows per Q/dO tile
+constexpr int kThreads = 256;
 
-template <int D>
-constexpr size_t dq_smem_floats() {
-  return 2 * BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1);
+// 16 bytes from global into shared memory, asynchronously (cp.async.cg);
+// zeros where !valid (src is then not read).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(hp::smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
 }
 
-template <int D>
-constexpr size_t dkv_smem_floats() {
-  return 2 * BKV * (D + 1) + 2 * BQ2 * (D + 1) + 2 * BKV * (BQ2 + 1) + 2 * BQ2;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
-// rows [r0, r0 + rows) of a (S, heads, D) slab at `base` (stride `stride`
-// between positions) into smem rows of DP floats; rows past S are zero
-template <int D, int DP>
-__device__ __forceinline__ void stage(float* dst, const float* base, size_t stride, int r0, int rows,
-                                      int S) {
-  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
-    const int r = i / D, c = i % D, s = r0 + r;
-    dst[r * DP + c] = s < S ? base[s * stride + c] : 0.f;
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + R) of a (S, stride) slab of D-float rows into shared rows
+// LD floats apart, by all threads in 16-byte copies; rows past S are zeros.
+template <int R, int D, int LD>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, size_t stride, int r0,
+                                          int S) {
+  constexpr int CPR = D / 4;  // 16-byte copies per row
+  for (int c = threadIdx.x; c < R * CPR; c += kThreads) {
+    const int r = c / CPR, x = c % CPR;
+    const bool in = r0 + r < S;
+    cp_async16(dst + r * LD + 4 * x, src + (in ? static_cast<size_t>(r0 + r) * stride : 0) + 4 * x,
+               in);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_fma(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
-                     const float* __restrict__ lse_in, const float* __restrict__ delta_in, int ls,
-                     float* __restrict__ dq, int Sq, int Sk, int H, int KV, float scale,
-                     float scale_log2, int causal) {
-  constexpr int DP = D + 1;
-  constexpr int BKP = BK + 1;
-  constexpr int DC = D / 8;   // dQ columns per thread
-  constexpr int NJ = BK / 8;  // key columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;            // BQ x DP
-  float* dOs = Qs + BQ * DP;   // BQ x DP
-  float* Ks = dOs + BQ * DP;   // BK x DP
-  float* Vs = Ks + BK * DP;    // BK x DP
-  float* dSs = Vs + BK * DP;   // BQ x BKP
+// Zeros columns [D, DC) of `rows` shared rows LD floats apart (the products
+// run DC wide; no copy writes there).
+template <int D, int DC, int LD>
+__device__ __forceinline__ void zero_pad(float* rows_base, int rows) {
+  if constexpr (DC > D)
+    for (int i = threadIdx.x; i < rows * (DC - D); i += kThreads)
+      rows_base[(i / (DC - D)) * LD + D + i % (DC - D)] = 0.f;
+}
 
-  const int qb = gridDim.x - 1 - blockIdx.x;  // long causal rows first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+__device__ __forceinline__ float lane4(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// The place of thread t (of NT) in a product's RG x CG thread grid: each
+// warp an 8 x 4 block of it, so that a warp's loads of A touch 8 rows and
+// those of B 4 rows (or 4 consecutive float4 columns).
+template <int RG, int CG, int NT>
+__device__ __forceinline__ int2 grid_pos(int t) {
+  static_assert(RG * CG == NT && RG % 8 == 0 && CG % 4 == 0, "8 x 4 warp blocks");
+  const int w = t / 32, l = t % 32;
+  return make_int2((w / (CG / 4)) * 8 + l / 4, (w % (CG / 4)) * 4 + l % 4);
+}
+
+// c[i][j] += sum_k A[(rg + RG i) LDA + k] B[(cg + CG j) LDB + k], k < K: both
+// operands k-inner in shared memory, read as float4 along k (TM + TN 16-byte
+// loads for 4 TM TN FMAs).
+template <int TM, int TN, int RG, int CG, int K, int LDA, int LDB>
+__device__ __forceinline__ void mma_nt(float (&c)[TM][TN], const float* A, const float* B, int2 p) {
+  const float* a0 = A + p.x * LDA;
+  const float* b0 = B + p.y * LDB;
+#pragma unroll 2
+  for (int k = 0; k < K; k += 4) {
+    float4 a[TM], b[TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) a[i] = *reinterpret_cast<const float4*>(a0 + i * RG * LDA + k);
+#pragma unroll
+    for (int j = 0; j < TN; ++j) b[j] = *reinterpret_cast<const float4*>(b0 + j * CG * LDB + k);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        c[i][j] = fmaf(a[i].x, b[j].x, c[i][j]);
+        c[i][j] = fmaf(a[i].y, b[j].y, c[i][j]);
+        c[i][j] = fmaf(a[i].z, b[j].z, c[i][j]);
+        c[i][j] = fmaf(a[i].w, b[j].w, c[i][j]);
+      }
+  }
+}
+
+// c[i][4f + e] += sum_k A[(rg + RG i) LDA + k] B[k LDB + 4 (cg + CG f) + e],
+// k < K: A k-inner (float4 along k), B k-outer (float4 along its columns).
+template <int TM, int TF, int RG, int CG, int K, int LDA, int LDB>
+__device__ __forceinline__ void mma_nn(float (&c)[TM][4 * TF], const float* A, const float* B,
+                                       int2 p) {
+  const float* a0 = A + p.x * LDA;
+  const float* b0 = B + 4 * p.y;
+#pragma unroll 2
+  for (int k = 0; k < K; k += 4) {
+    float4 a[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) a[i] = *reinterpret_cast<const float4*>(a0 + i * RG * LDA + k);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float4 b[TF];
+#pragma unroll
+      for (int f = 0; f < TF; ++f)
+        b[f] = *reinterpret_cast<const float4*>(b0 + (k + e) * LDB + 4 * CG * f);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float av = lane4(a[i], e);
+#pragma unroll
+        for (int f = 0; f < TF; ++f) {
+          c[i][4 * f + 0] = fmaf(av, b[f].x, c[i][4 * f + 0]);
+          c[i][4 * f + 1] = fmaf(av, b[f].y, c[i][4 * f + 1]);
+          c[i][4 * f + 2] = fmaf(av, b[f].z, c[i][4 * f + 2]);
+          c[i][4 * f + 3] = fmaf(av, b[f].w, c[i][4 * f + 3]);
+        }
+      }
+    }
+  }
+}
+
+// Rows [row0, row0 + 64) of a D-wide product's accumulator (grid RG x CG, as
+// mma_nn lays it out) times `mul` into a (rows, stride) f32 array; rows past
+// `rows` and columns past D are not written.
+template <int D, int TM, int TF, int RG, int CG>
+__device__ __forceinline__ void store_acc(const float (&c)[TM][4 * TF], float mul, float* out,
+                                          size_t stride, int row0, int rows, int2 p) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = row0 + p.x + RG * i;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int f = 0; f < TF; ++f) {
+      const int col = 4 * (p.y + CG * f);
+      if (col < D)
+        *reinterpret_cast<float4*>(out + static_cast<size_t>(r) * stride + col) =
+            make_float4(c[i][4 * f] * mul, c[i][4 * f + 1] * mul, c[i][4 * f + 2] * mul,
+                        c[i][4 * f + 3] * mul);
+    }
+  }
+}
+
+// A D-wide product (64 rows x DC columns as float4 columns) over NT threads:
+// CG column groups of TF float4 columns, RG row groups of TM rows.
+template <int DC, int NT>
+struct Wide {
+  static constexpr int F = DC / 4;
+  static constexpr int CG = F % 16 == 0 ? 16 : F % 8 == 0 ? 8 : 4;
+  static constexpr int RG = NT / CG;
+  static constexpr int TM = 64 / RG, TF = F / CG;
+  static_assert(F % CG == 0 && 64 % RG == 0, "D-wide product grid");
+};
+
+// S and dP (dQ CTA), S^T and dP^T (dK/dV CTA): 64 rows x BC columns on 128
+// threads (warps 0-3 one product, warps 4-7 the other), TM x TN a thread.
+template <int BC>
+struct SGrid {
+  static constexpr int TM = BC == 128 ? 8 : 4;
+  static constexpr int RG = 64 / TM, CG = 128 / RG, TN = BC / CG;
+};
+
+template <int D>
+struct Fma {
+  static constexpr int DC = D == 80 ? 96 : D;  // the products' width (D = 80 as 96, zeros)
+  static constexpr int LD = DC + 4;            // shared row stride: rows 4 banks apart
+  static constexpr int BQ = 64;                // dQ CTA: query rows
+  static constexpr int BK = D <= 64 ? 128 : 64;  // dQ CTA: keys per K/V tile
+  static constexpr int BKV = 64;               // dK/dV CTA: keys
+  // dK/dV CTA: query rows per Q/dO tile
+  static constexpr int BQ2 = D <= 64 ? 128 : D > 128 ? 32 : 64;
+  static constexpr int LDS_ = BK + 4;          // P and dS rows (dQ CTA)
+  static constexpr int LDP = BQ2 + 4;          // P^T and dS^T rows (dK/dV CTA)
+  static constexpr int kBudget = 227 * 1024;
+  static constexpr int dq_floats(int ns) { return 2 * BQ * LD + 2 * ns * BK * LD + BQ * LDS_; }
+  static constexpr int dkv_floats(int ns) {
+    return 2 * BKV * LD + 2 * ns * BQ2 * LD + 2 * BKV * LDP + 2 * ns * BQ2;
+  }
+  static constexpr int NS_DQ = dq_floats(2) * 4 <= kBudget ? 2 : 1;    // K/V ring depth
+  static constexpr int NS_DKV = dkv_floats(2) * 4 <= kBudget ? 2 : 1;  // Q/dO ring depth
+  static constexpr int SMEM =
+      4 * (dq_floats(NS_DQ) > dkv_floats(NS_DKV) ? dq_floats(NS_DQ) : dkv_floats(NS_DKV));
+  static_assert(dq_floats(1) * 4 <= kBudget && dkv_floats(1) * 4 <= kBudget, "shared memory");
+  using Q = Wide<DC, kThreads>;      // dQ: all 256 threads
+  using KV = Wide<DC, kThreads / 2>;  // dK (warps 0-3) and dV (warps 4-7) side by side
+  using SQ = SGrid<BK>;               // S and dP
+  using SKV = SGrid<BQ2>;             // S^T and dP^T
+};
+
+// One tile of a ring: the whole CTA waits for it.  Tile j is in slot j % NS;
+// tile j + NS - 1 is loaded (`load`) once every thread is past tile j - 1.
+template <int NS, typename Load>
+__device__ __forceinline__ void ring_next(int j, Load load) {
+  __syncthreads();  // every thread is past tile j - 1: its slot is free
+  load(j + NS - 1);
+  cp_async_commit();
+  cp_async_wait<NS - 1>();
+  __syncthreads();  // tile j is in
+}
+
+// dQ of one (64-row q-block, head, sequence): Q and dO staged once, K and V
+// tiles of BK keys on a ring of NS_DQ stages; the causal kv loop stops at
+// the diagonal.  Per tile: S = Q K^T on warps 0-3 and dP = dO V^T on warps
+// 4-7 side by side, P into shared memory, dS = P (dP - delta) over it, then
+// dQ += dS K on all warps.
+template <int D>
+__device__ __forceinline__ void dq_block(const float* q, const float* k, const float* v,
+                                         const float* dout, const float* lse, const float* delta,
+                                         int ls, float* dq, int B, int Sq, int Sk, int H, int KV,
+                                         float scale, float scale_log2, int causal, int idx,
+                                         float* smem) {
+  using C = Fma<D>;
+  using W = typename C::Q;
+  using G = typename C::SQ;
+  constexpr int LD = C::LD, BQ = C::BQ, BK = C::BK, NS = C::NS_DQ;
+  float* Qs = smem;
+  float* dOs = Qs + BQ * LD;
+  float* Ks = dOs + BQ * LD;  // stage s: K at Ks + 2 s BK LD, V right after it
+  float* Ps = Ks + 2 * NS * BK * LD;
+
+  const int b = idx % B;
+  idx /= B;
+  const int h = idx % H;
+  const int qb = (Sq + BQ - 1) / BQ - 1 - idx / H;  // long causal rows first
   const int kvh = h / (H / KV);
   const int q0 = qb * BQ;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 3;  // rows ty*4 .. ty*4+3
-  const int tx = tid & 7;   // key columns tx + 8j, dQ columns tx + 8c
-
-  const size_t q_stride = static_cast<size_t>(H) * D;
-  const size_t kv_stride = static_cast<size_t>(KV) * D;
+  const size_t q_stride = static_cast<size_t>(H) * D, kv_stride = static_cast<size_t>(KV) * D;
   const size_t q_off = (static_cast<size_t>(b) * Sq * H + h) * D;
   const size_t kv_off = (static_cast<size_t>(b) * Sk * KV + kvh) * D;
-  const size_t stat_off = (static_cast<size_t>(b) * H + h) * ls;
+  const int kv_end = causal ? min(Sk, q0 + BQ) : Sk;
+  const int n_tiles = (kv_end + BK - 1) / BK;
 
-  stage<D, DP>(Qs, q + q_off, q_stride, q0, BQ, Sq);
-  stage<D, DP>(dOs, dout + q_off, q_stride, q0, BQ, Sq);
-  float lse[4], delta[4];  // +inf for a row past Sq or with no valid key: its P is 0
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = q0 + ty * 4 + i;
-    lse[i] = s < Sq ? lse_in[stat_off + s] : INFINITY;
-    delta[i] = s < Sq ? delta_in[stat_off + s] : 0.f;
+  zero_pad<D, C::DC, LD>(Qs, 2 * BQ + 2 * NS * BK);  // Q, dO and the K, V stages
+  load_rows<BQ, D, LD>(Qs, q + q_off, q_stride, q0, Sq);
+  load_rows<BQ, D, LD>(dOs, dout + q_off, q_stride, q0, Sq);
+  cp_async_commit();
+  auto load_kv = [&](int j) {
+    if (j < n_tiles) {
+      float* st = Ks + 2 * (j % NS) * BK * LD;
+      load_rows<BK, D, LD>(st, k + kv_off, kv_stride, j * BK, Sk);
+      load_rows<BK, D, LD>(st + BK * LD, v + kv_off, kv_stride, j * BK, Sk);
+    }
+  };
+  for (int t = 0; t + 1 < NS; ++t) {
+    load_kv(t);
+    cp_async_commit();
   }
 
-  const int kv_end = causal ? min(Sk, q0 + BQ) : Sk;
-  float acc[4][DC];
+  const bool s_warps = threadIdx.x < kThreads / 2;  // S (and P) here, dP (and dS) on the rest
+  // S, dP: rows ps.x + RG i, keys ps.y + CG j
+  const int2 ps = grid_pos<G::RG, G::CG, kThreads / 2>(threadIdx.x % (kThreads / 2));
+  const int2 po = grid_pos<W::RG, W::CG, kThreads>(threadIdx.x);
+  float stat[G::TM];  // S warps: each row's lse (+inf past Sq: P = 0); dP warps: its delta
+  const size_t st = (static_cast<size_t>(b) * H + h) * ls;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < G::TM; ++i) {
+    const int qpos = q0 + ps.x + G::RG * i;
+    stat[i] = qpos >= Sq ? (s_warps ? INFINITY : 0.f) : (s_warps ? lse : delta)[st + qpos];
+  }
+  float acc[W::TM][4 * W::TF];
 #pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done (and Q, dO are staged)
-    stage<D, DP>(Ks, k + kv_off, kv_stride, k0, BK, Sk);
-    stage<D, DP>(Vs, v + kv_off, kv_stride, k0, BK, Sk);
-    __syncthreads();
-    float sc[4][NJ], dp[4][NJ];
+  for (int i = 0; i < W::TM; ++i)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int c = 0; c < 4 * W::TF; ++c) acc[i][c] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    ring_next<NS>(j, load_kv);
+    const float* Kt = Ks + 2 * (j % NS) * BK * LD;
+    float sp[G::TM][G::TN];  // S (warps 0-3) or dP (warps 4-7)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) sc[i][j] = dp[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], gv[4], kv[NJ], vv[NJ];
+    for (int i = 0; i < G::TM; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(ty * 4 + i) * DP + d];
-        gv[i] = dOs[(ty * 4 + i) * DP + d];
+      for (int c = 0; c < G::TN; ++c) sp[i][c] = 0.f;
+    if (s_warps) {
+      mma_nt<G::TM, G::TN, G::RG, G::CG, C::DC, LD, LD>(sp, Qs, Kt, ps);
+      const int k0 = j * BK;
+#pragma unroll
+      for (int i = 0; i < G::TM; ++i) {
+        const int qpos = q0 + ps.x + G::RG * i;
+#pragma unroll
+        for (int c = 0; c < G::TN; ++c) {
+          const int kpos = k0 + ps.y + G::CG * c;
+          const bool ok = kpos < Sk && (!causal || kpos <= qpos);
+          Ps[(ps.x + G::RG * i) * C::LDS_ + ps.y + G::CG * c] =
+              ok ? exp2f(sp[i][c] * scale_log2 - stat[i]) : 0.f;
+        }
       }
+    } else {
+      mma_nt<G::TM, G::TN, G::RG, G::CG, C::DC, LD, LD>(sp, dOs, Kt + BK * LD, ps);
+    }
+    __syncthreads();  // P is written
+    if (!s_warps) {
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        kv[j] = Ks[(tx + 8 * j) * DP + d];
-        vv[j] = Vs[(tx + 8 * j) * DP + d];
-      }
+      for (int i = 0; i < G::TM; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-          dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
+        for (int c = 0; c < G::TN; ++c) {
+          float* x = Ps + (ps.x + G::RG * i) * C::LDS_ + ps.y + G::CG * c;
+          *x = *x * (sp[i][c] - stat[i]);  // dS over P
         }
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int kpos = k0 + tx + 8 * j;
-        const bool ok = kpos < Sk && (!causal || kpos <= qpos);
-        const float p = ok ? exp2f(sc[i][j] * scale_log2 - lse[i]) : 0.f;
-        dSs[(ty * 4 + i) * BKP + tx + 8 * j] = p * (dp[i][j] - delta[i]);
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float sv[4], kv[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sv[i] = dSs[(ty * 4 + i) * BKP + kk];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) kv[c] = Ks[kk * DP + tx + 8 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(sv[i], kv[c], acc[i][c]);
-    }
+    __syncthreads();  // dS is written
+    mma_nn<W::TM, W::TF, W::RG, W::CG, BK, C::LDS_, LD>(acc, Ps, Kt, po);
   }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty * 4 + i;
-    if (qpos < Sq) {
-      float* drow = dq + q_off + qpos * q_stride;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) drow[tx + 8 * c] = acc[i][c] * scale;
-    }
-  }
+  cp_async_wait<0>();
+  store_acc<D, W::TM, W::TF, W::RG, W::CG>(acc, scale, dq + q_off, q_stride, q0, Sq, po);
 }
 
+// dK and dV of one (64-key block, KV head, sequence): K and V staged once,
+// the group's (query head, q-tile) pairs streamed head-major through a ring
+// of NS_DKV stages of Q and dO with their lse and delta slices, from the
+// causal diagonal on.  Per tile: S^T = K Q^T on warps 0-3 and dP^T = V dO^T
+// on warps 4-7 side by side, P^T into shared memory, dS^T = P^T (dP^T -
+// delta) beside it, then dK += dS^T Q on warps 0-3 and dV += P^T dO on
+// warps 4-7 side by side; the GQA sum stays in registers in a fixed order.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_fma(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ dout,
-                      const float* __restrict__ lse_in, const float* __restrict__ delta_in, int ls,
-                      float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int H, int KV,
-                      float scale, float scale_log2, int causal) {
-  constexpr int DP = D + 1;
-  constexpr int BQP = BQ2 + 1;
-  constexpr int DC = D / 16;   // dK/dV columns per thread
-  constexpr int NJ = BQ2 / 16; // query columns per thread
-  extern __shared__ float smem[];
-  float* Ks = smem;             // BKV x DP
-  float* Vs = Ks + BKV * DP;    // BKV x DP
-  float* Qs = Vs + BKV * DP;    // BQ2 x DP
-  float* dOs = Qs + BQ2 * DP;   // BQ2 x DP
-  float* Ps = dOs + BQ2 * DP;   // BKV x BQP
-  float* dSs = Ps + BKV * BQP;  // BKV x BQP
-  float* Ls = dSs + BKV * BQP;  // BQ2
-  float* Ds = Ls + BQ2;         // BQ2
+__device__ __forceinline__ void dkv_block(const float* q, const float* k, const float* v,
+                                          const float* dout, const float* lse, const float* delta,
+                                          int ls, float* dk, float* dv, int B, int Sq, int Sk, int H,
+                                          int KV, float scale, float scale_log2, int causal, int idx,
+                                          float* smem) {
+  using C = Fma<D>;
+  using W = typename C::KV;
+  using G = typename C::SKV;
+  constexpr int LD = C::LD, BKV = C::BKV, BQ2 = C::BQ2, LDP = C::LDP, NS = C::NS_DKV;
+  float* Ks = smem;
+  float* Vs = Ks + BKV * LD;
+  float* Qs = Vs + BKV * LD;  // stage s: Q at Qs + 2 s BQ2 LD, dO right after it
+  float* Ps = Qs + 2 * NS * BQ2 * LD;
+  float* dSs = Ps + BKV * LDP;
+  float* Ls = dSs + BKV * LDP;  // stage s: lse at Ls + 2 s BQ2, delta right after it
 
-  const int k0 = blockIdx.x * BKV;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
+  const int b = idx % B;
+  idx /= B;
+  const int kvh = idx % KV;
+  const int k0 = (idx / KV) * BKV;  // the first key blocks see the most queries
   const int n_rep = H / KV;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;  // key rows ty*4 .. ty*4+3
-  const int tx = tid & 15;  // query columns tx + 16j, dK/dV columns tx + 16c
-
-  const size_t q_stride = static_cast<size_t>(H) * D;
-  const size_t kv_stride = static_cast<size_t>(KV) * D;
+  const size_t q_stride = static_cast<size_t>(H) * D, kv_stride = static_cast<size_t>(KV) * D;
   const size_t kv_off = (static_cast<size_t>(b) * Sk * KV + kvh) * D;
+  const int qt0 = causal ? k0 / BQ2 : 0;  // earlier q-tiles see none of these keys
+  const int nqt = max((Sq + BQ2 - 1) / BQ2 - qt0, 0);
+  const int n_tiles = n_rep * nqt;
 
-  stage<D, DP>(Ks, k + kv_off, kv_stride, k0, BKV, Sk);
-  stage<D, DP>(Vs, v + kv_off, kv_stride, k0, BKV, Sk);
-
-  float dka[4][DC], dva[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dka[i][c] = dva[i][c] = 0.f;
-
-  const int q_first = causal ? (k0 / BQ2) * BQ2 : 0;  // earlier q-blocks see none of these keys
-  for (int r = 0; r < n_rep; ++r) {
-    const int h = kvh * n_rep + r;
-    const size_t q_off = (static_cast<size_t>(b) * Sq * H + h) * D;
-    const size_t stat_off = (static_cast<size_t>(b) * H + h) * ls;
-    for (int q0 = q_first; q0 < Sq; q0 += BQ2) {
-      __syncthreads();  // the previous tile's readers are done (and K, V are staged)
-      stage<D, DP>(Qs, q + q_off, q_stride, q0, BQ2, Sq);
-      stage<D, DP>(dOs, dout + q_off, q_stride, q0, BQ2, Sq);
-      for (int i = tid; i < BQ2; i += kThreads) {
-        const int s = q0 + i;
-        Ls[i] = s < Sq ? lse_in[stat_off + s] : INFINITY;
-        Ds[i] = s < Sq ? delta_in[stat_off + s] : 0.f;
+  zero_pad<D, C::DC, LD>(Ks, 2 * BKV + 2 * NS * BQ2);
+  load_rows<BKV, D, LD>(Ks, k + kv_off, kv_stride, k0, Sk);
+  load_rows<BKV, D, LD>(Vs, v + kv_off, kv_stride, k0, Sk);
+  cp_async_commit();
+  auto head = [&](int j) { return kvh * n_rep + j / nqt; };
+  auto q_start = [&](int j) { return (qt0 + j % nqt) * BQ2; };
+  auto load_q = [&](int j) {  // Q and dO of tile j with its lse and delta slices (q0 + BQ2 <= ls)
+    if (j < n_tiles) {
+      const int s = j % NS, q0 = q_start(j);
+      const size_t q_off = (static_cast<size_t>(b) * Sq * H + head(j)) * D;
+      load_rows<BQ2, D, LD>(Qs + 2 * s * BQ2 * LD, q + q_off, q_stride, q0, Sq);
+      load_rows<BQ2, D, LD>(Qs + (2 * s + 1) * BQ2 * LD, dout + q_off, q_stride, q0, Sq);
+      const size_t st = (static_cast<size_t>(b) * H + head(j)) * ls + q0;
+      for (int c = threadIdx.x; c < BQ2 / 2; c += kThreads) {
+        const int x = c % (BQ2 / 4);
+        cp_async16(Ls + (2 * s + (c < BQ2 / 4 ? 0 : 1)) * BQ2 + 4 * x,
+                   (c < BQ2 / 4 ? lse : delta) + st + 4 * x, true);
       }
-      __syncthreads();
+    }
+  };
+  for (int t = 0; t + 1 < NS; ++t) {
+    load_q(t);
+    cp_async_commit();
+  }
 
-      float st[4][NJ], dpt[4][NJ];  // S^T and dP^T: key rows x query columns
+  const bool s_warps = threadIdx.x < kThreads / 2;  // S^T, P^T and dK here; dP^T, dS^T and dV on the rest
+  const int half = threadIdx.x % (kThreads / 2);
+  const int2 ps = grid_pos<G::RG, G::CG, kThreads / 2>(half);  // keys ps.x + RG i, queries ps.y + CG j
+  const int2 po = grid_pos<W::RG, W::CG, kThreads / 2>(half);
+  float acc[W::TM][4 * W::TF];  // dK (warps 0-3) or dV (warps 4-7)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < W::TM; ++i)
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) st[i][j] = dpt[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float kv[4], vv[4], qv[NJ], gv[NJ];
+    for (int c = 0; c < 4 * W::TF; ++c) acc[i][c] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    ring_next<NS>(j, load_q);
+    const int s = j % NS, q0 = q_start(j);
+    const float* Qt = Qs + 2 * s * BQ2 * LD;
+    const float* dOt = Qt + BQ2 * LD;
+    const float* Lt = Ls + 2 * s * BQ2;
+    const float* Dt = Lt + BQ2;
+    float sp[G::TM][G::TN];  // S^T (warps 0-3) or dP^T (warps 4-7)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kv[i] = Ks[(ty * 4 + i) * DP + d];
-          vv[i] = Vs[(ty * 4 + i) * DP + d];
-        }
+    for (int i = 0; i < G::TM; ++i)
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          qv[j] = Qs[(tx + 16 * j) * DP + d];
-          gv[j] = dOs[(tx + 16 * j) * DP + d];
-        }
+      for (int c = 0; c < G::TN; ++c) sp[i][c] = 0.f;
+    if (s_warps) {
+      mma_nt<G::TM, G::TN, G::RG, G::CG, C::DC, LD, LD>(sp, Ks, Qt, ps);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < G::TM; ++i) {
+        const int kpos = k0 + ps.x + G::RG * i;
 #pragma unroll
-          for (int j = 0; j < NJ; ++j) {
-            st[i][j] = fmaf(kv[i], qv[j], st[i][j]);
-            dpt[i][j] = fmaf(vv[i], gv[j], dpt[i][j]);
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kpos = k0 + ty * 4 + i;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const int qc = tx + 16 * j, qpos = q0 + qc;
+        for (int c = 0; c < G::TN; ++c) {
+          const int qc = ps.y + G::CG * c, qpos = q0 + qc;
           const bool ok = kpos < Sk && qpos < Sq && (!causal || kpos <= qpos);
-          const float p = ok ? exp2f(st[i][j] * scale_log2 - Ls[qc]) : 0.f;
-          Ps[(ty * 4 + i) * BQP + qc] = p;
-          dSs[(ty * 4 + i) * BQP + qc] = p * (dpt[i][j] - Ds[qc]);
+          Ps[(ps.x + G::RG * i) * LDP + qc] = ok ? exp2f(sp[i][c] * scale_log2 - Lt[qc]) : 0.f;
         }
       }
-      __syncthreads();
-#pragma unroll 4
-      for (int qq = 0; qq < BQ2; ++qq) {
-        float pv[4], sv[4], gv[DC], qv[DC];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = Ps[(ty * 4 + i) * BQP + qq];
-          sv[i] = dSs[(ty * 4 + i) * BQP + qq];
-        }
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          gv[c] = dOs[qq * DP + tx + 16 * c];
-          qv[c] = Qs[qq * DP + tx + 16 * c];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < DC; ++c) {
-            dva[i][c] = fmaf(pv[i], gv[c], dva[i][c]);
-            dka[i][c] = fmaf(sv[i], qv[c], dka[i][c]);
-          }
-      }
+    } else {
+      mma_nt<G::TM, G::TN, G::RG, G::CG, C::DC, LD, LD>(sp, Vs, dOt, ps);
     }
+    __syncthreads();  // P^T is written
+    if (!s_warps) {
+#pragma unroll
+      for (int i = 0; i < G::TM; ++i)
+#pragma unroll
+        for (int c = 0; c < G::TN; ++c) {
+          const int at = (ps.x + G::RG * i) * LDP + ps.y + G::CG * c;
+          dSs[at] = Ps[at] * (sp[i][c] - Dt[ps.y + G::CG * c]);
+        }
+    }
+    __syncthreads();  // dS^T is written
+    if (s_warps)
+      mma_nn<W::TM, W::TF, W::RG, W::CG, BQ2, LDP, LD>(acc, dSs, Qt, po);
+    else
+      mma_nn<W::TM, W::TF, W::RG, W::CG, BQ2, LDP, LD>(acc, Ps, dOt, po);
   }
+  cp_async_wait<0>();
+  if (s_warps)
+    store_acc<D, W::TM, W::TF, W::RG, W::CG>(acc, scale, dk + kv_off, kv_stride, k0, Sk, po);
+  else
+    store_acc<D, W::TM, W::TF, W::RG, W::CG>(acc, 1.f, dv + kv_off, kv_stride, k0, Sk, po);
+}
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kpos = k0 + ty * 4 + i;
-    if (kpos < Sk) {
-      const size_t row = kv_off + kpos * kv_stride;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        dk[row + tx + 16 * c] = dka[i][c] * scale;
-        dv[row + tx + 16 * c] = dva[i][c];
-      }
-    }
-  }
+// One launch holds both passes' CTAs, the heavier kind first (n_dq dQ CTAs
+// and gridDim.x - n_dq dK/dV CTAs): whisper's cross-attention has 160 dQ
+// CTAs, which on their own would leave a second wave on 132 SMs.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_fma(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ delta, int ls,
+                  float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv, int B,
+                  int Sq, int Sk, int H, int KV, float scale, float scale_log2, int causal, int n_dq,
+                  int dq_first) {
+  extern __shared__ float4 smem_v4[];
+  float* smem = reinterpret_cast<float*>(smem_v4);
+  const int n_dkv = gridDim.x - n_dq;
+  const int idx = blockIdx.x;
+  if (dq_first ? idx < n_dq : idx >= n_dkv)
+    dq_block<D>(q, k, v, dout, lse, delta, ls, dq, B, Sq, Sk, H, KV, scale, scale_log2, causal,
+                dq_first ? idx : idx - n_dkv, smem);
+  else
+    dkv_block<D>(q, k, v, dout, lse, delta, ls, dk, dv, B, Sq, Sk, H, KV, scale, scale_log2, causal,
+                 dq_first ? idx - n_dq : idx, smem);
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                    const float* delta, int ls, void* dq, void* dk, void* dv, int B, int Sq, int Sk,
                    int H, int KV, float scale, int causal, int device, cudaStream_t stream) {
-  constexpr size_t smem_dq = dq_smem_floats<D>() * sizeof(float);
-  constexpr size_t smem_dkv = dkv_smem_floats<D>() * sizeof(float);
-  static rt::SmemOptIn optin_dq, optin_dkv;
-  cudaError_t err = optin_dq.ensure(flash_bwd_dq_fma<D>, device, smem_dq);
+  using C = Fma<D>;
+  static rt::SmemOptIn optin;
+  cudaError_t err = optin.ensure(flash_bwd_fma<D>, device, C::SMEM);
   if (err != cudaSuccess) return err;
-  if ((err = optin_dkv.ensure(flash_bwd_dkv_fma<D>, device, smem_dkv)) != cudaSuccess) return err;
-  const float sl = scale * 1.4426950408889634f;
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const float* dof = static_cast<const float*>(dout);
-  flash_bwd_dq_fma<D><<<dim3((Sq + BQ - 1) / BQ, H, B), kThreads, smem_dq, stream>>>(
-      qf, kf, vf, dof, lse, delta, ls, static_cast<float*>(dq), Sq, Sk, H, KV, scale, sl, causal);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  flash_bwd_dkv_fma<D><<<dim3((Sk + BKV - 1) / BKV, KV, B), kThreads, smem_dkv, stream>>>(
-      qf, kf, vf, dof, lse, delta, ls, static_cast<float*>(dk), static_cast<float*>(dv), Sq, Sk, H,
-      KV, scale, sl, causal);
+  for (const void* p : {q, k, v, dout, static_cast<const void*>(dq), static_cast<const void*>(dk),
+                        static_cast<const void*>(dv), static_cast<const void*>(lse),
+                        static_cast<const void*>(delta)})
+    if (!rt::aligned16(p)) return cudaErrorMisalignedAddress;
+  if (ls % C::BQ2 != 0) return cudaErrorInvalidValue;  // the ring's lse/delta slices stay in the row
+  const long long n_dq = static_cast<long long>((Sq + C::BQ - 1) / C::BQ) * H * B;
+  const long long n_dkv = static_cast<long long>((Sk + C::BKV - 1) / C::BKV) * KV * B;
+  if (n_dq + n_dkv > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  // the heavier CTA kind first: a dQ CTA does 3 products over its keys, a
+  // dK/dV CTA 4 over the group's queries
+  const long long kv_max = causal && Sq < Sk ? Sq : Sk;
+  const int dq_first = 3 * kv_max >= 4LL * (H / KV) * Sq;
+  flash_bwd_fma<D><<<static_cast<unsigned>(n_dq + n_dkv), kThreads, C::SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, ls, static_cast<float*>(dq),
+      static_cast<float*>(dk), static_cast<float*>(dv), B, Sq, Sk, H, KV, scale,
+      scale * 1.4426950408889634f, causal, static_cast<int>(n_dq), dq_first);
   return cudaGetLastError();
 }
 
@@ -853,6 +1031,21 @@ cudaError_t launch_dtype(int dtype, const void* q, const void* k, const void* v,
 }
 
 }  // namespace
+
+// The dynamic shared memory of a CTA of the f32 kernel at head dim D (the
+// build report logs it beside ptxas's registers), or -1.
+extern "C" int flash_attention_bwd_f32_smem(int D) {
+  switch (D) {
+    case 16: return simt::Fma<16>::SMEM;
+    case 32: return simt::Fma<32>::SMEM;
+    case 64: return simt::Fma<64>::SMEM;
+    case 80: return simt::Fma<80>::SMEM;
+    case 96: return simt::Fma<96>::SMEM;
+    case 128: return simt::Fma<128>::SMEM;
+    case 192: return simt::Fma<192>::SMEM;
+    default: return -1;
+  }
+}
 
 // softmax_scale is the plain scale (1/sqrt(D) by default).  lse: the
 // forward's f32 (B, H, ls) log-sum-exp; delta: an f32 scratch of the same

@@ -131,7 +131,8 @@ def flash_attention_bwd(
     scratch (``torch.empty``), then for bf16 a dK/dV pass per (128-key
     block, KV head) over its query heads and a dQ pass per (128-row q-block,
     head), both on ``wgmma`` with TMA rings, P rebuilt from ``lse``; for f32
-    the same two passes with f32 FMAs."""
+    the same two passes as the CTAs of one launch, register-tiled f32 FMAs
+    on cp.async rings."""
     global bwd_launches
     _check(q, k, v)
     b, sq, h, d = q.shape
@@ -155,8 +156,8 @@ def flash_attention_bwd(
         q, k, v, o, do = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v, o, do))
     if not (o.is_contiguous() and do.is_contiguous()):
         raise ValueError("flash backward needs contiguous o and do")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v, do)):
-        raise ValueError("flash backward needs 16-byte aligned bf16 q, k, v, do (TMA)")
+    if any(t.data_ptr() % 16 for t in (q, k, v, do)):
+        raise ValueError("flash backward needs 16-byte aligned q, k, v, do (TMA for bf16, cp.async for f32)")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(b, h, ls, dtype=torch.float32, device=q.device)
     fn = _build.function(

@@ -23,7 +23,16 @@ from repro_torch.kernels import _build
 
 launches = 0  # kernel launches since the last reset (see ops.reset_launch_counts)
 bwd_launches = 0  # the same, of the backward kernel
-TILES = 1024  # the backward's row tiles (dw partials) at most
+
+# The backward's launch plan (``bwd_plan``), in the kernel's limits
+TILES = 256  # row tiles (CTAs and dw partials) at most
+BWD_THREADS = 512  # threads of a CTA at most
+BWD_STAGES = 4  # slots of a CTA's ring at most
+BWD_RPS = 4  # rows a step at most (1, 2 or 4)
+STEP_BYTES = 8192  # bytes of x a step aims at
+SMEM_SMALL = 72 * 1024  # shared memory of a CTA that leaves the SM's L1 most of its room
+SMEM_SHARED = 113 * 1024  # shared memory of a CTA when two share an H100 SM
+SMEM_MAX = 227 * 1024  # shared memory a CTA can have on an H100
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> int:
@@ -59,37 +68,73 @@ def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.
     return out
 
 
+def bwd_plan(n: int, d: int, elem_size: int, vector: bool) -> tuple[int, int, int, int, int]:
+    """(rows_per_tile, n_tiles, threads, rows_per_step, stages) of the
+    backward on n rows of d elements of ``elem_size`` bytes, from the shape
+    alone, so the bits of dw do not depend on the card.  At most TILES tiles
+    of whole rows (TILES / 2 when a CTA needs a whole SM's shared memory: one
+    wave); one 16-byte vector (``vector``) or element a thread per row up to
+    256 of them, two above, in multiples of 32 threads up to BWD_THREADS; a
+    step of 1, 2 or BWD_RPS rows, at least STEP_BYTES of x where it can (one
+    barrier a step); ``stages`` slots of a step's rows of x and g in shared
+    memory beside the d-float dw partial: as many as fit SMEM_SMALL, else
+    SMEM_SHARED (two CTAs an SM), else one CTA an SM, at most BWD_STAGES and
+    no more than the tile's steps.  ``stages`` is 0 for the scalar path (one
+    row a step): rows that are not whole vectors, or wider than one slot."""
+    if 4 * d > SMEM_MAX:
+        raise ValueError(f"rmsnorm backward: d={d} leaves no room for the f32 dw partial")
+    lanes = d * elem_size // 16 if vector else d
+    threads = min(BWD_THREADS, max(32, -(-(lanes if lanes <= 256 else -(-lanes // 2)) // 32) * 32))
+    want = -(-STEP_BYTES // (d * elem_size))  # rows of x in STEP_BYTES, rounded up
+    rps = min(BWD_RPS, 1 << (want - 1).bit_length()) if vector else 1
+    per_slot = 2 * rps * d * elem_size + 8  # a step's x and g rows and the slot's barrier
+    tiles = TILES // 2 if vector and 4 * d + 2 * per_slot > SMEM_SHARED else TILES
+    rows_per_tile = max(1, -(-n // tiles))
+    n_tiles = -(-n // rows_per_tile)
+    steps = -(-rows_per_tile // rps)
+    stages = 0
+    if vector:
+        for budget in (SMEM_SMALL, SMEM_SHARED, SMEM_MAX):
+            stages = min(BWD_STAGES, steps, max(0, budget - 4 * d) // per_slot)
+            if stages >= min(2, steps):
+                break
+        if stages == 0:  # too wide for a slot: the scalar path, a row a step
+            rps = 1
+    return rows_per_tile, n_tiles, threads, rps, stages
+
+
 def fused_rmsnorm_bwd(
     x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, eps: float = 1e-5
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dx, dw) of ``fused_rmsnorm(x, w, eps)`` given ``g``, the gradient of its
     output (same shape and dtype as x, contiguous).  No TPU counterpart.
 
-    Bound on the H100: bytes (x and g read, dx written).  A block per tile of
-    rows walks its rows as the forward walks one, writes dx and keeps the
-    tile's f32 dw partial in shared memory; a second launch sums the partials
-    (an f32 scratch of n_tiles x d from ``torch.empty``) column by column.  No
-    float atomics, so two runs give equal bits."""
+    Bound on the H100: bytes (x and g read, dx written).  A CTA per tile of
+    rows (``bwd_plan``) streams its rows into a ring in shared memory, so x
+    and g leave device memory once, writes dx and keeps the tile's f32 dw
+    partial in shared memory; a second launch sums the partials (an f32
+    scratch of n_tiles x d from ``torch.empty``) column by column.  No float
+    atomics, so two runs give equal bits."""
     global bwd_launches
     d = _check(x, w)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device or not g.is_contiguous():
         raise ValueError(f"rmsnorm backward needs a contiguous g like x {tuple(x.shape)} {x.dtype}, "
                          f"got {tuple(g.shape)} {g.dtype} on {g.device}")
     n = x.numel() // d
-    rows_per_tile = max(1, -(-n // TILES))
-    n_tiles = -(-n // rows_per_tile)
+    vector = all(t.data_ptr() % 16 == 0 for t in (x, w, g)) and d * x.element_size() % 16 == 0
+    rows_per_tile, n_tiles, threads, rps, stages = bwd_plan(n, d, x.element_size(), vector)
     dx = torch.empty_like(x)
     dw = torch.empty_like(w)
     partial = torch.empty((n_tiles, d), dtype=torch.float32, device=x.device)
     fn = _build.function(
         "rmsnorm_bwd",
         "rmsnorm_bwd_launch",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float]
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float]
         + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     )
     err = fn(
         x.data_ptr(), w.data_ptr(), g.data_ptr(), dx.data_ptr(), dw.data_ptr(), partial.data_ptr(),
-        n, d, rows_per_tile, eps, _build.DTYPES[x.dtype], x.device.index,
+        n, d, rows_per_tile, threads, rps, stages, eps, _build.DTYPES[x.dtype], x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check("rmsnorm_bwd", err)

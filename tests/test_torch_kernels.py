@@ -489,11 +489,17 @@ def _rand(seed, shape, dt, device, scale=1.0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("shape", [(4, 7, 64), (130, 256), (5, 13), (3000, 1280), (2, 18432), (1, 4096)])
+@pytest.mark.parametrize("shape", [
+    (4, 7, 64), (130, 256), (5, 13), (3000, 1280), (2, 18432), (1, 4096),
+    # rows below, at and one past the tile count (256: one row a tile, then
+    # two with a ring of 2), and nemotron's width at the train loop's rows
+    (255, 512), (256, 512), (257, 512), (8192, 18432),
+])
 def test_rmsnorm_bwd_kernel_matches_plain(cuda, shape, dt):
-    """dx and dw against the explicit formula in f32; ragged d (13: the
-    scalar path), many row tiles (3000 rows: 3 rows a tile) and nemotron's
-    d = 18432 (a 72 KB shared dw partial)."""
+    """dx and dw against the explicit formula in f32, and two runs bit-equal;
+    ragged d (13: the scalar path), many row tiles (3000 rows: 12 rows a
+    tile) and nemotron's d = 18432 (a 72 KB shared dw partial, one or two
+    row slots)."""
     from repro_torch.kernels import rmsnorm as rms
 
     x, g = _rand(20, shape, dt, cuda), _rand(21, shape, dt, cuda)
@@ -501,6 +507,8 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda, shape, dt):
     before = ops.launch_counts()["rmsnorm_bwd"]
     dx, dw = rms.fused_rmsnorm_bwd(x, w, g)
     assert ops.launch_counts()["rmsnorm_bwd"] == before + 1
+    again = rms.fused_rmsnorm_bwd(x, w, g)
+    assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
     want_dx, want_dw = ref.rmsnorm_bwd_ref(x, w, g)
     assert dx.dtype == x.dtype and dw.dtype == w.dtype
     _close(dx, want_dx, dt)
@@ -521,6 +529,45 @@ BWD_FLASH_SHAPES = [  # b, sq, sk, h, kv, d, causal
     (1, 333, 333, 96, 8, 192, True), (1, 512, 1500, 20, 20, 64, False),
     (2, 257, 257, 10, 5, 80, True), (1, 190, 190, 40, 40, 96, True), (1, 129, 129, 4, 4, 24, True),
 ]
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 255, 256, 257, 8192, 8193, 100_000])
+@pytest.mark.parametrize("d,elem,vector", [
+    (4096, 2, True), (4096, 4, True), (1280, 2, True), (18432, 2, True), (18432, 4, True),
+    (13, 4, False), (40_000, 4, True), (50_000, 2, True),
+])
+def test_rmsnorm_bwd_plan(n, d, elem, vector):
+    """The backward's launch plan from the shape alone: whole rows in at most
+    TILES tiles covering every row once, 32-multiple CTAs of at most 512
+    threads, 1 to 4 rows a step, slots that fit the shared memory beside the
+    dw partial (two CTAs an SM where they can), none for ragged or too-wide
+    rows."""
+    from repro_torch.kernels import rmsnorm as rms
+
+    rows_per_tile, n_tiles, threads, rps, stages = rms.bwd_plan(n, d, elem, vector)
+    assert n_tiles <= rms.TILES and rows_per_tile >= 1
+    assert (n_tiles - 1) * rows_per_tile < n <= n_tiles * rows_per_tile or n == n_tiles == 0
+    assert threads % 32 == 0 and 32 <= threads <= rms.BWD_THREADS
+    assert rps in (1, 2, rms.BWD_RPS)
+    assert 0 <= stages <= min(rms.BWD_STAGES, -(-rows_per_tile // rps))
+    per_slot = 2 * rps * d * elem + 8
+    smem = 4 * d + stages * per_slot
+    assert smem <= rms.SMEM_MAX
+    if not vector or 4 * d + 2 * d * elem + 8 > rms.SMEM_MAX:
+        assert stages == 0 and rps == 1  # the scalar path
+    else:
+        assert stages >= 1
+        if stages >= 2 and 4 * d + 2 * per_slot <= rms.SMEM_SHARED:
+            assert smem <= rms.SMEM_SHARED  # two CTAs share an SM
+    # the plan is the card's argument list: it is the same for every call
+    assert rms.bwd_plan(n, d, elem, vector) == (rows_per_tile, n_tiles, threads, rps, stages)
+
+
+def test_rmsnorm_bwd_plan_rejects_a_partial_too_wide():
+    from repro_torch.kernels import rmsnorm as rms
+
+    with pytest.raises(ValueError, match="dw partial"):
+        rms.bwd_plan(4, rms.SMEM_MAX // 4 + 1, 4, True)
 
 
 @pytest.mark.cuda
@@ -562,6 +609,45 @@ def test_backward_kernels_are_deterministic(cuda, dt, seq):
     assert all(torch.equal(s, t) for s, t in zip(a, b))
     q, do = _rand(30, (2, seq, 16, 128), dt, cuda), _rand(31, (2, seq, 16, 128), dt, cuda)
     k, v = _rand(32, (2, seq, 4, 128), dt, cuda), _rand(33, (2, seq, 4, 128), dt, cuda)
+    o, lse = flash.flash_attention(q, k, v, return_lse=True)
+    a, b = flash.flash_attention_bwd(q, k, v, o, do, lse), flash.flash_attention_bwd(q, k, v, o, do, lse)
+    assert all(torch.equal(s, t) for s, t in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 24, 32, 64, 80, 96, 128, 192])
+def test_flash_bwd_f32_every_head_dim_ragged(cuda, d, causal):
+    """The f32 backward at every head dim with lengths ragged past the
+    rings' 64-row stages (Sk 197: three K/V tiles and a 5-row tail; Sq 133
+    when not causal), n_rep 2, against the plain backward at 3e-5 of each
+    gradient's scale; two runs bit-equal."""
+    from repro_torch.kernels import flash_attention as flash
+
+    sq = 197 if causal else 133
+    q, do = _rand(46, (2, sq, 4, d), "f32", cuda), _rand(47, (2, sq, 4, d), "f32", cuda)
+    k, v = _rand(48, (2, 197, 2, d), "f32", cuda), _rand(49, (2, 197, 2, d), "f32", cuda)
+    o, lse = flash.flash_attention(q, k, v, causal=causal, return_lse=True)
+    got = flash.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    again = flash.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal)
+    for g, w in zip(got, want):
+        scale_w = max(1.0, float(w.abs().max()))
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   atol=TOL["f32"]["atol"] * scale_w, rtol=TOL["f32"]["rtol"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [16, 24, 32, 64, 80, 96, 128, 192])
+def test_flash_bwd_is_deterministic_at_every_head_dim(cuda, d, dt):
+    """No float atomics: two runs give equal bits at every head dim, with
+    GQA (n_rep 4) summed over 9 q-tiles a key block."""
+    from repro_torch.kernels import flash_attention as flash
+
+    q, do = _rand(50, (2, 520, 8, d), dt, cuda), _rand(51, (2, 520, 8, d), dt, cuda)
+    k, v = _rand(52, (2, 520, 2, d), dt, cuda), _rand(53, (2, 520, 2, d), dt, cuda)
     o, lse = flash.flash_attention(q, k, v, return_lse=True)
     a, b = flash.flash_attention_bwd(q, k, v, o, do, lse), flash.flash_attention_bwd(q, k, v, o, do, lse)
     assert all(torch.equal(s, t) for s, t in zip(a, b))
