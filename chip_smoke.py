@@ -6,7 +6,12 @@
 Run from the root of a checkout.  Phases, each of which must pass:
 
   1. build    the five hand-written kernels (three forward, two backward) from
-              src/repro_torch/kernels/csrc, all at once
+              src/repro_torch/kernels/csrc, all at once; ptxas's registers,
+              shared memory and spills of the f32 flash forward
+              (flash_fwd_fma at every head dim and q-block height) and of
+              every rmsnorm forward instantiation, none spilling, rmsnorm's
+              registers within what its plan counts for its wave, the f32
+              flash forward's shared memory as its plan counts it
   2. kernels  each kernel against its plain PyTorch version at the serving
               path's shapes and ragged ones, in bf16 and f32, timed beside its
               plain version, one PyTorch library call and its bound (decode
@@ -33,7 +38,8 @@ Run from the root of a checkout.  Phases, each of which must pass:
               at the serving prefill and the train microbatch, flash's
               log-sum-exp output (the training path's call) against its
               plain version, the output bit-equal to the call without it,
-              and in bf16 timed beside that call
+              and in bf16 timed beside that call; a one-element PyTorch add
+              timed the same way, the launch floor, beside each rmsnorm row
   3. parity   granite-8b, qwen1.5-4b and minicpm3-4b at full width, 2 layers:
               the kernel path and the plain path agree over a 512-token
               prefill and 16 decode steps (f32: equal token ids; bf16: as
@@ -246,6 +252,60 @@ def max_err(torch, got, want, dt: str) -> float:
     err = float(diff.max())
     check(ok, f"kernel disagrees with its plain version: max abs err {err} (tol {TOL[dt]})")
     return err
+
+
+# ---------------------------------------------------------------------------
+# Phase 1: the forward kernels as built
+# ---------------------------------------------------------------------------
+
+def fwd_build_report() -> dict:
+    """ptxas's report of the f32 flash forward (flash_fwd_fma<D, BQ> at every
+    head dim and both q-block heights) and of every rmsnorm forward
+    instantiation (dtype, vector width, vectors a lane): each must be there
+    and spill nothing; an rmsnorm instantiation must need no more registers
+    than ``rmsnorm.fwd_regs`` counts for its plan's wave, and the f32 flash
+    kernel's dynamic shared memory must be what ``fwd_plan`` counts.  Logged
+    per instantiation: registers, static shared memory, stack, spills, and
+    flash's dynamic shared memory and CTAs an SM."""
+    import ctypes
+    import re
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import rmsnorm as rk
+
+    smem_of = _build.function("flash_attention", "flash_attention_f32_smem", [ctypes.c_int] * 2)
+    rows = {}
+    found = _ptxas_report(_build.log_path("flash_attention").read_text())
+    for d in fk.HEAD_DIMS:
+        for bq, sq in ((32, 64), (64, 64 * fk.SMS)):  # a one-CTA grid: 32 rows; SMS CTAs: 64
+            hits = [v for k, v in found.items() if f"flash_fwd_fmaILi{d}ELi{bq}E" in k]
+            check(len(hits) == 1, f"flash_attention: no single ptxas report of flash_fwd_fma<{d}, {bq}>")
+            plan = fk.fwd_plan(1, sq, sq, 1, d, 4)
+            check(plan.block_q == bq and smem_of(d, bq) == plan.smem,
+                  f"flash_fwd_fma<{d}, {bq}>: the kernel's {smem_of(d, bq)} bytes of shared memory "
+                  f"are not fwd_plan's {plan.smem} (block {plan.block_q})")
+            rows[f"flash_fwd_fma<{d}, {bq}>"] = {**hits[0], "dynamic_smem": plan.smem,
+                                                 "ctas_per_sm": plan.per_sm, "stages": plan.stages,
+                                                 "block_k": plan.block_k}
+    found = _ptxas_report(_build.log_path("rmsnorm").read_text())
+    for k, v in found.items():
+        m = re.search(r"rmsnorm_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", k)
+        if m:
+            vector, nv = m.group(2) != "1", int(m.group(3))
+            name = f"rmsnorm<{'f32' if m.group(1) == 'f' else 'bf16'}, vec {m.group(2)}, nv {nv}>"
+            regs = rk.fwd_regs(nv, vector)
+            check("registers" in v and v["registers"] <= regs,
+                  f"{name} needs {v.get('registers')} registers, more than the plan's {regs}")
+            rows[name] = v
+    want = 2 * 2 * (1 + rk.FWD_NV.bit_length())  # dtype, vector width: nv 0 and 1, 2, 4, 8
+    got = sum(r.startswith("rmsnorm<") for r in rows)
+    check(got == want, f"rmsnorm: {got} instantiations, want {want}")
+    for k, v in rows.items():
+        check("registers" in v and v.get("spill_stores", 0) == 0 and v.get("spill_loads", 0) == 0,
+              f"forward kernel {k} spills registers: {v}")
+    log("[build] forward kernels' ptxas " + json.dumps(rows))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -485,7 +545,10 @@ def phase_kernels(torch, ops, ref) -> dict:
                  "decode_attention": ops.decode_attention}
     plain_fn = {"rmsnorm": ref.rmsnorm_ref, "flash_attention": ref.flash_attention_ref,
                 "decode_attention": ref.decode_attention_ref}
-    results = {}
+    one = torch.zeros(1, device="cuda")
+    floor = time_ms(torch, {"add": lambda t: t + 1}, [(one,)])["add"]
+    results = {("launch_floor",): {"kernel": "launch floor", "case": "one-element torch add", "ms": floor}}
+    log(f"[kernels] launch floor: a one-element add takes {floor:.5f} ms")
     for dt in ("bf16", "f32"):
         for name, case, make, kw in kernel_cases(torch, dt):
             inputs = make()
@@ -513,12 +576,19 @@ def phase_kernels(torch, ops, ref) -> dict:
                 }
                 if lse and dt == "bf16":  # the training path's forward, beside serving's
                     fns["kernel_lse"] = lambda *a: fk.flash_attention(*a, return_lse=True, **kw)
+                if name == "rmsnorm":  # each call after a plain kernel, as on the model's path
+                    fns["add"] = lambda *a: one + 1
+                    fns["add_kernel"] = lambda *a: (one + 1, kernel_fn[name](*a, impl="kernel", **kw))
                 times = time_ms(torch, fns, sets)
                 row.update(ms=times["kernel"], plain_ms=times["plain"],
                            library_ms=times["library"], bytes=nbytes, flops=flops,
                            timed="cold" if len(sets) > 1 else "warm", copies=len(sets))
                 if "kernel_lse" in times:
                     row["lse_ms"] = times["kernel_lse"]
+                if name == "rmsnorm":
+                    # ms chains the PDL launches into each other; after_add_ms is
+                    # a call after a plain kernel, that kernel's own time taken off
+                    row.update(launch_floor_ms=floor, after_add_ms=times["add_kernel"] - times["add"])
                 del sets
                 row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dt)
                 results[(name, dt) if tag == "main" else (name, dt, tag)] = row
@@ -2052,6 +2122,7 @@ def main(argv: list[str] | None = None) -> int:
         for name in _build.SOURCES:
             if _build.log_path(name).exists():
                 shutil.copy(_build.log_path(name), args.log_dir / f"nvcc_{name}.log")
+    fwd_build = fwd_build_report()
 
     kern = phase_kernels(torch, ops, ref)
     cfg = get_config("granite-8b")
@@ -2110,7 +2181,7 @@ def main(argv: list[str] | None = None) -> int:
         })
     if args.log_dir is not None:
         record = {"card": card, "torch": torch.__version__, "build_s": build_s,
-                  "kernels": [kern[k] for k in sorted(kern)], "parity": parity,
+                  "fwd_build": fwd_build, "kernels": [kern[k] for k in sorted(kern)], "parity": parity,
                   "serve": serve, "live": [live_row, live_mla], "profile": prof, "cluster": cluster,
                   "maas": fleet_row, "families": families, "last_configs": last,
                   "train": {**train, "kernels": [train["kernels"][k] for k in sorted(train["kernels"])]},

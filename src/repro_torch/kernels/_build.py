@@ -25,7 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("rmsnorm", "flash_attention", "decode_attention", "rmsnorm_bwd", "flash_attention_bwd")
-HEADERS = ("common.cuh", "hopper.cuh")
+HEADERS = ("common.cuh", "hopper.cuh", "simt.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -37,13 +37,29 @@
 //   P is rounded to bf16 before the PV product (the TPU kernel keeps it in
 //   f32).
 // * f32: flash_fwd_fma.  f32 inputs must match the reference at 3e-5, which
-//   rules out TF32, so this kernel does both products with f32 FMAs from
-//   shared memory: one 128-thread CTA per (64-row q-block, head, sequence), a
-//   loop over 32-row K/V tiles; each thread owns 4 query rows x 4 key columns
-//   of the score tile and 4 rows x D/8 columns of the output (24 at D = 192,
-//   12 at D = 96, 10 at D = 80); at D = 192 the tiles take 107 KB of shared
-//   memory.
-//
+//   rules out TF32 and the tensor cores, so both products are f32 FMAs: the
+//   bound is the FMA units' 67 TFLOP/s (olmoe's causal 1 x 512 x 16 x 128:
+//   16 us), and the products must be fed from registers, not from shared
+//   memory at a load per FMA.  Design (simt.cuh's blocks, shared with the
+//   f32 backward): 256 threads per (q-block, head, sequence), one launch
+//   whose CTAs run the heaviest causal q-blocks first; the q-block is 64
+//   rows, or 32 where 64 would give the card fewer CTAs than SMs
+//   (flash_attention.fwd_plan, from the shape alone).  Q is staged once; K
+//   and V tiles (64 keys, 32 at D = 192) ride a cp.async ring of 2-3
+//   stages, a slot refilled as soon as every thread is past its tile, so
+//   the next tiles arrive while this one is computed; two CTAs share an SM
+//   at D <= 64, one at D >= 80.  S = Q K^T and O += P V are register-tiled (a
+//   thread holds TM x TN scores and TM x 4 TF outputs) from float4 loads of
+//   rows padded by 4 floats, each warp an 8 x 4 block of the thread grid:
+//   the reduction index is innermost for S and outermost for PV, so no tile
+//   is transposed and no load conflicts.  A row's max comes from its 16
+//   column threads (shuffles over 4 lanes, then 4 warps through shared
+//   memory); P goes to shared memory once a tile with each row's correction
+//   of the running output; each row's sum stays split over the 16 threads
+//   until the epilogue adds them in a fixed order.  Three barriers a tile,
+//   no atomics: two runs give equal bits, whatever the q-block height.
+//   D = 16 and 80 run 32 and 96 wide on zero columns.
+
 // Both kernels can also write each row's log-sum-exp (the training path asks
 // for it, serving never does): with `lse` non-null the epilogue stores
 // m + log2(l) of the row's running max m and sum l, in the log2 domain of
@@ -53,7 +69,9 @@
 //
 // Head dims 16, 32, 64, 80, 96, 128 and 192 are instantiated; the wrapper
 // zero-pads D = 24 to 32.
-#include "hopper.cuh"
+#include <initializer_list>
+
+#include "simt.cuh"
 
 namespace {
 
@@ -280,167 +298,251 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 }  // namespace sm90
 
 // ---------------------------------------------------------------------------
-// f32: FMAs from shared memory
+// f32: register-tiled FMA products on a cp.async ring
 // ---------------------------------------------------------------------------
 namespace simt {
 
-constexpr int kThreads = 128;
-constexpr int BQ = 64;  // query rows per CTA: 16 row groups x 4 rows
-constexpr int BK = 32;  // keys per tile: 8 column lanes x 4 columns
-constexpr int NJ = BK / 8;
+constexpr int kSmemSM = 228 * 1024;  // an H100 SM's shared memory (1 KB of it reserved per CTA)
 
-template <int D>
-constexpr int smem_floats() {
-  return BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1);
-}
+// The tiles of one CTA at head dim D and q-block height BQ (64 rows, or 32
+// where 64 would give the card fewer CTAs than SMs: flash_attention.fwd_plan).
+// Keys come in BK-row K/V tiles (64, or 32 at D = 192) on a ring of NS
+// stages, as deep as leaves two CTAs an SM (1 KB each reserved), else as
+// deep as fits one (D >= 80 holds one CTA an SM: 64-key tiles measured
+// faster there than two CTAs on 32-key tiles).  The layout, in floats: [Q |
+// K, V x NS | P | partial row maxima and sums | a value per row].  fwd_plan
+// in flash_attention.py mirrors these numbers.
+template <int D, int BQ>
+struct Fwd {
+  static constexpr int DC = D == 80 ? 96 : D == 16 ? 32 : D;  // the products' width (zero columns)
+  static constexpr int LD = DC + 4;                            // shared row stride: rows 4 banks apart
+  static constexpr int BK = DC <= 128 ? 64 : 32;               // keys per K/V tile
+  static constexpr int LDP = BK + 4;                           // P's rows
+  static constexpr int floats(int ns) { return BQ * LD + 2 * ns * BK * LD + BQ * LDP + 5 * BQ; }
+  static constexpr bool two_an_sm(int ns) { return 2 * (4 * floats(ns) + 1024) <= kSmemSM; }
+  static constexpr int NS =
+      two_an_sm(3) ? 3 : two_an_sm(2) ? 2 : 4 * floats(3) <= 227 * 1024 ? 3 : 2;
+  static constexpr int SMEM = 4 * floats(NS);
+  static constexpr int kMinBlocks = two_an_sm(NS) ? 2 : 1;
+  static_assert(SMEM <= 227 * 1024, "shared memory");
+  // the k loops' unroll: 2, but 1 for S at D = 192 (measured faster there)
+  static constexpr int U_S = D == 192 ? 1 : 2;
+  // S = Q K^T: BQ x BK on all 256 threads, 16 x 16 of them, TM x TN a thread;
+  // a row's 16 column threads are 4 lanes in each of 4 warps
+  static constexpr int TM = BQ / 16, TN = BK / 16;
+  using O = Wide<DC, kThreads, BQ>;  // O += P V: BQ x DC
+};
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+// One (BQ-row q-block, head, sequence): Q staged once, K and V tiles on the
+// ring, refilled as soon as every thread is past the tile that held the
+// slot; the causal kv loop stops at the diagonal, and only the tiles that
+// cross it or the Sk tail are masked.  Per tile: S = Q K^T, each row's max
+// (4 lanes by shuffles, then 4 warps through shared memory), P = exp2(S sl -
+// m) into shared memory with each row's correction of the running output,
+// then O = O corr + P V.  Each row's sum stays split over its 16 column
+// threads until the epilogue adds the 16 in a fixed order: no atomics, and
+// the bits do not depend on BQ.  The CTAs run heaviest causal q-block first.
+template <int D, int BQ>
+__global__ void __launch_bounds__(kThreads, Fwd<D, BQ>::kMinBlocks)
     flash_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-                  int ls, int Sq, int Sk, int H, int KV, float scale_log2, int causal) {
-  constexpr int DP = D + 1;    // padded smem row stride of Q and K (bank spread)
-  constexpr int BKP = BK + 1;  // padded smem row stride of P
-  constexpr int DC = D / 8;    // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;           // BQ x DP
-  float* Ks = Qs + BQ * DP;   // BK x DP
-  float* Vs = Ks + BK * DP;   // BK x D
-  float* Ps = Vs + BK * D;    // BQ x BKP
+                  int ls, int B, int Sq, int Sk, int H, int KV, float scale_log2, int causal) {
+  using C = Fwd<D, BQ>;
+  using W = typename C::O;
+  constexpr int LD = C::LD, BK = C::BK, NS = C::NS, LDP = C::LDP, TM = C::TM, TN = C::TN;
+  extern __shared__ float4 smem_v4[];
+  float* Qs = reinterpret_cast<float*>(smem_v4);
+  float* Ks = Qs + BQ * LD;  // stage s: K at Ks + 2 s BK LD, V right after it
+  float* Ps = Ks + 2 * NS * BK * LD;
+  float* red = Ps + BQ * LDP;  // BQ x 4: each row's partial maxima (then sums) by warp column
+  float* rowv = red + 4 * BQ;  // BQ: each row's correction this tile (then its sum)
 
-  const int qb = gridDim.x - 1 - blockIdx.x;  // long causal rows first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  int idx = blockIdx.x;
+  const int b = idx % B;
+  idx /= B;
+  const int h = idx % H;
+  const int qb = (Sq + BQ - 1) / BQ - 1 - idx / H;  // long causal rows first
   const int kvh = h / (H / KV);
   const int q0 = qb * BQ;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 3;  // row group: rows ty*4 .. ty*4+3
-  const int tx = tid & 7;   // column lane: key columns tx + 8j, output dims tx + 8c
-
-  const size_t q_stride = static_cast<size_t>(H) * D;   // between seq positions
-  const size_t kv_stride = static_cast<size_t>(KV) * D;
-  const float* qbase = q + (static_cast<size_t>(b) * Sq * H + h) * D;
-  const float* kbase = k + (static_cast<size_t>(b) * Sk * KV + kvh) * D;
-  const float* vbase = v + (static_cast<size_t>(b) * Sk * KV + kvh) * D;
-  float* obase = o + (static_cast<size_t>(b) * Sq * H + h) * D;
-
-  for (int i = tid; i < BQ * D; i += kThreads) {
-    const int r = i / D, c = i % D, s = q0 + r;
-    Qs[r * DP + c] = s < Sq ? qbase[s * q_stride + c] * scale_log2 : 0.f;
-  }
-
-  float m[4], l[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-
+  const size_t q_stride = static_cast<size_t>(H) * D, kv_stride = static_cast<size_t>(KV) * D;
+  const size_t q_off = (static_cast<size_t>(b) * Sq * H + h) * D;
+  const size_t kv_off = (static_cast<size_t>(b) * Sk * KV + kvh) * D;
   const int kv_end = causal ? min(Sk, q0 + BQ) : Sk;
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done (and Q is staged)
-    for (int i = tid; i < BK * D; i += kThreads) {
-      const int r = i / D, c = i % D, s = k0 + r;
-      const bool ok = s < Sk;
-      Ks[r * DP + c] = ok ? kbase[s * kv_stride + c] : 0.f;
-      Vs[r * D + c] = ok ? vbase[s * kv_stride + c] : 0.f;
-    }
-    __syncthreads();
+  const int n_tiles = (kv_end + BK - 1) / BK;
 
-    float sc[4][NJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) sc[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) kv[j] = Ks[(tx + 8 * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+  zero_pad<D, C::DC, LD>(Qs, BQ + 2 * NS * BK);  // Q and the K, V stages
+  load_rows<BQ, D, LD>(Qs, q + q_off, q_stride, q0, Sq);
+  auto load_kv = [&](int j) {
+    if (j < n_tiles) {
+      float* st = Ks + 2 * (j % NS) * BK * LD;
+      load_rows<BK, D, LD>(st, k + kv_off, kv_stride, j * BK, Sk);
+      load_rows<BK, D, LD>(st + BK * LD, v + kv_off, kv_stride, j * BK, Sk);
     }
+  };
+  load_kv(0);
+  cp_async_commit();  // Q and tile 0
+  for (int t = 1; t + 1 < NS; ++t) {
+    load_kv(t);
+    cp_async_commit();
+  }
 
+  // S: rows ps.x + 16 i, keys ps.y + 16 c; O: rows po.x + RG i
+  const int2 ps = grid_pos<16, 16, kThreads>(threadIdx.x);
+  const int2 po = grid_pos<W::RG, W::CG, kThreads>(threadIdx.x);
+  const int wcol = (threadIdx.x / 32) % 4;  // this warp's column of the S grid
+  const bool quad_head = threadIdx.x % 4 == 0;
+  float m_run[TM], l_run[TM];  // each row's running max; this thread's share of its sum
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
-      float rmax = -INFINITY;
+  for (int i = 0; i < TM; ++i) {
+    m_run[i] = -INFINITY;
+    l_run[i] = 0.f;
+  }
+  float acc[W::TM][4 * W::TF];
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int kpos = k0 + tx + 8 * j;
-        const bool valid = kpos < Sk && (!causal || kpos <= qpos);
-        sc[i][j] = valid ? sc[i][j] : -INFINITY;
-        rmax = fmaxf(rmax, sc[i][j]);
+  for (int i = 0; i < W::TM; ++i)
+#pragma unroll
+    for (int c = 0; c < 4 * W::TF; ++c) acc[i][c] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();  // tile j is in (and Q with tile 0)
+    const float* Kt = Ks + 2 * (j % NS) * BK * LD;
+    float s[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int c = 0; c < TN; ++c) s[i][c] = 0.f;
+    mma_nt<TM, TN, 16, 16, C::DC, LD, LD, C::U_S>(s, Qs, Kt, ps);
+
+    const int k0 = j * BK;
+    const bool masked = k0 + BK > Sk || (causal && k0 + BK - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int qpos = q0 + ps.x + 16 * i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < TN; ++c) {
+        const int kpos = k0 + ps.y + 16 * c;
+        float x = s[i][c] * scale_log2;
+        if (masked && (kpos >= Sk || (causal && kpos > qpos))) x = -INFINITY;
+        s[i][c] = x;
+        mx = fmaxf(mx, x);
       }
-      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 1));
-      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 2));
-      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 4));
-      const float m_new = fmaxf(m[i], rmax);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      if (quad_head) red[(ps.x + 16 * i) * 4 + wcol] = mx;
+    }
+    __syncthreads();  // the partial maxima are in; every thread is past tile j - 1
+    load_kv(j + NS - 1);  // into tile j - 1's slot
+    cp_async_commit();
+
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int row = ps.x + 16 * i;
+      const float4 r = *reinterpret_cast<const float4*>(red + row * 4);
+      const float m_new = fmaxf(m_run[i], fmaxf(fmaxf(r.x, r.y), fmaxf(r.z, r.w)));
       const float m_use = m_new == -INFINITY ? 0.f : m_new;  // a row with nothing valid yet
-      const float corr = exp2f(m[i] - m_use);
+      const float corr = exp2f(m_run[i] - m_use);
+      m_run[i] = m_new;
       float rsum = 0.f;
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float p = exp2f(sc[i][j] - m_use);  // masked: exp2(-inf) = 0
-        Ps[(ty * 4 + i) * BKP + tx + 8 * j] = p;
+      for (int c = 0; c < TN; ++c) {
+        const float p = exp2f(s[i][c] - m_use);  // masked: exp2(-inf) = 0
+        Ps[row * LDP + ps.y + 16 * c] = p;
         rsum += p;
       }
-      rsum += __shfl_xor_sync(0xffffffffu, rsum, 1);
-      rsum += __shfl_xor_sync(0xffffffffu, rsum, 2);
-      rsum += __shfl_xor_sync(0xffffffffu, rsum, 4);
-      l[i] = l[i] * corr + rsum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= corr;
+      l_run[i] = l_run[i] * corr + rsum;
+      if (ps.y == 0) rowv[row] = corr;
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[4], vv[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * BKP + kk];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) vv[c] = Vs[kk * D + tx + 8 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
-    }
-  }
+    __syncthreads();  // P and the corrections are in
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty * 4 + i;
-    if (qpos < Sq) {
-      const float denom = fmaxf(l[i], 1e-30f);
+    for (int i = 0; i < W::TM; ++i) {
+      const float corr = rowv[po.x + W::RG * i];
 #pragma unroll
-      for (int c = 0; c < DC; ++c) obase[qpos * q_stride + tx + 8 * c] = acc[i][c] / denom;
-      if (lse != nullptr && tx == 0)
-        lse[(static_cast<size_t>(b) * H + h) * ls + qpos] = l[i] > 0.f ? m[i] + log2f(l[i]) : INFINITY;
+      for (int c = 0; c < 4 * W::TF; ++c) acc[i][c] *= corr;
+    }
+    mma_nn<W::TM, W::TF, W::RG, W::CG, BK, LDP, LD>(acc, Ps, Kt + BK * LD, po);
+  }
+  cp_async_wait<0>();
+
+  // Epilogue: each row's sum from its 16 column threads in a fixed order,
+  // then O / max(l, 1e-30), and the log-sum-exp if asked for.
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    if (quad_head) red[(ps.x + 16 * i) * 4 + wcol] = l;
+  }
+  __syncthreads();  // the partial sums are in; every thread is past the last P V
+  if (ps.y == 0) {
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int row = ps.x + 16 * i, qpos = q0 + row;
+      const float4 r = *reinterpret_cast<const float4*>(red + row * 4);
+      const float l = (r.x + r.y) + (r.z + r.w);
+      rowv[row] = fmaxf(l, 1e-30f);
+      if (lse != nullptr && qpos < Sq)
+        lse[(static_cast<size_t>(b) * H + h) * ls + qpos] = l > 0.f ? m_run[i] + log2f(l) : INFINITY;
     }
   }
+  __syncthreads();
+  float* obase = o + q_off;
+#pragma unroll
+  for (int i = 0; i < W::TM; ++i) {
+    const int row = po.x + W::RG * i, qpos = q0 + row;
+    if (qpos >= Sq) continue;
+    const float denom = rowv[row];
+#pragma unroll
+    for (int f = 0; f < W::TF; ++f) {
+      const int col = 4 * (po.y + W::CG * f);
+      if (col < D)
+        *reinterpret_cast<float4*>(obase + qpos * q_stride + col) =
+            make_float4(acc[i][4 * f] / denom, acc[i][4 * f + 1] / denom,
+                        acc[i][4 * f + 2] / denom, acc[i][4 * f + 3] / denom);
+    }
+  }
+}
+
+template <int D, int BQ>
+cudaError_t launch_bq(const float* q, const float* k, const float* v, float* o, float* lse, int ls,
+                      int B, int Sq, int Sk, int H, int KV, float scale_log2, int causal,
+                      int device, cudaStream_t stream) {
+  using C = Fwd<D, BQ>;
+  static rt::SmemOptIn optin;
+  const cudaError_t err = optin.ensure(flash_fwd_fma<D, BQ>, device, C::SMEM);
+  if (err != cudaSuccess) return err;
+  const long long ctas = static_cast<long long>((Sq + BQ - 1) / BQ) * H * B;
+  if (ctas > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  flash_fwd_fma<D, BQ><<<static_cast<unsigned>(ctas), kThreads, C::SMEM, stream>>>(
+      q, k, v, o, lse, ls, B, Sq, Sk, H, KV, scale_log2, causal);
+  return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int ls,
-                   int B, int Sq, int Sk, int H, int KV, float scale_log2, int causal, int device,
-                   cudaStream_t stream) {
-  constexpr size_t smem = smem_floats<D>() * sizeof(float);
-  static rt::SmemOptIn optin;
-  const cudaError_t err = optin.ensure(flash_fwd_fma<D>, device, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_fma<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, ls, Sq, Sk, H, KV, scale_log2, causal);
-  return cudaGetLastError();
+                   int B, int Sq, int Sk, int H, int KV, float scale_log2, int causal,
+                   int block_q, int device, cudaStream_t stream) {
+  for (const void* p : {q, k, v, static_cast<const void*>(o)})
+    if (!rt::aligned16(p)) return cudaErrorMisalignedAddress;
+  const auto* qf = static_cast<const float*>(q);
+  const auto* kf = static_cast<const float*>(k);
+  const auto* vf = static_cast<const float*>(v);
+  auto* of = static_cast<float*>(o);
+  switch (block_q) {
+    case 64:
+      return launch_bq<D, 64>(qf, kf, vf, of, lse, ls, B, Sq, Sk, H, KV, scale_log2, causal, device, stream);
+    case 32:
+      return launch_bq<D, 32>(qf, kf, vf, of, lse, ls, B, Sq, Sk, H, KV, scale_log2, causal, device, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <int D>
+int smem(int block_q) {
+  return block_q == 64 ? Fwd<D, 64>::SMEM : block_q == 32 ? Fwd<D, 32>::SMEM : -1;
 }
 
 }  // namespace simt
@@ -448,11 +550,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 template <int D>
 cudaError_t launch_dtype(int dtype, const void* q, const void* k, const void* v, void* o,
                          float* lse, int ls, int B, int Sq, int Sk, int H, int KV, float sl,
-                         int causal, int device, cudaStream_t s) {
+                         int causal, int block_q, int device, cudaStream_t s) {
   switch (dtype) {
     case rt::kF32:
-      return simt::launch<D>(q, k, v, o, lse, ls, B, Sq, Sk, H, KV, sl, causal, device, s);
+      return simt::launch<D>(q, k, v, o, lse, ls, B, Sq, Sk, H, KV, sl, causal, block_q, device, s);
     case rt::kBF16:
+      if (block_q != sm90::BQ) return cudaErrorInvalidValue;
       return sm90::launch<D>(q, k, v, o, lse, ls, B, Sq, Sk, H, KV, sl, causal, device, s);
     default:
       return cudaErrorInvalidValue;
@@ -461,13 +564,31 @@ cudaError_t launch_dtype(int dtype, const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// The dynamic shared memory of a CTA of the f32 kernel at head dim D and
+// q-block height block_q (the build report logs it beside ptxas's registers
+// and holds fwd_plan's figure to it), or -1.
+extern "C" int flash_attention_f32_smem(int D, int block_q) {
+  switch (D) {
+    case 16: return simt::smem<16>(block_q);
+    case 32: return simt::smem<32>(block_q);
+    case 64: return simt::smem<64>(block_q);
+    case 80: return simt::smem<80>(block_q);
+    case 96: return simt::smem<96>(block_q);
+    case 128: return simt::smem<128>(block_q);
+    case 192: return simt::smem<192>(block_q);
+    default: return -1;
+  }
+}
+
 // softmax_scale is the plain scale (1/sqrt(D) by default); the kernels work in
 // the log2 domain.  bf16 takes the wgmma kernel, f32 the FMA kernel.  lse:
 // null, or an f32 (B, H, ls) array (ls >= Sq) for each row's log-sum-exp.
+// block_q: the q-block height of flash_attention.fwd_plan (128 for bf16; 64
+// or 32 for f32).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       void* lse, int ls, int B, int Sq, int Sk, int H, int KV,
                                       int D, float softmax_scale, int causal, int dtype,
-                                      int device, void* stream) {
+                                      int block_q, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B == 0 || Sq == 0 || H == 0) return cudaSuccess;
@@ -477,19 +598,19 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch_dtype<16>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, device, s);
+      return launch_dtype<16>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, block_q, device, s);
     case 32:
-      return launch_dtype<32>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, device, s);
+      return launch_dtype<32>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, block_q, device, s);
     case 64:
-      return launch_dtype<64>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, device, s);
+      return launch_dtype<64>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, block_q, device, s);
     case 80:
-      return launch_dtype<80>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, device, s);
+      return launch_dtype<80>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, block_q, device, s);
     case 96:
-      return launch_dtype<96>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, device, s);
+      return launch_dtype<96>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, block_q, device, s);
     case 128:
-      return launch_dtype<128>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, device, s);
+      return launch_dtype<128>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, block_q, device, s);
     case 192:
-      return launch_dtype<192>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, device, s);
+      return launch_dtype<192>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, block_q, device, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -10,7 +10,11 @@ Two kernels, chosen by dtype:
   warpgroups per 128-row q-block, the kv loop stopped at the causal diagonal
   and only the diagonal and tail tiles masked.  The probabilities are
   rounded to bf16 for the PV product.  Needs 16-byte aligned q, k, v.
-* f32: f32 FMAs from shared memory (TF32 would miss the 3e-5 tolerance).
+* f32: f32 FMAs (TF32 would miss the 3e-5 tolerance), register-tiled from
+  float4 loads of shared rows padded by 4 floats, K/V tiles on a cp.async
+  ring, 256 threads a CTA; the q-block height (64 rows, or 32 where 64 would
+  give the card fewer CTAs than SMs) comes from ``fwd_plan``, the heaviest
+  causal q-blocks first.  Needs 16-byte aligned q, k, v.
 
 Head dims: 16, 32, 64 (whisper, also non-causal with Sq != Sk for its
 cross-attention), 80 (zamba2's shared block), 96 (MLA's qk dim), 128 and 192
@@ -35,6 +39,8 @@ from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
+from typing import Iterator
 
 import torch
 
@@ -43,6 +49,9 @@ from repro_torch.kernels import _build
 HEAD_DIMS = (16, 32, 64, 80, 96, 128, 192)
 PADDED_HEAD_DIMS = {24: 32}  # D -> the instantiated width it is zero-padded to
 LSE_ALIGN = 128  # the log-sum-exp's rows are padded to a multiple of this
+SMS = 132  # streaming multiprocessors of an H100 SXM, the card fwd_plan sizes the grid for
+SMEM_SM = 228 * 1024  # shared memory of an H100 SM (1 KB of it reserved per CTA)
+SMEM_CTA = 227 * 1024  # shared memory a CTA can have
 
 launches = 0  # kernel launches since the last reset (see ops.reset_launch_counts)
 bwd_launches = 0  # the same, of the backward kernel
@@ -66,8 +75,9 @@ def flash_attention(
     if d in PADDED_HEAD_DIMS:
         pad = PADDED_HEAD_DIMS[d] - d
         q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash kernel needs 16-byte aligned bf16 q, k, v (TMA)")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash kernel needs 16-byte aligned q, k, v (TMA for bf16, cp.async for f32)")
+    plan = fwd_plan(b, sq, sk, h, q.shape[3], q.element_size())
     out = torch.empty_like(q)
     ls = lse_stride(sq)
     lse = torch.empty(b, h, ls, dtype=torch.float32, device=q.device) if return_lse else None
@@ -75,18 +85,87 @@ def flash_attention(
         "flash_attention",
         "flash_attention_launch",
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     )
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if return_lse else None, ls,
-        b, sq, sk, h, kv, q.shape[3], scale, int(causal), _build.DTYPES[q.dtype], q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        b, sq, sk, h, kv, q.shape[3], scale, int(causal), _build.DTYPES[q.dtype], plan.block_q,
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check("flash_attention", err)
     launches += 1
     out = out[..., :d]  # a padded D's zero columns dropped; else the whole of out
     return (out, lse[..., :sq]) if return_lse else out
+
+
+@dataclass(frozen=True)
+class FwdPlan:
+    """The forward's launch at one shape (``fwd_plan``)."""
+
+    b: int
+    sq: int
+    h: int
+    block_q: int  # query rows a CTA
+    block_k: int  # keys a K/V tile
+    stages: int  # K/V tiles in flight (the ring's depth)
+    smem: int  # dynamic shared memory of a CTA, bytes
+    per_sm: int  # CTAs an SM holds by shared memory
+    heads_inner: bool  # CTA order: q-block outermost over all sequences (f32), or per sequence (bf16)
+
+    @property
+    def ctas(self) -> int:
+        return -(-self.sq // self.block_q) * self.h * self.b
+
+    def q_blocks(self) -> Iterator[tuple[int, int, int]]:
+        """(sequence, head, first query row) of each CTA in launch order, as
+        the kernel maps its block index: the heaviest causal q-blocks first
+        (the f32 kernel over all sequences at once; the bf16 kernel's grid
+        (H, q-blocks, B) sequence by sequence)."""
+        nqb = -(-self.sq // self.block_q)
+        if self.heads_inner:
+            for idx in range(self.ctas):
+                yield idx % self.b, idx // self.b % self.h, (nqb - 1 - idx // (self.b * self.h)) * self.block_q
+        else:
+            for b in range(self.b):
+                for y in range(nqb):
+                    for h in range(self.h):
+                        yield b, h, (nqb - 1 - y) * self.block_q
+
+
+def fwd_plan(b: int, sq: int, sk: int, h: int, d: int, elem: int) -> FwdPlan:
+    """The forward kernel's launch for q (b, sq, h, d) and sk keys of
+    ``elem``-byte elements, from the shape alone (so the bits do not depend
+    on the card).  bf16 (elem 2): the wgmma kernel's fixed 128-row q-blocks,
+    64-key tiles, 2 stages.  f32 (elem 4): 64-row q-blocks, or 32 where 64
+    would give the card fewer CTAs than SMS (a short grid: smaller blocks
+    balance it); K/V tiles of 64 keys (32 at D = 192), on a ring of 3 stages
+    where two CTAs still fit an SM, else 2, else as deep as one CTA can hold
+    (the layout of ``Fwd<D, BQ>`` in csrc/flash_attention.cu: Q, the K and V
+    stages and P in rows padded by 4 floats, D = 16 and 80 run 32 and 96
+    wide on zero columns, 5 floats a row of partial maxima and sums)."""
+    del sk  # the plan does not depend on it: a CTA walks every key tile it needs
+    d = PADDED_HEAD_DIMS.get(d, d)
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash kernel: head dim {d} not in {HEAD_DIMS}")
+    if elem == 2:
+        bq, bk, ns = 128, 64, 2
+        smem = bq * d * 2 + 2 * ns * bk * d * 2 + 8 * (1 + 2 * ns) + 1024
+        return FwdPlan(b, sq, h, bq, bk, ns, smem, SMEM_SM // (smem + 1024), heads_inner=False)
+    if elem != 4:
+        raise ValueError(f"flash kernel takes 2- or 4-byte elements, got {elem}")
+    dc = {16: 32, 80: 96}.get(d, d)
+    ld, bk = dc + 4, 64 if dc <= 128 else 32
+    bq = 64 if -(-sq // 64) * h * b >= SMS else 32
+
+    def smem(ns: int) -> int:
+        return 4 * (bq * ld + 2 * ns * bk * ld + bq * (bk + 4) + 5 * bq)
+
+    def two(ns: int) -> bool:
+        return 2 * (smem(ns) + 1024) <= SMEM_SM
+
+    ns = 3 if two(3) else 2 if two(2) else 3 if smem(3) <= SMEM_CTA else 2
+    return FwdPlan(b, sq, h, bq, bk, ns, smem(ns), SMEM_SM // (smem(ns) + 1024), heads_inner=True)
 
 
 def lse_stride(sq: int) -> int:

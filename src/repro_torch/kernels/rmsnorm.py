@@ -3,10 +3,16 @@ its gradient (``csrc/rmsnorm_bwd.cu``).
 
 The forward replaces the TPU kernel ``src/repro/kernels/rmsnorm.py``
 (``_rmsnorm_kernel`` / ``fused_rmsnorm``).  Bound on the H100: bytes (one
-read and one write of each element, a few flops each).  The kernel gives
-each row one 128-thread block with 16-byte vector loads and an f32 shuffle
-reduction, and takes ragged row counts without the TPU version's padding
-copy.
+read and one write of each element, a few flops each: N 512 x d 4096 in bf16
+is 2.5 us at 3.35 TB/s; at d <= 2048 the bound is under a microsecond, less
+than a launch costs).  ``fwd_plan`` sizes it from the shape alone: a row to
+a team of the fewest warps (up to 16) whose lanes hold its 16-byte vectors
+(8 bf16 / 4 f32), up to 8 a lane, in registers between the sum of squares
+and the write (x read once; bf16 packed), and w read into registers once a
+CTA; at most one wave of CTAs striding over the rows, so a ragged row count
+needs no padding copy; a programmatic dependent launch, so that its start
+overlaps the previous kernel's end.  Rows that are not whole vectors
+take one element a lane; rows too wide for registers a two-pass CTA.
 
 The backward has no TPU counterpart (the JAX package differentiates its
 plain rmsnorm); see ``fused_rmsnorm_bwd``.
@@ -23,6 +29,16 @@ from repro_torch.kernels import _build
 
 launches = 0  # kernel launches since the last reset (see ops.reset_launch_counts)
 bwd_launches = 0  # the same, of the backward kernel
+
+SMS = 132  # streaming multiprocessors of an H100 SXM, the card the plans size a wave for
+
+# The forward's launch plan (``fwd_plan``), in the kernel's limits
+FWD_NV = 8  # 16-byte vectors (or elements) of a row a lane holds in registers at most
+FWD_TEAM_WARPS = 16  # warps of a row's team at most (512 threads: <= 128 registers a thread)
+FWD_CTA = 128  # threads of a CTA of narrower teams
+FWD_STREAM_THREADS = 1024  # the two-pass CTA of a row too wide for registers
+THREADS_SM = 2048  # threads an SM holds
+REGS_SM = 65536  # 32-bit registers of an SM
 
 # The backward's launch plan (``bwd_plan``), in the kernel's limits
 TILES = 256  # row tiles (CTAs and dw partials) at most
@@ -48,20 +64,60 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> int:
     return d
 
 
+def fwd_regs(nv: int, vector: bool) -> int:
+    """The registers a thread of the forward's ``nv`` instantiation needs at
+    most, as the plan counts them for its wave (``chip_smoke.py``'s build
+    report holds ptxas's counts to it): x and w held (bf16 packed, two
+    values a register), 10 registers a pair of 16-byte vectors or 2 a pair
+    of elements, beside 40 (48 on the scalar path) of addresses and sums;
+    64 on the two-pass path."""
+    if nv == 0:
+        return 64
+    return 40 + 10 * nv if vector else 48 + 2 * nv
+
+
+def fwd_plan(n: int, d: int, elem_size: int, vector: bool) -> tuple[int, int, int, int]:
+    """(team_warps, threads, grid, nv) of the forward on n rows of d elements
+    of ``elem_size`` bytes, from the shape alone.  A row's lanes are its
+    16-byte vectors (``vector``) or its elements; a team of ``team_warps``
+    warps (the fewest, a power of two up to FWD_TEAM_WARPS) holds them, nv
+    a lane (a power of two up to FWD_NV); rows wider than that take the
+    two-pass CTA (nv 0, FWD_STREAM_THREADS threads).  CTAs of FWD_CTA
+    threads hold several teams; ``grid`` is at most one wave of them (by
+    threads and ``fwd_regs`` on SMS SMs), striding over the rows."""
+    lanes = d * elem_size // 16 if vector else d
+    warps = 1
+    while warps < FWD_TEAM_WARPS and lanes > FWD_NV * 32 * warps:
+        warps *= 2
+    if lanes > FWD_NV * 32 * warps:
+        warps, nv, threads = FWD_STREAM_THREADS // 32, 0, FWD_STREAM_THREADS
+    else:
+        nv = 1 << (-(-lanes // (32 * warps)) - 1).bit_length()
+        threads = max(FWD_CTA, 32 * warps)
+    teams = threads // (32 * warps)
+    per_sm = max(1, min(THREADS_SM // threads, REGS_SM // (threads * fwd_regs(nv, vector))))
+    grid = max(1, min(-(-n // teams), SMS * per_sm))
+    return warps, threads, grid, nv
+
+
 def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """x: (..., d), w: (d,), both CUDA, same dtype (f32 or bf16), contiguous."""
     global launches
     d = _check(x, w)
+    n = x.numel() // d
     out = torch.empty_like(x)
+    vector = all(t.data_ptr() % 16 == 0 for t in (x, w, out)) and d * x.element_size() % 16 == 0
+    team_warps, threads, grid, nv = fwd_plan(n, d, x.element_size(), vector)
     fn = _build.function(
         "rmsnorm",
         "rmsnorm_launch",
         [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_float]
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     )
     err = fn(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), x.numel() // d, d, eps,
-        _build.DTYPES[x.dtype], x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), n, d, eps, team_warps, threads, grid, nv,
+        int(vector), _build.DTYPES[x.dtype], x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check("rmsnorm", err)
     launches += 1

@@ -183,6 +183,105 @@ def test_decode_plan_splits_the_heads_into_groups(n_rep, groups, b, kv, s, d, el
         assert sorted(rows) == list(range(length))
 
 
+FWD_PLAN_SHAPES = [  # b, sq, h: the serving prefill, olmoe, MLA, whisper's encoder, the train
+    # microbatch, ragged and tiny ones
+    (1, 512, 32), (1, 512, 16), (1, 512, 40), (1, 1500, 20), (4, 2048, 32), (2, 133, 8), (3, 1, 5),
+]
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("d", [16, 24, 32, 64, 80, 96, 128, 192])
+@pytest.mark.parametrize("b,sq,h", FWD_PLAN_SHAPES)
+def test_flash_fwd_plan(b, sq, h, d, elem):
+    """The forward's launch from the shape alone: the CTAs' q-blocks cover
+    every query row of every (sequence, head) once, heaviest causal q-block
+    first (the f32 kernel over all sequences, the bf16 one sequence by
+    sequence); a CTA's shared memory fits 227 KB at every head dim; f32
+    takes 64-row q-blocks unless that gives fewer CTAs than SMs, and
+    its ring as deep as keeps two CTAs an SM where they fit (every D up to
+    64), else as deep as one CTA holds."""
+    from repro_torch.kernels import flash_attention as flash
+
+    plan = flash.fwd_plan(b, sq, 777, h, d, elem)
+    assert plan == flash.fwd_plan(b, sq, 1, h, d, elem)  # the keys do not move it
+    assert plan.smem <= flash.SMEM_CTA and plan.per_sm >= 1
+    n64 = -(-sq // 64) * h * b
+    if elem == 2:
+        assert (plan.block_q, plan.block_k, plan.stages) == (128, 64, 2)
+    else:
+        assert plan.block_q == (64 if n64 >= flash.SMS else 32)
+        assert plan.block_k == (32 if d == 192 else 64) and plan.stages in (2, 3)
+        assert plan.per_sm >= 2 if d <= 64 else plan.per_sm == 1
+    blocks = list(plan.q_blocks())
+    assert len(blocks) == plan.ctas
+    seen = np.zeros((b, h, sq), dtype=np.int64)
+    for sb, hh, q0 in blocks:
+        assert q0 % plan.block_q == 0 and 0 <= q0 < sq
+        seen[sb, hh, q0:q0 + plan.block_q] += 1
+    assert (seen == 1).all()
+    starts = [q0 for _, _, q0 in blocks]
+    if elem == 4:
+        assert starts == sorted(starts, reverse=True)
+    else:
+        for sb in range(b):
+            mine = [q0 for x, _, q0 in blocks if x == sb]
+            assert mine == sorted(mine, reverse=True)
+
+
+def test_flash_fwd_plan_rejects_other_head_dims():
+    from repro_torch.kernels import flash_attention as flash
+
+    with pytest.raises(ValueError, match="head dim"):
+        flash.fwd_plan(1, 8, 8, 2, 72, 4)
+
+
+RMS_PLAN_D = [1, 13, 256, 768, 1001, 1280, 2560, 4096, 18432]
+
+
+@pytest.mark.parametrize("n", [1, 37, 512, 8192])
+@pytest.mark.parametrize("d", RMS_PLAN_D)
+@pytest.mark.parametrize("elem,vector", [(2, True), (4, True), (2, False), (4, False)])
+def test_rmsnorm_fwd_plan(elem, vector, d, n):
+    """The forward's launch from the shape alone: a team of the fewest warps
+    holds a row, each lane a power of two of its vectors (or elements) up to
+    FWD_NV in registers (the two-pass CTA only for rows wider than
+    FWD_TEAM_WARPS warps can hold); CTAs of multiples of 32 threads up to
+    the kernel's limits, whole teams each; at most one wave of them (by
+    threads and registers on SMS SMs); and the CTAs' row stride covers
+    every row once."""
+    from repro_torch.kernels import rmsnorm as rms
+
+    vector = vector and d * elem % 16 == 0  # a row that is not whole vectors takes the scalar path
+    warps, threads, grid, nv = rms.fwd_plan(n, d, elem, vector)
+    assert rms.fwd_plan(n, d, elem, vector) == (warps, threads, grid, nv)
+    lanes, most = (d * elem // 16 if vector else d), rms.FWD_NV
+    assert threads % 32 == 0 and threads % (32 * warps) == 0
+    if nv == 0:
+        assert lanes > most * 32 * rms.FWD_TEAM_WARPS and threads == 32 * warps == rms.FWD_STREAM_THREADS
+    else:
+        assert nv & (nv - 1) == 0 and 1 <= nv <= most and warps <= rms.FWD_TEAM_WARPS and threads <= 512
+        assert (nv // 2) * 32 * warps < lanes <= nv * 32 * warps
+        assert warps == 1 or lanes > most * 16 * warps  # the fewest warps that hold the row
+    per_sm = min(rms.THREADS_SM // threads, rms.REGS_SM // (threads * rms.fwd_regs(nv, vector)))
+    assert 1 <= grid <= rms.SMS * max(1, per_sm)  # one wave
+    teams = threads // (32 * warps)
+    covered = np.zeros(n, dtype=np.int64)
+    for cta in range(grid):
+        for base in range(cta * teams, n, grid * teams):
+            rows = np.arange(base, min(base + teams, n))
+            covered[rows] += 1
+    assert (covered == 1).all()
+
+
+def test_rmsnorm_fwd_plan_takes_two_passes_past_the_registers():
+    from repro_torch.kernels import rmsnorm as rms
+
+    assert rms.fwd_plan(4, 16384, 4, True)[:2] == (16, 512)  # 4096 f32 vectors: 16 warps of 8
+    assert rms.fwd_plan(4, 18432, 2, True)[:2] == (16, 512)  # nemotron's 2304 bf16 vectors
+    assert rms.fwd_plan(4, 16388, 4, True) == (32, 1024, 4, 0)
+    assert rms.fwd_plan(4, 40000, 2, True)[3] == 0 and rms.fwd_plan(4, 4097, 4, False)[3] == 0
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels against their plain versions (on the card only)
 # ---------------------------------------------------------------------------
@@ -725,3 +824,80 @@ def test_ops_gradients_go_through_the_backward_kernels(cuda, dt):
     for g, want in zip(grads["kernel"], grads["ref"]):
         scale = max(1.0, float(np.abs(want).max()))
         np.testing.assert_allclose(g, want, atol=TOL[dt]["atol"] * scale, rtol=TOL[dt]["rtol"])
+
+
+# ---------------------------------------------------------------------------
+# The forward kernels' designs for the card: the f32 flash forward and the
+# rmsnorm forward at every head dim and width their plans take
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rep", [1, 4, 6, 12])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 24, 32, 64, 80, 96, 128, 192])
+def test_flash_f32_forward_every_head_dim(cuda, d, causal, n_rep):
+    """The f32 forward at every head dim (24 zero-padded to 32), causal and
+    full, ragged Sq 133 != Sk 197 (past the ring's 32- and 64-key tiles), n_rep
+    1-12, the default and a non-default scale: against the plain version at
+    3e-5, the log-sum-exp too, the output bit-equal with and without it, and
+    two runs bit-equal."""
+    from repro_torch.kernels import flash_attention as flash
+
+    q = _rand(60, (2, 133, 2 * n_rep, d), "f32", cuda)
+    k, v = _rand(61, (2, 197, 2, d), "f32", cuda), _rand(62, (2, 197, 2, d), "f32", cuda)
+    for scale in (None, 0.3):
+        kw = dict(causal=causal, softmax_scale=scale)
+        o, lse = flash.flash_attention(q, k, v, return_lse=True, **kw)
+        again = flash.flash_attention(q, k, v, **kw)
+        assert torch.equal(o, again)
+        _close(o, ref.flash_attention_ref(q, k, v, **kw), "f32")
+        _close(lse, ref.flash_attention_lse_ref(q, k, **kw), "f32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_q", [32, 64])
+@pytest.mark.parametrize("d", [16, 24, 32, 64, 80, 96, 128, 192])
+def test_flash_f32_forward_both_block_heights(cuda, d, block_q):
+    """Both q-block heights fwd_plan picks (32 rows for 68 CTAs of 64, 64 rows
+    for 544): 1031 causal query rows over 900 keys (rows past Sk see every
+    key), against the plain version at 3e-5, two runs bit-equal; the bits do
+    not depend on the height (a 64-row run's heads equal the same heads run
+    alone in 32-row blocks)."""
+    from repro_torch.kernels import flash_attention as flash
+
+    h, kv = (4, 4) if block_q == 32 else (16, 4)
+    assert flash.fwd_plan(2 if block_q == 64 else 1, 1031, 900, h, d, 4).block_q == block_q
+    b = 2 if block_q == 64 else 1
+    q = _rand(63, (b, 1031, h, d), "f32", cuda)
+    k, v = _rand(64, (b, 900, kv, d), "f32", cuda), _rand(65, (b, 900, kv, d), "f32", cuda)
+    got = flash.flash_attention(q, k, v)
+    assert torch.equal(got, flash.flash_attention(q, k, v))
+    _close(got, ref.flash_attention_ref(q, k, v), "f32")
+    if block_q == 64:  # one KV head's group of one sequence: 68 q-blocks of 64, so 32-row blocks
+        one = flash.flash_attention(*(t[:1, :, :m].contiguous() for t, m in ((q, 4), (k, 1), (v, 1))))
+        assert torch.equal(one, got[:1, :, :4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 37, 512, 8192])
+@pytest.mark.parametrize("d", RMS_PLAN_D + [40000])
+def test_rmsnorm_forward_every_width(cuda, d, n, dt):
+    """The rmsnorm forward at every width its plan sees (one warp to 16 warps
+    a row, the scalar path at d 1, 13 and 1001, the two-pass CTA at d 40000)
+    and 1 to 8192 rows, against the plain version at the reference's
+    tolerance, two runs bit-equal; also from a view 4 bytes off 16-byte
+    alignment (the scalar path at any d)."""
+    if n * d > 8192 * 4096:
+        n = 8192 * 4096 // d  # the widest rows at as many as 128 MB of f32 holds
+    x, w = _rand(66, (n, d), dt, cuda), 1 + _rand(67, (d,), dt, cuda, 0.3)
+    before = ops.launch_counts()["rmsnorm"]
+    got = ops.rmsnorm(x, w, impl="kernel")
+    assert torch.equal(got, ops.rmsnorm(x, w, impl="kernel"))
+    assert ops.launch_counts()["rmsnorm"] == before + 2
+    _close(got, ref.rmsnorm_ref(x, w), dt)
+    flat = torch.empty(n * d + 2, device=cuda, dtype=x.dtype)
+    off = flat[2:].view(n, d)  # 4 (bf16) or 8 (f32) bytes past the allocation's alignment
+    off.copy_(x)
+    _close(ops.rmsnorm(off, w, impl="kernel"), ref.rmsnorm_ref(x, w), dt)
