@@ -39,21 +39,34 @@ Run from the root of a checkout.  Phases, each of which must pass:
               log-sum-exp output (the training path's call) against its
               plain version, the output bit-equal to the call without it,
               and in bf16 timed beside that call; a one-element PyTorch add
-              timed the same way, the launch floor, beside each rmsnorm row
-  3. parity   granite-8b, qwen1.5-4b and minicpm3-4b at full width, 2 layers:
-              the kernel path and the plain path agree over a 512-token
-              prefill and 16 decode steps (f32: equal token ids; bf16: as
-              close to the f32 run as the plain path)
+              timed the same way, the launch floor, beside each rmsnorm row;
+              the decode kernel over an int8 cache with its scales
+              (decode_attention_int8), bf16 and f32 q, at the serving shape,
+              grok-1's n_rep 6, nemotron's 12 at D = 192, whisper's D = 64,
+              zamba2's D = 80 and 8 x 32/8 x 32768 x 128, timed cold beside
+              its plain version and, as another function, SDPA over the
+              cache dequantized to bf16 beforehand
+  3. parity   granite-8b, qwen1.5-4b and minicpm3-4b at full width, 2 layers,
+              and granite-8b and qwen1.5-4b with kv_quant: the kernel path
+              and the plain path agree over a 512-token prefill and 16
+              decode steps (f32: equal token ids; bf16: as close to the f32
+              run as the plain path)
   4. serve    granite-8b, 36 layers, bf16, random weights from a seed:
-              InstanceEngine (4 slots, max_seq 1024) answers 8 requests of 512
-              prompt tokens and 32 new tokens; launch counts must match the path
+              InstanceEngine (4 slots, max_seq 1024; its decode step a CUDA
+              graph captured at the first admission, timed apart) answers 8
+              requests of 512
+              prompt tokens and 32 new tokens; launch counts must match the
+              path, and the tokens must equal those of the same engine
+              stepping eagerly
   5. live     cooperative_forward equals train_forward bit for bit for k in
               {0, 1, 18, 36} (granite-8b) and {0, 1, 31, 62} (the 62-layer
               minicpm3-4b)
-  6. profile  torch.profiler over 3 full-batch decode steps and over one idle
-              512-token prefill: device time by kernel, the share of the step
-              or of the TTFT the card is busy, and the attention kernels'
-              launches per step / prefill
+  6. profile  torch.profiler over 3 full-batch decode steps, captured and
+              eager, and over one idle 512-token prefill: device time by
+              kernel, the share of the step or of the TTFT the card is busy,
+              the host's launch calls, and the attention kernels' launches
+              per step / prefill, each window held to L of them (a record
+              the profiler lost excused only as that window shows it)
   7. cluster  the serving CLI's paths (repro_torch.launch.serve) on phase 4's
               36-layer weights, every engine on that one parameter dict:
               (a) the colocated loop, 16 requests of 512 + 32 tokens, until
@@ -64,6 +77,16 @@ Run from the root of a checkout.  Phases, each of which must pass:
               engine: first tokens bit-equal, a later divergence only at a
               bf16 near tie.  The modelled cluster's 8 devices all compute on
               this one card; the network between them is the flow model.
+ 7b. long     granite-8b whole (phase 4's weights), its caches filled to
+              32768 tokens a slot by write_prompt_kv from seeded random K/V
+              (no prefill): the captured decode step at 8 slots with the
+              int8 cache and with bf16 and at 16 slots with int8 (~40 GB,
+              where bf16 would need 77.5 GB), each cache freed before the
+              next: the decode kernel on layer 0's filled cache against its
+              plain version (a flat and a peaked softmax), the first step's
+              tokens equal to the eager step's, wall ms, profiled device ms
+              (the window held to 3L decode launches), byte bound, peak
+              memory
   8. maas     run_maas, the CLI's --maas path, serving granite-8b (phase 4's
               weights), qwen1.5-4b and minicpm3-4b (phase 5's) at full width
               and depth on one fleet: 24 requests of 128 + 16 tokens on the
@@ -75,10 +98,10 @@ Run from the root of a checkout.  Phases, each of which must pass:
               flash and decode at head dim 80) at full width, after phase 8's
               models are freed: (a) parity as in phase 3, cut to 2 layers
               (zamba2 to 6: one shared-block site); (b) the colocated CLI
-              loop at full depth, 8 requests of 512 + 32 tokens on 4 slots,
-              launches exact (zamba2: flash and decode 9 per prefill or
-              step); the idle prefill and the decode step on the wall clock
-              and profiled, peak memory; (c) the live split bit for bit at k
+              loop at full depth, 16 requests of 512 + 32 tokens on 4
+              slots, launches exact (zamba2: flash and decode 9 per prefill
+              or step); the idle prefill and the decode step, captured and
+              eager, on the wall clock and profiled, peak memory; (c) the live split bit for bit at k
               in {0, 1, L/2, L}; (d) zamba2's --disagg, every handoff done
  10. last     grok-1-314b (MoE, n_rep 6), nemotron-4-340b (squared ReLU, D =
               192, n_rep 12), whisper-large-v3 (enc-dec) and pixtral-12b
@@ -91,10 +114,12 @@ Run from the root of a checkout.  Phases, each of which must pass:
               plain path's distance; (b) grok-1 and nemotron
               cut to 2 layers (628 and 680 GB in bf16 whole) and pixtral
               whole through the colocated CLI loop, 8 requests of 512 + 32
-              tokens on 4 slots, launches exact, the idle prefill and the
-              decode step timed and profiled; whisper whole at the model
-              API (the engine passes no frames): 4 prompts of 512 tokens
-              with 1500 frames, 32 steps, launches exact, timed and
+              tokens on 4 slots (pixtral 16), launches exact, the idle
+              prefill and the decode step (captured and eager) timed and
+              profiled; whisper whole at the model API (the engine passes
+              no frames): 4 prompts of 512 tokens with 1500 frames, 32
+              steps, launches exact, then an engine's captured step over
+              caches that prefill filled, beside the eager step, timed and
               profiled; (c) the live split of pixtral and whisper bit for
               bit at k in {0, 1, L/2, L}
  11. train    after phase 10's models are freed: (a) the flash backward
@@ -124,8 +149,10 @@ Run from the root of a checkout.  Phases, each of which must pass:
               (d) torch.profiler over one more step (also the backward
               kernels' time by launch within it)
 
-It prints one JSON ``kernels`` line and the card's name and power limit before
-its last line, which is ``{"ok": true, "device": {...}}``.  It exits non-zero,
+It prints one JSON ``kernels`` line (the three forward kernels, the decode
+kernel over the int8 cache with its launches in phase 7b, and the two
+backward kernels) and the card's name and power limit before its last
+line, which is ``{"ok": true, "device": {...}}``.  It exits non-zero,
 printing no result, without a CUDA device or outside a checkout.  With
 ``--log-dir`` it also writes the nvcc logs, every measurement and the
 decode-step and prefill traces there.
@@ -157,7 +184,8 @@ SEED = 0
 TIMED = ("main", "mla", "olmoe", "mamba2", "zamba2", "olmoe-serve", "zamba2-serve",
          "grok", "grok-serve", "nemotron", "nemotron-serve", "whisper", "whisper-enc",
          "whisper-cross", "whisper-serve", "whisper-self", "whisper-self-b4", "whisper-enc-b4",
-         "whisper-cross-b4", "pixtral", "pixtral-serve", "train")
+         "whisper-cross-b4", "pixtral", "pixtral-serve", "train", "int8-grok", "int8-nemotron",
+         "int8-whisper", "int8-zamba2", "int8-long", "long", "int8-long16")
 
 KERNELS = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:23"),
@@ -170,6 +198,13 @@ KERNELS = {
         "src/repro/kernels/decode_attention.py:36",
     ),
 }
+# the decode kernel over an int8 cache: the int8 branch of the reference's
+# jnp decode (its Pallas kernel takes no int8); one launch counter with the
+# bf16 decode, read over the long-context phase's int8 steps
+INT8_DECODE = (
+    "decode_attention_int8", "src/repro_torch/kernels/csrc/decode_attention.cu",
+    "src/repro/models/layers.py:decode_attention_reference (int8 branch; jnp, no Pallas kernel)",
+)
 
 
 class SmokeFailure(RuntimeError):
@@ -243,14 +278,22 @@ def bound(nbytes: float, flops: float, dt: str) -> tuple[float, str]:
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
-def max_err(torch, got, want, dt: str) -> float:
-    """Max |got - want|; raises unless |got - want| <= tol + tol*|want| everywhere."""
+def max_err(torch, got, want, dt: str, scaled: bool = False) -> float:
+    """Max |got - want|; raises unless |got - want| <= tol + tol*|want|
+    everywhere, and with ``scaled`` also unless it is <= tol * max|want|.
+    The second criterion is for outputs far below 1, where the first would
+    let an error as large as the output itself pass: decode attention over
+    n rows of unit-scale V averages them to about n**-0.5 (0.0055 at 32k)."""
     g, w = got.float(), want.float()
     check(bool(torch.isfinite(g).all()), "kernel output is not finite")
     diff = (g - w).abs()
     ok = bool((diff <= TOL[dt] + TOL[dt] * w.abs()).all())
     err = float(diff.max())
     check(ok, f"kernel disagrees with its plain version: max abs err {err} (tol {TOL[dt]})")
+    if scaled:
+        top = float(w.abs().max())
+        check(err <= TOL[dt] * top, f"kernel disagrees with its plain version: max abs err {err} "
+              f"> {TOL[dt]} x the output's largest magnitude {top}")
     return err
 
 
@@ -329,6 +372,12 @@ def kernel_cases(torch, dt: str):
         q, k, v = randn(1, s, h, d), randn(1, s, h, d), randn(1, s, h, d)
         v[..., vdim:] = 0
         return q, k, v
+
+    def int8(b, h, kv, s, d, *lengths):  # an int8 cache quantized by the cache's own writer
+        from repro_torch.models.kvcache import quantize_kv
+
+        (kq, ks), (vq, vs) = (quantize_kv(randn(b, kv, s, d)) for _ in range(2))
+        return randn(b, h, d), kq, vq, lens(*lengths), ks, vs
 
     return [
         ("rmsnorm", "main N=512 d=4096", lambda: (randn(512, 4096), randn(4096)), {}),
@@ -472,6 +521,29 @@ def kernel_cases(torch, dt: str):
         ("decode_attention", "pixtral-serve B=4 H=32 KV=8 S=552 D=128 lengths 0, 512, 530, 544",
          lambda: (randn(4, 32, 128), randn(4, 8, 552, 128), randn(4, 8, 552, 128),
                   lens(0, 512, 530, 544)), {}),
+        # the int8 cache (kv_quant) under q of the case's dtype: the serving
+        # shape, the n_rep and head dims of phases 9 and 10 (grok's 6,
+        # nemotron's 12 at D = 192, whisper's D = 64, zamba2's D = 80) at
+        # their served S = 552, and the long-context phase's 8 and 16 x 32k;
+        # each timed cold
+        ("decode_attention_int8", "main B=4 H=32 KV=8 S=1024 D=128 int8 lengths 1, 300, 517, 1024",
+         lambda: int8(4, 32, 8, 1024, 128, 1, 300, 517, 1024), {}),
+        ("decode_attention_int8", "int8-grok B=4 H=48 KV=8 S=552 D=128 lengths 0, 512, 530, 544",
+         lambda: int8(4, 48, 8, 552, 128, 0, 512, 530, 544), {}),
+        ("decode_attention_int8", "int8-nemotron B=4 H=96 KV=8 S=552 D=192 lengths 0, 512, 530, 544",
+         lambda: int8(4, 96, 8, 552, 192, 0, 512, 530, 544), {}),
+        ("decode_attention_int8", "int8-whisper B=4 H=20 KV=20 S=552 D=64 lengths 0, 512, 530, 544",
+         lambda: int8(4, 20, 20, 552, 64, 0, 512, 530, 544), {}),
+        ("decode_attention_int8", "int8-zamba2 B=4 H=32 KV=32 S=552 D=80 lengths 0, 512, 530, 544",
+         lambda: int8(4, 32, 32, 552, 80, 0, 512, 530, 544), {}),
+        ("decode_attention_int8", "int8-long B=8 H=32 KV=8 S=32768 D=128 lengths 32768 x 7, 30001",
+         lambda: int8(8, 32, 8, 32768, 128, *([32768] * 7), 30001), {}),
+        ("decode_attention_int8", "int8-long16 B=16 H=32 KV=8 S=32768 D=128 lengths 32768 x 15, 30001",
+         lambda: int8(16, 32, 8, 32768, 128, *([32768] * 15), 30001), {}),
+        # the long-context phase's bf16 cache beside its int8 one
+        ("decode_attention", "long B=8 H=32 KV=8 S=32768 D=128 lengths 32768 x 7, 30001",
+         lambda: (randn(8, 32, 128), randn(8, 8, 32768, 128), randn(8, 8, 32768, 128),
+                  lens(*([32768] * 7), 30001)), {}),
         # phase 11's train loop, one microbatch of 4 x 2048 tokens: the
         # forward kernels (and their recompute under remat); each timed
         ("rmsnorm", "train N=8192 d=4096", lambda: (randn(8192, 4096), randn(4096)), {}),
@@ -496,18 +568,23 @@ def work(name: str, inputs, kw, dt: str) -> tuple[float, float]:
         sk, kv = k.shape[1], k.shape[2]
         pairs = sum(min(i + 1, sk) for i in range(sq)) if kw.get("causal", True) else sq * sk
         return (2 * b * sq * h * d + 2 * b * sk * kv * d) * es, 4 * b * h * d * pairs
-    q, k, _, lengths = inputs
+    q, k, _, lengths = inputs[:4]
     b, h, d = q.shape
     kv = k.shape[1]
     rows = int(lengths.clamp(0, k.shape[2]).sum())
+    if name == "decode_attention_int8":  # int8 rows and their two f32 scales
+        return 2 * b * h * d * es + rows * kv * (2 * d + 8) + 4 * b, 4 * h * d * rows
     return (2 * b * h * d + 2 * rows * kv * d) * es + 4 * b, 4 * h * d * rows
 
 
 def library_call(torch, name: str, inputs, kw):
     """One PyTorch call computing the same function, as a function of an
     input set (timed only, never used by the port).  For decode attention the
-    mask is built once: the cold copies share the lengths' values."""
+    mask is built once: the cold copies share the lengths' values.  None
+    for the int8 decode: no PyTorch call takes an int8 cache with scales."""
     F = torch.nn.functional
+    if name == "decode_attention_int8":
+        return None
     if name == "rmsnorm":
         return lambda x, w: F.rms_norm(x, (x.shape[-1],), w, 1e-5)
     if name == "flash_attention":
@@ -517,6 +594,18 @@ def library_call(torch, name: str, inputs, kw):
     _, k, _, lengths = inputs
     mask = (torch.arange(k.shape[2], device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
     return lambda q, k, v, _lengths: F.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
+
+
+def dequant_sdpa(torch, inputs):
+    """Beside the int8 decode, a different function: SDPA over the cache
+    dequantized to bf16 beforehand (not timed), as a function of an input
+    set, and the dequantized input sets' bytes."""
+    F = torch.nn.functional
+    q, kq, vq, lengths, ks, vs = inputs
+    k, v = ((c.to(torch.bfloat16) * s[..., None]).to(torch.bfloat16) for c, s in ((kq, ks), (vq, vs)))
+    mask = (torch.arange(k.shape[2], device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+    return (q.to(torch.bfloat16), k, v), lambda q, k, v: F.scaled_dot_product_attention(
         q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
 
 
@@ -541,10 +630,16 @@ def check_forward_lse(torch, ref, inputs, kw, dt: str) -> dict:
 def phase_kernels(torch, ops, ref) -> dict:
     from repro_torch.kernels import flash_attention as fk
 
+    def int8_kernel(q, k, v, lengths, ks, vs, **kw):
+        return ops.decode_attention(q, k, v, lengths, k_scale=ks, v_scale=vs, **kw)
+
+    def int8_plain(q, k, v, lengths, ks, vs, **kw):
+        return ref.decode_attention_ref(q, k, v, lengths, k_scale=ks, v_scale=vs, **kw)
+
     kernel_fn = {"rmsnorm": ops.rmsnorm, "flash_attention": ops.flash_attention,
-                 "decode_attention": ops.decode_attention}
+                 "decode_attention": ops.decode_attention, "decode_attention_int8": int8_kernel}
     plain_fn = {"rmsnorm": ref.rmsnorm_ref, "flash_attention": ref.flash_attention_ref,
-                "decode_attention": ref.decode_attention_ref}
+                "decode_attention": ref.decode_attention_ref, "decode_attention_int8": int8_plain}
     one = torch.zeros(1, device="cuda")
     floor = time_ms(torch, {"add": lambda t: t + 1}, [(one,)])["add"]
     results = {("launch_floor",): {"kernel": "launch floor", "case": "one-element torch add", "ms": floor}}
@@ -555,25 +650,28 @@ def phase_kernels(torch, ops, ref) -> dict:
             got = kernel_fn[name](*inputs, impl="kernel", **kw)
             torch.cuda.synchronize()
             want = plain_fn[name](*inputs, **kw)
-            if name == "decode_attention":
+            if name.startswith("decode_attention"):
                 # a row of length 0 gives 0, as the TPU kernel's acc / max(l,
                 # 1e-30) does; the plain oracle averages V there
                 want[inputs[3] == 0] = 0
-            err = max_err(torch, got, want, dt)
-            row = {"kernel": name, "case": case, "dtype": dt, "max_abs_err": err}
+            err = max_err(torch, got, want, dt, scaled=name.startswith("decode_attention"))
+            row = {"kernel": name, "case": case, "dtype": dt, "max_abs_err": err,
+                   "want_max_abs": float(want.float().abs().max())}
             tag = case.split()[0]
             lse = name == "flash_attention" and tag in LSE_TIMED
             if lse:
                 row.update(check_forward_lse(torch, ref, inputs, kw, dt))
             if tag in TIMED:
                 nbytes, flops = work(name, inputs, kw, dt)
-                cold = name == "decode_attention" or nbytes > L2_BYTES / 2
+                cold = name.startswith("decode_attention") or nbytes > L2_BYTES / 2
                 sets = cold_sets(inputs) if cold else [inputs]
                 fns = {
                     "plain": lambda *a: plain_fn[name](*a, **kw),
                     "kernel": lambda *a: kernel_fn[name](*a, impl="kernel", **kw),
                     "library": library_call(torch, name, inputs, kw),
                 }
+                if fns["library"] is None:
+                    del fns["library"]
                 if lse and dt == "bf16":  # the training path's forward, beside serving's
                     fns["kernel_lse"] = lambda *a: fk.flash_attention(*a, return_lse=True, **kw)
                 if name == "rmsnorm":  # each call after a plain kernel, as on the model's path
@@ -581,8 +679,14 @@ def phase_kernels(torch, ops, ref) -> dict:
                     fns["add_kernel"] = lambda *a: (one + 1, kernel_fn[name](*a, impl="kernel", **kw))
                 times = time_ms(torch, fns, sets)
                 row.update(ms=times["kernel"], plain_ms=times["plain"],
-                           library_ms=times["library"], bytes=nbytes, flops=flops,
+                           library_ms=times.get("library"), bytes=nbytes, flops=flops,
                            timed="cold" if len(sets) > 1 else "warm", copies=len(sets))
+                if name == "decode_attention_int8":  # SDPA over a bf16 copy: another function
+                    dq_sets = [dequant_sdpa(torch, inp) for inp in sets]
+                    fn = dq_sets[0][1]
+                    row["dequant_bf16_sdpa_ms"] = time_ms(torch, {"sdpa": fn},
+                                                          [d for d, _ in dq_sets])["sdpa"]
+                    del dq_sets
                 if "kernel_lse" in times:
                     row["lse_ms"] = times["kernel_lse"]
                 if name == "rmsnorm":
@@ -664,7 +768,7 @@ def phase_parity(torch, np, ops, TF, base_cfg, n_layers: int = 2, prompt_len: in
     The bf16 weights are the f32 ones cast leaf by leaf in place, each f32
     leaf freed as its bf16 copy is made: nemotron's one-layer cut is 51.5 GB
     in f32, and a whole bf16 copy beside it would not fit the card."""
-    tag = base_cfg.name
+    tag = base_cfg.name + (" kv_quant" if cut.get("kv_quant") else "")
     V = base_cfg.vocab_size
     max_seq = max(1024, prompt_len + 64)
     prompt = np.random.default_rng(SEED).integers(0, V, size=(1, prompt_len))
@@ -800,6 +904,15 @@ def phase_serve(torch, np, ops, TF, cfg, engine_mod, params) -> dict:
         ttft.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
 
+    # the capture the first admission makes, timed apart from serving: a
+    # warm-up step and the capture, and the memory its graph pool keeps
+    reserved0 = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    eng._capture()
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    capture_mib = (torch.cuda.memory_reserved() - reserved0) / 2**20
+
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     steps0 = eng.steps
@@ -834,6 +947,18 @@ def phase_serve(torch, np, ops, TF, cfg, engine_mod, params) -> dict:
     logits, _ = TF.prefill_logits(cfg, params, tok, TF.init_caches(cfg, 1, max_seq, device="cuda"))
     check(bool(torch.isfinite(logits[:, : cfg.vocab_size]).all()), "serve: logits not finite")
 
+    # the captured step against an eager loop of TF.decode_step over the same
+    # prompts and the same kind of caches: an engine that never captures
+    # steps eagerly on its buffers (_decode_all, the captured region)
+    eager = engine_mod.InstanceEngine(cfg, params, n_slots=n_slots, max_seq=max_seq)
+    eager._capture_pending = False
+    for i, p in enumerate(prompts):
+        eager.submit(engine_mod.ServeRequest(i, p, new_tokens))
+    want_tokens = {r.rid: r.out_tokens for r in eager.run_until_done()}
+    check({r.rid: r.out_tokens for r in done} == want_tokens,
+          "serve: the captured engine's tokens differ from the eager loop's")
+    del eager
+
     step_ms = sorted(decode_step_ms)[len(decode_step_ms) // 2]
     row = {
         "requests": n_req, "prompt_tokens": prompt_len, "new_tokens": new_tokens,
@@ -842,7 +967,9 @@ def phase_serve(torch, np, ops, TF, cfg, engine_mod, params) -> dict:
         "tokens_per_s": n_req * new_tokens / wall_s,
         "pure_decode_steps": len(decode_step_ms), "decode_step_ms_median": step_ms,
         "decode_tokens_per_s_full_batch": n_slots / (step_ms / 1e3),
-        "peak_mem_gib": peak_gib, "launches": counts,
+        "peak_mem_gib": peak_gib, "launches": counts, "tokens_equal_to_eager_loop": True,
+        "graph_launches_per_step": eng._graph_launches, "capture_ms": capture_ms,
+        "capture_reserved_mib": capture_mib,
     }
     log("[serve] " + json.dumps(row))
     return row
@@ -930,13 +1057,18 @@ def phase_live(torch, np, ops, TF, live, cfg, params, seq: int = 128, frames=Non
 # ---------------------------------------------------------------------------
 
 
-LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+               "cudaGraphLaunch", "cuGraphLaunch")
+DEVICE_RECORDS = ("kernel", "gpu_memcpy", "gpu_memset")  # trace categories of device activity
+TRACE_DIR = ROOT / "build" / "smoke_traces"  # the traces read back when no --log-dir is given
 
 
-def _traced(torch, fn, units: int, log_dir: Path | None, trace_name: str) -> tuple[list, float, dict]:
+def _traced(torch, fn, units: int, log_dir: Path | None, trace_name: str,
+            record: bool = False) -> tuple[list, float, dict, dict | None]:
     """torch.profiler over ``fn()``: (kernels as (device us, name, launches)
     sorted by time, profiled wall ms per unit, the host's kernel-launch API
-    calls per unit: count and CPU ms, the profiler's cost included)."""
+    calls per unit: count and CPU ms, the profiler's cost included, and with
+    ``record`` the window's launch record: ``_launch_record`` of its trace)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -954,9 +1086,109 @@ def _traced(torch, fn, units: int, log_dir: Path | None, trace_name: str) -> tup
     api = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU and e.key in LAUNCH_APIS]
     host = {"launch_calls": sum(e.count for e in api) / units,
             "launch_cpu_ms": sum(e.self_cpu_time_total for e in api) / (units * 1e3)}
+    path = None
     if log_dir is not None:
-        prof.export_chrome_trace(str(log_dir / trace_name))
-    return kernels, wall_ms / units, host
+        path = log_dir / trace_name
+    elif record:
+        TRACE_DIR.mkdir(parents=True, exist_ok=True)
+        path = TRACE_DIR / trace_name
+    if path is not None:
+        prof.export_chrome_trace(str(path))
+    launched = _launch_record(json.loads(path.read_text())) if record else None
+    return kernels, wall_ms / units, host, launched
+
+
+def _is_launch_call(name: str) -> bool:
+    """A host API call that launches device work: a kernel or a graph."""
+    return name.startswith(("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cuGraphLaunch")) \
+        and "HostFunc" not in name
+
+
+def _launch_record(trace: dict) -> dict:
+    """One window's chrome trace joined by CUPTI correlation id: for each
+    host call that launched a kernel or a graph, its name and the names of
+    the device records that carry its id (a graph replay's records all
+    carry its launch's id)."""
+    calls, records = {}, {}
+    for e in trace.get("traceEvents", []):
+        corr = (e.get("args") or {}).get("correlation")
+        if corr is None:
+            continue
+        if e.get("cat") in DEVICE_RECORDS:
+            records.setdefault(corr, []).append(e.get("name", ""))
+        elif _is_launch_call(e.get("name", "")):
+            calls[corr] = e["name"]
+    return {c: (name, records.get(c, [])) for c, name in calls.items()}
+
+
+def check_launched(launched: dict, kernel: str, per_unit: int, units: int, what: str) -> dict:
+    """Hold one profiled window to ``kernel`` recorded ``per_unit`` times in
+    each of its ``units``.  The profiler now and then loses a device record
+    (PERF.md §7), and only the same window can tell a lost record from a
+    launch that did not happen: a kernel launch call whose id no record
+    carries, or a replay holding fewer records than the window's fullest
+    replay of its one graph, lost records.  The kernel's count may fall
+    short only by records lost so (in the replay that lost them, for a
+    graph); any other shortfall, or any excess, fails."""
+    graphs = {c: recs for c, (name, recs) in launched.items() if "Graph" in name}
+    full = max((len(r) for r in graphs.values()), default=0)
+    lost = sum(1 for name, recs in launched.values() if "Graph" not in name and not recs)
+    lost += sum(full - len(r) for r in graphs.values())
+    found = sum(kernel in n for _, recs in launched.values() for n in recs)
+    per_replay = [sum(kernel in n for n in r) for r in graphs.values()]
+    short = [len(r) < full for r in graphs.values()]
+    if graphs:
+        check(len(graphs) == units, f"{what}: {len(graphs)} graph launches recorded, not {units}")
+        for got, r in zip(per_replay, graphs.values()):
+            check(got == per_unit or (got < per_unit and per_unit - got <= full - len(r)),
+                  f"{what}: a replay recorded {kernel} {got} times, not {per_unit}, and lost "
+                  f"{full - len(r)} records (per replay: {per_replay}, short: {short})")
+    want = per_unit * units
+    check(found == want or (found < want and want - found <= lost),
+          f"{what}: {kernel} recorded {found} times, not {want}, with {lost} records lost")
+    return {"kernel": kernel, "recorded": found, "launched": want, "records_lost": lost,
+            "recorded_per_replay": per_replay or None}
+
+
+def eager_step(eng):
+    """``eng.step`` with the engine's graph dropped for the call: the eager
+    decode step (``_decode_all``, the captured region, run op by op) on the
+    same buffers, for the captured step's comparison."""
+    def step():
+        graph, eng._graph = eng._graph, None
+        try:
+            return eng.step()
+        finally:
+            eng._graph = graph
+    return step
+
+
+def _wall_ms(step, n: int = 8) -> float:
+    """Median wall ms of ``n`` calls of ``step`` (each ends in a host read)."""
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return sorted(ms)[n // 2]
+
+
+def _step_row(torch, step, units: int, wall_ms: float, log_dir, trace: str,
+              expect: tuple[str, int] | None = None) -> dict:
+    """torch.profiler over ``units`` calls of ``step``: device ms per step,
+    the busy share of ``wall_ms``, kernels and host launch calls per step
+    (a graph replay is one cudaGraphLaunch); with ``expect`` = (kernel, n),
+    ``check_launched`` holds the window to n launches of the kernel a step."""
+    kernels, prof_ms, host, launched = _traced(
+        torch, lambda: [step() for _ in range(units)], units, log_dir, trace, record=expect is not None)
+    device_ms = sum(k[0] for k in kernels) / (units * 1e3)
+    check(device_ms > 0, f"{trace}: no device time recorded")
+    return {"launch_record": expect and check_launched(launched, *expect, units, trace),
+            "wall_ms": wall_ms, "device_ms": device_ms, "device_busy_share": device_ms / wall_ms,
+            "profiled_wall_ms": prof_ms, "kernels_launched": sum(n for *_, n in kernels) / units,
+            "host_launch_calls": host["launch_calls"], "host_launch_cpu_ms": host["launch_cpu_ms"],
+            "top_kernels_ms": [[k[:90], round(us / (units * 1e3), 5), n / units]
+                               for us, k, n in kernels[:8]], "_kernels": kernels}
 
 
 def phase_profile(torch, np, cfg, engine_mod, params, step_ms: float, ttft_ms: float,
@@ -970,7 +1202,10 @@ def phase_profile(torch, np, cfg, engine_mod, params, step_ms: float, ttft_ms: f
     kernel-launch calls shows how much of the step the eager enqueueing
     costs (profiled, so an upper bound).  The decode step must launch the
     decode-attention kernel once per layer, and the prefill the flash
-    kernel once per layer."""
+    kernel once per layer, in the one profiled window (``check_launched``).
+    The captured step (one graph replay) is profiled beside the same
+    engine's eager step (its graph dropped), whose unprofiled median is
+    taken here."""
     L = cfg.n_layers
     eng = engine_mod.InstanceEngine(cfg, params, n_slots=4, max_seq=1024)
     rng = np.random.default_rng(SEED + 3)
@@ -979,26 +1214,32 @@ def phase_profile(torch, np, cfg, engine_mod, params, step_ms: float, ttft_ms: f
     eng.step()
     eng.step()
 
-    def steps():
-        for _ in range(3):
-            eng.step()
+    eager = eager_step(eng)
+    eager_ms = _wall_ms(eager)
+
+    def steps(step):
+        return lambda: [step() for _ in range(3)]
 
     prompt = rng.integers(0, cfg.vocab_size, 512).astype(np.int32)
     rows = {}
     for what, fn, units, ref_ms, attn in (
-        ("decode_step", steps, 3, step_ms, "decode_attention_kernel"),
+        ("decode_step", steps(eng.step), 3, step_ms, "decode_attention_kernel"),
+        ("decode_step_eager", steps(eager), 3, eager_ms, "decode_attention_kernel"),
         ("prefill", lambda: eng.prefill_only(engine_mod.ServeRequest(-9, prompt, 1)), 1, ttft_ms,
          "flash_fwd_sm90"),
     ):
-        kernels, wall_ms, host = _traced(torch, fn, units, log_dir, f"{what}_trace.json")
+        # one window each: a record the profiler lost is told apart from a
+        # launch that did not happen within it (check_launched)
+        kernels, wall_ms, host, launched = _traced(torch, fn, units, log_dir, f"{what}_trace.json",
+                                                   record=True)
         device_ms = sum(k[0] for k in kernels) / (units * 1e3)
         check(device_ms > 0, f"profile {what}: no device time recorded")
-        launches = sum(n for _, k, n in kernels if attn in k) / units
-        check(launches == L, f"profile {what}: {attn} launched {launches} times per unit, not {L}")
+        record = check_launched(launched, attn, L, units, f"profile {what}")
         rows[what] = {
             "units": units, "profiled_wall_ms": wall_ms, "device_ms": device_ms,
             "unprofiled_ms": ref_ms, "device_busy_share": device_ms / ref_ms,
-            f"{attn}_launches": launches, "kernels_launched": sum(n for *_, n in kernels) / units,
+            f"{attn}_launches": record["recorded"] / units, "launch_record": record,
+            "kernels_launched": sum(n for *_, n in kernels) / units,
             "host_launch_calls": host["launch_calls"], "host_launch_cpu_ms": host["launch_cpu_ms"],
             "top_kernels_ms": [[k[:90], round(us / (units * 1e3), 5), n / units]
                                for us, k, n in kernels[:14]],
@@ -1177,6 +1418,158 @@ def phase_cluster(torch, np, ops, TF, cfg, params, serve, disagg, engine_mod) ->
 
 
 # ---------------------------------------------------------------------------
+# Phase 7b: granite-8b's decode step at 32k contexts, int8 against bf16
+# ---------------------------------------------------------------------------
+
+
+LONG_CTX = 32768  # tokens held per slot: the §Perf C3 decode_32k shape cut to one card
+LONG_RUNS = ((8, True), (8, False), (16, True))  # (slots, kv_quant); 16 x 32k bf16 does not fit
+
+
+def _fill_long(torch, TF, kvcache, eng, seed: int) -> float:
+    """Fill every slot of every layer's cache to LONG_CTX tokens by
+    kvcache.write_prompt_kv from seeded normal K/V (bf16, std 1; no prefill
+    runs), 4 slots of one layer at a time to bound the quantizer's f32
+    temporaries; every slot live, the last tokens seeded.  Returns the
+    seconds it took."""
+    t0 = time.perf_counter()
+    cfg = eng.cfg
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    shape = (4, LONG_CTX, cfg.n_kv_heads, cfg.resolved_head_dim)
+    lengths = torch.full((4,), LONG_CTX, dtype=torch.int32, device="cuda")
+    for i in range(cfg.n_layers):
+        layer = TF.layer_slice(eng.caches["layers"], i)
+        for lo in range(0, eng.n_slots, 4):
+            k, v = (torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+                    for _ in range(2))
+            kvcache.write_prompt_kv({n: t[lo:lo + 4] for n, t in layer.items()}, k, v, lengths)
+            del k, v
+    eng.last_tokens.copy_(torch.randint(0, cfg.vocab_size, (eng.n_slots,), generator=gen,
+                                        device="cuda", dtype=torch.int32))
+    eng.slot_live.fill_(True)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _long_kernel_check(torch, ops, TF, eng, seed: int, tag: str) -> dict:
+    """ops.decode_attention on layer 0's filled cache, as the model calls
+    it, against ref.decode_attention_ref on the same tensors: for q of std
+    1 and of std 3, max|err| within the bf16 tolerance by ``max_err``, and
+    also within it times the output's largest magnitude."""
+    from repro_torch.kernels import ref
+
+    cfg = eng.cfg
+    layer = TF.layer_slice(eng.caches["layers"], 0)
+    kw = {"k_scale": layer.get("k_scale"), "v_scale": layer.get("v_scale")}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    out = {}
+    for std in (1.0, 3.0):
+        q = (std * torch.randn((eng.n_slots, cfg.n_heads, cfg.resolved_head_dim), generator=gen,
+                               device="cuda")).to(torch.bfloat16)
+        with ops.uncounted():
+            got = ops.decode_attention(q, layer["k"], layer["v"], layer["lengths"], impl="kernel", **kw)
+        want = ref.decode_attention_ref(q, layer["k"], layer["v"], layer["lengths"], **kw)
+        out[f"q_std_{std:g}"] = {"max_abs_err": max_err(torch, got, want, "bf16", scaled=True),
+                                 "want_max_abs": float(want.float().abs().max())}
+        del got, want
+    log(f"[long] {tag}: decode kernel on layer 0's cache against its plain version "
+        + json.dumps(out))
+    return out
+
+
+def phase_long_context(torch, np, ops, TF, kvcache, cfg, params, engine_mod, log_dir) -> dict:
+    """granite-8b at full width and depth, its engine's captured decode step
+    at contexts of LONG_CTX tokens: 8 slots with the int8 cache and with
+    bf16, and 16 slots with int8 (about 40 GB of cache, where bf16 would
+    need 77.5 GB beside 16.5 GB of weights).  Each cache is freed before
+    the next is built.  Per run: the first step's tokens equal the eager
+    step's from the same state; the captured step on the wall clock (median
+    of 8) and profiled (3 steps); its byte bound (the cache's valid rows,
+    scales included, and every weight, once a step, at 3.35 TB/s); the
+    decode kernel's launches over the timed steps (L a step, counted) and in
+    the profiled window (3L, recorded: ``check_launched``); peak memory.
+    Before the steps, the decode kernel on layer 0's filled cache (the
+    tensors the steps read) against its plain version, for q of std 1 (a
+    near-flat softmax over 32k rows: outputs near 32768**-0.5, so the error
+    is also held to the tolerance times the output's largest magnitude)
+    and of std 3 (a softmax peaked on a few rows)."""
+    from repro_torch.training.optimizer import tree_leaves
+
+    t_phase = time.perf_counter()
+    L = cfg.n_layers
+    weight_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    rows, int8_launches = {}, 0
+    for slots, quant in LONG_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tag = f"{slots} slots {'int8' if quant else 'bf16'}"
+        eng = engine_mod.InstanceEngine(cfg.replace(kv_quant=quant), params, n_slots=slots,
+                                        max_seq=LONG_CTX + 64)
+        # no admission fills these slots: captured now, while all are free
+        eng._capture()
+        cache_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(eng.caches))
+        fill_s = _fill_long(torch, TF, kvcache, eng, SEED + 20 + slots)
+        log(f"[long] {tag}: caches filled to {LONG_CTX} tokens from seeded random K/V by "
+            f"write_prompt_kv in {fill_s:.1f} s ({cache_bytes / 1e9:.2f} GB of cache)")
+        kernel_check = _long_kernel_check(torch, ops, TF, eng, SEED + 40 + slots, tag)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()  # the peak below is the steps', not the check's
+        # the first step, captured and eager, from one state: lengths and
+        # last tokens put back between (each rewrites the same K/V entry)
+        lens = [c["lengths"] for c in (eng.caches["layers"],)]
+        saved = [t.clone() for t in lens] + [eng.last_tokens.clone()]
+        eng._decode()
+        got = eng.last_tokens.tolist()
+        for t, old in zip(lens + [eng.last_tokens], saved):
+            t.copy_(old)
+        eng._decode_all()
+        want = eng.last_tokens.tolist()
+        check(got == want, f"long {tag}: captured tokens {got} != eager {want}")
+        check(all(0 <= t < cfg.vocab_size for t in got), f"long {tag}: tokens {got}")
+
+        def step():
+            eng._decode()
+            eng.last_tokens.tolist()
+
+        ops.reset_launch_counts()
+        wall = _wall_ms(step)
+        launches = ops.launch_counts()["decode_attention"]
+        check(launches == 8 * L, f"long {tag}: {launches} decode launches in 8 steps, not {8 * L}")
+        if quant:
+            int8_launches += launches
+        prof = _step_row(torch, step, 3, wall, log_dir, f"long_{slots}_{'int8' if quant else 'bf16'}_trace.json",
+                         expect=("decode_attention_kernel", L))
+        kernels = prof.pop("_kernels")
+        decode_ms = sum(us for us, k, _ in kernels if "decode_attention_kernel" in k) / 3e3
+        # bytes a profiled step must move: every weight once, and each valid
+        # cache row (K and V, and their scales in int8) of every layer; the
+        # 3 profiled steps read length + 1, + 2, + 3 rows
+        length = int(eng.caches["layers"]["lengths"][0, 0]) - 3
+        es = 1 if quant else 2
+        row_bytes = L * cfg.n_kv_heads * (2 * cfg.resolved_head_dim * es + (8 if quant else 0))
+        nbytes = weight_bytes + slots * (length + 2) * row_bytes
+        rows[tag] = {
+            "slots": slots, "kv_quant": quant, "context": LONG_CTX, "cache_gb": cache_bytes / 1e9,
+            "weights_gb": weight_bytes / 1e9, "fill_s": fill_s, "tokens_equal_to_eager": True,
+            "kernel_vs_plain": kernel_check,
+            **prof, "decode_attention_device_ms": decode_ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "decode_launches_8_steps": launches,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        }
+        log(f"[long] {tag} " + json.dumps(rows[tag]))
+        del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows["int8_decode_launches"] = int8_launches
+    rows["wall_s"] = time.perf_counter() - t_phase
+    log(f"[long] phase passed in {rows['wall_s']:.1f} s")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 8: the MaaS fleet (--maas) serving three full-width models
 # ---------------------------------------------------------------------------
 
@@ -1316,13 +1709,16 @@ def _family_args(serve, arch: str, *extra: str):
 
 def _family_serve(torch, ops, arch, cfg, params, serve, whole: bool = True) -> dict:
     """(b) the CLI's colocated loop: 8 requests of 512 + 32 tokens on 4
-    slots; every request finishes and the launches are exactly the path's.
-    With ``whole`` (a model at full depth) the loop must also outlast the
-    modelled load, so that the live-scaled engine ends holding every
-    layer; a depth cut computes its 8 requests before the flow model has
-    moved its bytes (grok-1's 2-layer cut: ~0.7 s against 1.8 s for 23 GB),
-    and its scaled engine's layers are only reported."""
-    n = 8
+    slots (16 for a model at full depth); every request finishes and the
+    launches are exactly the path's.  With ``whole`` (a model at full
+    depth) the loop must also outlast the modelled load, so that the
+    live-scaled engine ends holding every layer: on captured decode steps 8
+    requests of olmoe-1b-7b end before the flow model has moved its 13.8
+    GB, so a whole model serves 16.  A depth cut computes its 8 requests
+    before the flow model has moved its bytes (grok-1's 2-layer cut: ~0.7 s
+    against 1.8 s for 23 GB), and its scaled engine's layers are only
+    reported."""
+    n = 16 if whole else 8
     args = _family_args(serve, arch, "--requests", str(n))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1351,12 +1747,13 @@ def _family_serve(torch, ops, arch, cfg, params, serve, whole: bool = True) -> d
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": counts}
 
 
-def _serve_timing(torch, name: str, prefill_one, start, step, log_dir) -> dict:
+def _serve_timing(torch, name: str, prefill_one, start, step, log_dir, eager=None) -> dict:
     """Idle one-prompt prefill (TTFT: ``prefill_one(i)`` for i in 0..2, each
     ending in a host read) and, after ``start()`` has filled the 4 slots,
-    the full-batch decode ``step()`` on the wall clock; then torch.profiler
-    over 3 of those steps: device time per step and the card's busy share
-    of the step."""
+    the full-batch decode ``step()`` (the captured one) on the wall clock;
+    then torch.profiler over 3 of those steps: device time per step, the
+    card's busy share of the step and the host's launch calls.  The same
+    for the ``eager`` step, under ``"eager"``."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ttft = []
@@ -1366,26 +1763,18 @@ def _serve_timing(torch, name: str, prefill_one, start, step, log_dir) -> dict:
         prefill_one(i)
         ttft.append((time.perf_counter() - t0) * 1e3)
     start()
-    step_ms = []
-    for _ in range(8):
-        t0 = time.perf_counter()
-        step()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-
-    def steps():
-        for _ in range(3):
-            step()
-
-    kernels, wall_ms, host = _traced(torch, steps, 3, log_dir, f"{name}_decode_trace.json")
-    device_ms = sum(k[0] for k in kernels) / 3e3
-    check(device_ms > 0, f"{name} timing: no device time recorded")
-    med = sorted(step_ms)[len(step_ms) // 2]
+    rows = {}
+    for mode, fn in (("captured", step), ("eager", eager)):
+        if fn is not None:
+            rows[mode] = _step_row(torch, fn, 3, _wall_ms(fn), log_dir, f"{name}_{mode}_decode_trace.json")
+            rows[mode].pop("_kernels")
+    cap = rows["captured"]
+    med = cap["wall_ms"]
     return {"ttft_idle_ms": sorted(ttft)[1], "decode_step_ms_median": med,
-            "decode_tokens_per_s": 4 / (med / 1e3), "decode_device_ms": device_ms,
-            "device_busy_share": device_ms / med, "profiled_wall_ms": wall_ms,
-            "kernels_launched": sum(n for *_, n in kernels) / 3,
-            "host_launch_calls": host["launch_calls"],
-            "top_kernels_ms": [[k[:90], round(us / 3e3, 5), n / 3] for us, k, n in kernels[:8]],
+            "decode_tokens_per_s": 4 / (med / 1e3), "decode_device_ms": cap["device_ms"],
+            "device_busy_share": cap["device_busy_share"], "profiled_wall_ms": cap["profiled_wall_ms"],
+            "kernels_launched": cap["kernels_launched"], "host_launch_calls": cap["host_launch_calls"],
+            "top_kernels_ms": cap["top_kernels_ms"], "eager": rows.get("eager"),
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
@@ -1405,7 +1794,7 @@ def _family_timing(torch, np, cfg, params, engine_mod, log_dir) -> dict:
         eng.step()  # admits all four
         check(len(eng.active) == 4, f"families {cfg.name} timing: {len(eng.active)} slots live")
 
-    return _serve_timing(torch, cfg.name, prefill_one, start, eng.step, log_dir)
+    return _serve_timing(torch, cfg.name, prefill_one, start, eng.step, log_dir, eager_step(eng))
 
 
 def phase_families(torch, np, ops, TF, get_config, live, serve, disagg, engine_mod, log_dir) -> dict:
@@ -1469,14 +1858,16 @@ WITNESS_CUTS = {"whisper-large-v3": (dict(n_layers=2, n_enc_layers=2), {})}
 SERVE_LAYERS = {"grok-1-314b": 2, "nemotron-4-340b": 2}
 
 
-def _encdec_serve(torch, np, ops, TF, cfg, params, log_dir) -> dict:
+def _encdec_serve(torch, np, ops, TF, cfg, params, engine_mod, log_dir) -> dict:
     """whisper at the model API (the engine passes no frames, as the JAX
     engine does): 4 prompts of 512 tokens with 1500 frames each in one
     prefill, then 32 decode steps over the self caches and the static cross
     cache; tokens in range, the cross cache full, launches exactly the
     path's.  Then the idle prefill of one prompt (TTFT, ending in a host
     read) and the 4-row decode step on the wall clock, and torch.profiler
-    over 3 steps."""
+    over 3 steps: the step an engine captures (its caches filled by the
+    4-prompt prefill in place, every slot live), beside the same step run
+    eagerly."""
     b, prompt_len, steps = 4, 512, 32
     max_seq = prompt_len + steps + 8
     rng = np.random.default_rng(SEED + 6)
@@ -1510,21 +1901,27 @@ def _encdec_serve(torch, np, ops, TF, cfg, params, log_dir) -> dict:
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": counts}
     del caches
 
-    state = {}
+    eng = engine_mod.InstanceEngine(cfg, params, n_slots=b, max_seq=max_seq)
+    # no admission fills these slots: captured now, while all are free
+    eng._capture()
 
     def prefill_one(i):
         one = TF.init_caches(cfg, 1, max_seq, device="cuda")
         TF.prefill(cfg, params, toks[i:i + 1], one, frames[i:i + 1])[0].tolist()
 
     def start():
-        caches = TF.init_caches(cfg, b, max_seq, device="cuda")
-        state["nxt"], state["caches"] = TF.prefill(cfg, params, toks, caches, frames)
+        nxt, _ = TF.prefill(cfg, params, toks, eng.caches, frames)
+        eng.last_tokens.copy_(nxt)
+        eng.slot_live.fill_(True)
 
-    def step():
-        state["nxt"], state["caches"] = TF.decode_step(cfg, params, state["nxt"], state["caches"])
-        state["nxt"].tolist()
+    def step(decode):
+        def run():
+            decode()
+            eng.last_tokens.tolist()
+        return run
 
-    row["timing"] = _serve_timing(torch, cfg.name, prefill_one, start, step, log_dir)
+    row["timing"] = _serve_timing(torch, cfg.name, prefill_one, start, step(eng._decode), log_dir,
+                                  step(eng._decode_all))
     return row
 
 
@@ -1555,7 +1952,7 @@ def phase_last_configs(torch, np, ops, TF, get_config, live, serve, engine_mod, 
         row.update(params=scfg.approx_params(), full_params=cfg.approx_params(),
                    served_layers=scfg.n_layers, init_s=time.perf_counter() - t0)
         if cfg.family == "encdec":
-            row["serve"] = _encdec_serve(torch, np, ops, TF, scfg, params, log_dir)
+            row["serve"] = _encdec_serve(torch, np, ops, TF, scfg, params, engine_mod, log_dir)
         else:
             row["serve"] = _family_serve(torch, ops, arch, scfg, params, serve,
                                          whole=arch not in SERVE_LAYERS)
@@ -1784,7 +2181,7 @@ def _bwd_kernel_ms(kernels: list) -> dict:
 def launch_split(torch, fn, iters: int = 10) -> dict:
     """Device ms per launch of each kernel that ``fn()`` launches, from a
     torch.profiler trace of ``iters`` calls (short kernel name -> ms)."""
-    kernels, _, _ = _traced(torch, lambda: [fn() for _ in range(iters)], iters, None, "")
+    kernels, _, _, _ = _traced(torch, lambda: [fn() for _ in range(iters)], iters, None, "")
     return _bwd_kernel_ms(kernels)
 
 
@@ -2030,7 +2427,7 @@ def phase_train_loop(torch, np, ops, TF, base_cfg, train_cli, opt_mod, step_mod,
         state["p"], state["o"], m = step_fn(state["p"], state["o"], batch)
         float(m["loss"])
 
-    kernels, prof_ms, host = _traced(torch, one_step, 1, log_dir, "train_step_trace.json")
+    kernels, prof_ms, host, _ = _traced(torch, one_step, 1, log_dir, "train_step_trace.json")
     device_ms = sum(k[0] for k in kernels) / 1e3
     check(device_ms > 0, "train profile: no device time recorded")
     bwd_split = _bwd_kernel_ms(kernels)  # the backward kernels by launch, at 11a's main shapes
@@ -2104,6 +2501,7 @@ def main(argv: list[str] | None = None) -> int:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.launch import serve as serve_cli
     from repro_torch.launch import train as train_cli
+    from repro_torch.models import kvcache
     from repro_torch.models import transformer as TF
     from repro_torch.serving import disagg, maas
     from repro_torch.serving import engine as engine_mod
@@ -2129,6 +2527,8 @@ def main(argv: list[str] | None = None) -> int:
     mcfg = get_config("minicpm3-4b")
     qcfg = get_config("qwen1.5-4b")
     parity = {c.name: phase_parity(torch, np, ops, TF, c) for c in (cfg, qcfg, mcfg)}
+    parity.update({f"{c.name} kv_quant": phase_parity(torch, np, ops, TF, c, kv_quant=True)
+                   for c in (cfg, qcfg)})
     t0 = time.perf_counter()
     params = TF.init_params(cfg, SEED, device="cuda")
     torch.cuda.synchronize()
@@ -2143,6 +2543,7 @@ def main(argv: list[str] | None = None) -> int:
     prof = phase_profile(torch, np, cfg, engine_mod, params, serve["decode_step_ms_median"],
                          serve["ttft_idle_ms"], args.log_dir)
     cluster = phase_cluster(torch, np, ops, TF, cfg, params, serve_cli, disagg, engine_mod)
+    long_ctx = phase_long_context(torch, np, ops, TF, kvcache, cfg, params, engine_mod, args.log_dir)
     t0 = time.perf_counter()
     qparams = TF.init_params(qcfg, SEED + 2, device="cuda")
     torch.cuda.synchronize()
@@ -2171,6 +2572,14 @@ def main(argv: list[str] | None = None) -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+    name, source, replaces = INT8_DECODE
+    r = kern[(name, "bf16", "int8-long")]  # the shape phase 7b's int8 steps give it
+    line["kernels"].append({
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": long_ctx["int8_decode_launches"], "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+    })
     for name, source in BWD_KERNELS.items():
         r = train["kernels"][(name, "bf16")]
         line["kernels"].append({
@@ -2183,6 +2592,7 @@ def main(argv: list[str] | None = None) -> int:
         record = {"card": card, "torch": torch.__version__, "build_s": build_s,
                   "fwd_build": fwd_build, "kernels": [kern[k] for k in sorted(kern)], "parity": parity,
                   "serve": serve, "live": [live_row, live_mla], "profile": prof, "cluster": cluster,
+                  "long_context": long_ctx,
                   "maas": fleet_row, "families": families, "last_configs": last,
                   "train": {**train, "kernels": [train["kernels"][k] for k in sorted(train["kernels"])]},
                   "wall_s": time.perf_counter() - t_all}

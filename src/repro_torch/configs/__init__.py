@@ -5,9 +5,9 @@ form) to its config, full or REDUCED.  Every arch of the JAX package's
 registry is registered: the dense GQA decoders, minicpm3-4b (MLA),
 nemotron-4-340b (squared-ReLU MLP), the MoE olmoe-1b-7b and grok-1-314b,
 the SSM mamba2-370m, the hybrid zamba2-2.7b, the enc-dec whisper-large-v3
-and the VLM pixtral-12b.  An unknown id raises ``KeyError``; the int8 KV
-cache (``kv_quant``), which no config sets, raises ``NotImplementedError``
-where a model is built.
+and the VLM pixtral-12b.  An unknown id raises ``KeyError``.  No config sets
+the int8 KV cache; ``cfg.replace(kv_quant=True)`` turns it on, as the JAX
+package's ``cfg_overrides`` does.
 """
 
 from __future__ import annotations

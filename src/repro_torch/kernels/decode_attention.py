@@ -15,7 +15,16 @@ groups of heads, each its own cluster over the same cache rows.  Head dims
 16, 32, 64, 80 (zamba2's shared block, a row of 10 or 20 lanes that leaves
 the rest of the warp idle), 128 and 192 (nemotron: a row of 24 lanes, each
 of one 16-byte vector in bf16 and two in f32); n_rep 1, 2, 3, 4, 6, 8 and
-12; any other D or n_rep raises.  int8 caches are not taken.
+12; any other D or n_rep raises.
+
+The cache is of q's dtype, or int8 with f32 ``k_scale``/``v_scale`` (B, KV,
+S) (``kvcache.init_kv_cache(quant=True)``): the int8 branch of the JAX
+package's ``decode_attention_reference`` (jnp; its Pallas kernel takes no
+int8), for a bf16 or f32 q at every D and n_rep above.  The bulk copies move
+the int8 rows and the plan sizes the chunks by their 1-byte elements; the
+valid rows' scales ride beside them in a ring of their own, by 4-byte
+asynchronous copies.  Bound: bytes, the valid int8 K and V rows plus 8
+bytes of scales a row, q and the output.
 """
 
 from __future__ import annotations
@@ -72,8 +81,9 @@ def head_groups(n_rep: int) -> int:
 
 
 def decode_plan(b: int, kv: int, s: int, d: int, elem_bytes: int, n_rep: int = 1) -> DecodePlan:
-    """Head groups, cluster size and chunk rows for a (B, KV, S, D) cache
-    read by n_rep query heads per KV head.
+    """Head groups, cluster size and chunk rows for a (B, KV, S, D) cache of
+    ``elem_bytes`` elements (the cache's: 1 for int8) read by n_rep query
+    heads per KV head.
 
     The cluster grows (up to 8) until the B*KV*groups clusters give at least
     two CTAs per SM.  A chunk is the rows one CTA would own with one chunk each,
@@ -101,15 +111,23 @@ def decode_attention(
     lengths: torch.Tensor,  # (B,) int32
     *,
     softmax_scale: float | None = None,
+    k_scale: torch.Tensor | None = None,  # (B, KV, S) f32, with an int8 cache
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     global launches
     dev = q.device
-    if dev.type != "cuda" or any(t.device != dev for t in (k_cache, v_cache, lengths)):
-        raise ValueError("decode kernel needs q, caches and lengths on one CUDA device")
-    if k_cache.dtype == torch.int8:
-        raise NotImplementedError("int8 KV cache: not yet ported")
-    if q.dtype not in _build.DTYPES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
-        raise TypeError(f"decode kernel takes f32 or bf16 q and caches of one dtype, got {q.dtype}, {k_cache.dtype}, {v_cache.dtype}")
+    quant = k_cache.dtype == torch.int8
+    scales = (k_scale, v_scale) if quant else ()
+    if dev.type != "cuda" or any(t.device != dev for t in (k_cache, v_cache, lengths, *scales)):
+        raise ValueError("decode kernel needs q, caches, scales and lengths on one CUDA device")
+    if q.dtype not in _build.DTYPES or v_cache.dtype != k_cache.dtype or not (
+            k_cache.dtype == q.dtype or quant):
+        raise TypeError(f"decode kernel takes an f32 or bf16 q and caches of its dtype or int8, got {q.dtype}, {k_cache.dtype}, {v_cache.dtype}")
+    if quant != (k_scale is not None) or quant != (v_scale is not None):
+        raise ValueError("decode kernel: an int8 cache needs k_scale and v_scale, another none")
+    if quant and any(t.dtype != torch.float32 or t.shape != k_cache.shape[:3]
+                     or not t.is_contiguous() for t in scales):
+        raise ValueError("decode kernel needs contiguous f32 scales (B, KV, S) of the int8 cache")
     if lengths.dtype != torch.int32:
         raise TypeError(f"decode kernel needs int32 lengths, got {lengths.dtype}")
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
@@ -124,18 +142,20 @@ def decode_attention(
     if q.data_ptr() % 16 or k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError("decode kernel needs 16-byte aligned q and caches (bulk copies)")
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
-    plan = decode_plan(b, kv, s, d, q.element_size(), h // kv)
+    plan = decode_plan(b, kv, s, d, k_cache.element_size(), h // kv)
     out = torch.empty_like(q)
     fn = _build.function(
         "decode_attention",
         "decode_attention_launch",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float]
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     )
     err = fn(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, h, kv, s, d, plan.groups, plan.cluster, plan.chunk, scale, _build.DTYPES[q.dtype], dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
+        lengths.data_ptr(), out.data_ptr(),
+        b, h, kv, s, d, plan.groups, plan.cluster, plan.chunk, scale, _build.DTYPES[q.dtype],
+        int(quant), dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("decode_attention", err)
     launches += 1

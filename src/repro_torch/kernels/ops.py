@@ -129,11 +129,15 @@ def decode_attention(
     lengths: torch.Tensor,
     *,
     softmax_scale: float | None = None,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
     impl: str | None = None,
 ):
+    """``k_scale``/``v_scale``: the (B, KV, S) scales of an int8 cache."""
+    kw = dict(softmax_scale=softmax_scale, k_scale=k_scale, v_scale=v_scale)
     if _use_kernel(impl, q):
-        return _decode.decode_attention(q, k_cache, v_cache, lengths, softmax_scale=softmax_scale)
-    return ref.decode_attention_ref(q, k_cache, v_cache, lengths, softmax_scale=softmax_scale)
+        return _decode.decode_attention(q, k_cache, v_cache, lengths, **kw)
+    return ref.decode_attention_ref(q, k_cache, v_cache, lengths, **kw)
 
 
 # kernel name -> (wrapper module, its launch counter)
@@ -154,3 +158,27 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for mod, attr in KERNELS.values():
         setattr(mod, attr, 0)
+
+
+def add_launch_counts(counts: dict[str, int]) -> None:
+    """Add ``counts`` to the kernels' counters: the launches of a replayed
+    CUDA graph, which the wrappers' Python counters do not see."""
+    for name, n in counts.items():
+        mod, attr = KERNELS[name]
+        setattr(mod, attr, getattr(mod, attr) + n)
+
+
+@contextlib.contextmanager
+def uncounted() -> Iterator[dict[str, int]]:
+    """Launches inside the block leave the counters as they were.  The
+    yielded dict receives, at the block's end, the launches made inside it
+    (a graph capture's: the kernels each replay will launch)."""
+    before = launch_counts()
+    inside: dict[str, int] = {}
+    try:
+        yield inside
+    finally:
+        after = launch_counts()
+        inside.update({k: after[k] - before[k] for k in after})
+        for name, (mod, attr) in KERNELS.items():
+            setattr(mod, attr, before[name])

@@ -70,8 +70,11 @@ def decode_attention_ref(
     lengths: torch.Tensor,  # (B,)
     *,
     softmax_scale: float | None = None,
+    k_scale: torch.Tensor | None = None,  # (B, KV, S) f32, with an int8 cache
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    return decode_attention_reference(q, k_cache, v_cache, lengths, softmax_scale=softmax_scale)
+    return decode_attention_reference(q, k_cache, v_cache, lengths, softmax_scale=softmax_scale,
+                                      k_scale=k_scale, v_scale=v_scale)
 
 
 

@@ -141,7 +141,8 @@ def gqa_decode(
     coupled = live is not None and cfg.n_experts > 0
     saved = cache["lengths"].clone() if coupled else None
     cache = append(cache, k, v[:, 0], None if coupled else live)
-    out = ops.decode_attention(q.contiguous(), cache["k"], cache["v"], cache["lengths"])
+    out = ops.decode_attention(q.contiguous(), cache["k"], cache["v"], cache["lengths"],
+                               k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
     if coupled:
         cache["lengths"].copy_(torch.where(live, cache["lengths"], saved))
     return _out_proj(out, params["wo"])[:, None], cache

@@ -70,7 +70,7 @@ class ModelConfig:
     # choice of the TPU mesh; a direct decode_step honours it, the engine
     # clears it and appends per row.
     uniform_decode: bool = False
-    # int8 KV cache: not ported yet (kvcache.init_kv_cache raises on it)
+    # int8 KV cache with per-token f32 scales (kvcache.init_kv_cache)
     kv_quant: bool = False
 
     sharding_overrides: Mapping[str, Any] | None = None

@@ -1,9 +1,14 @@
-"""Decode-time state of the port: the contiguous GQA cache, the enc-dec
-model's cross-attention cache, the MLA latent cache and the Mamba2 SSM state.
+"""Decode-time state of the port: the contiguous GQA cache (optionally int8),
+the enc-dec model's cross-attention cache, the MLA latent cache, the Mamba2
+SSM state and the paged block pool.
 
 Caches are plain dicts of tensors in the JAX package's layouts: GQA
 ``k``/``v`` ``(B, KV, S, D)``, MLA ``ckv`` ``(B, S, kv_lora)`` and ``krope``
-``(B, S, rope)``, each with per-sequence int32 ``lengths``; the cross cache
+``(B, S, rope)``, each with per-sequence int32 ``lengths``; the int8 GQA
+cache (``quant=True``, the reference's §Perf C3 variant) also holds f32
+``k_scale``/``v_scale`` ``(B, KV, S)``, one absmax scale per token and KV
+head (``quantize_kv``), written under the same mask and index as the
+values; the cross cache
 ``k``/``v`` ``(L, B, KV, frames, D)`` stacked over the decoder's layers,
 with one ``lengths`` ``(B,)``; the SSM state ``conv`` ``(B, K-1, d_xbc)``
 and ``h`` ``(B, H, P, N)`` in f32.  Unlike the
@@ -23,6 +28,15 @@ from __future__ import annotations
 import torch
 
 
+def quantize_kv(x: torch.Tensor, dim: int = -1) -> tuple[torch.Tensor, torch.Tensor]:
+    """x -> (int8 values, f32 scales) with absmax scaling along ``dim``, as
+    the reference's ``quantize_kv``: scale = max(amax, 1e-8) / 127 in f32,
+    values round(x / scale), half to even as ``jnp.round``."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=dim).clamp_min(1e-8) / 127.0
+    return torch.round(xf / scale.unsqueeze(dim)).to(torch.int8), scale
+
+
 def init_kv_cache(
     batch: int,
     max_seq: int,
@@ -33,24 +47,34 @@ def init_kv_cache(
     quant: bool = False,
     device: torch.device,
 ) -> dict:
-    """Zeroed cache in the seq-major layout (B, KV, S, D)."""
-    if quant:
-        raise NotImplementedError("int8 KV cache: not yet ported")
+    """Zeroed cache in the seq-major layout (B, KV, S, D); with ``quant``
+    int8 values and f32 scales (B, KV, S)."""
     shape = (batch, n_kv, max_seq, head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
+    vdtype = torch.int8 if quant else dtype
+    out = {
+        "k": torch.zeros(shape, dtype=vdtype, device=device),
+        "v": torch.zeros(shape, dtype=vdtype, device=device),
         "lengths": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
+    if quant:
+        out["k_scale"] = torch.zeros(shape[:3], dtype=torch.float32, device=device)
+        out["v_scale"] = torch.zeros(shape[:3], dtype=torch.float32, device=device)
+    return out
 
 
 def write_prompt_kv(
     cache: dict, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor
 ) -> dict:
-    """Write a prompt's K/V (B, S, KV, D activations) at positions [0, S)."""
+    """Write a prompt's K/V (B, S, KV, D activations) at positions [0, S),
+    quantized where the cache is int8."""
     s = k.shape[1]
-    cache["k"][:, :, :s].copy_(k.transpose(1, 2))
-    cache["v"][:, :, :s].copy_(v.transpose(1, 2))
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    if "k_scale" in cache:
+        (kt, ks), (vt, vs) = quantize_kv(kt), quantize_kv(vt)
+        cache["k_scale"][:, :, :s].copy_(ks)
+        cache["v_scale"][:, :, :s].copy_(vs)
+    cache["k"][:, :, :s].copy_(kt)
+    cache["v"][:, :, :s].copy_(vt)
     cache["lengths"].copy_(lengths)
     return cache
 
@@ -86,6 +110,10 @@ def append_kv_uniform(
 ) -> dict:
     """Lockstep append: every row writes at the batch's largest length, then
     every live row's length grows by one, in place."""
+    if "k_scale" in cache:
+        (k_new, ks), (v_new, vs) = quantize_kv(k_new), quantize_kv(v_new)
+        _uniform_write(cache["k_scale"], 2, ks, cache["lengths"], live)
+        _uniform_write(cache["v_scale"], 2, vs, cache["lengths"], live)
     _uniform_write(cache["k"], 2, k_new, cache["lengths"], live)
     _uniform_write(cache["v"], 2, v_new, cache["lengths"], live)
     cache["lengths"].add_(1 if live is None else live.to(torch.int32))
@@ -104,9 +132,14 @@ def append_kv(
     size; the reference's masked ``where`` writes nothing past the end either.
     The index is clamped, so a full or free slot never indexes out of the
     cache.  Live rows' lengths grow by one (as in the reference, even when
-    full); rows that are not live keep theirs."""
+    full); rows that are not live keep theirs.  An int8 cache's scales
+    are written at the same rows and positions."""
     k, v = cache["k"], cache["v"]
     rows, pos, ok = _append_index(cache["lengths"], k.shape[2], live)
+    if "k_scale" in cache:
+        (k_new, ks), (v_new, vs) = quantize_kv(k_new), quantize_kv(v_new)
+        for buf, new in ((cache["k_scale"], ks), (cache["v_scale"], vs)):
+            buf[rows, :, pos] = torch.where(ok[:, None], new, buf[rows, :, pos])
     keep = ok[:, None, None]
     k[rows, :, pos] = torch.where(keep, k_new.to(k.dtype), k[rows, :, pos])
     v[rows, :, pos] = torch.where(keep, v_new.to(v.dtype), v[rows, :, pos])
@@ -223,3 +256,82 @@ def write_ssm_state(state: dict, new: dict, live: torch.Tensor | None = None) ->
         else:
             buf.copy_(torch.where(live.reshape(-1, *([1] * (buf.dim() - 1))), new[name], buf))
     return state
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache (vLLM-style block tables)
+# ---------------------------------------------------------------------------
+
+
+class PagedKVCache:
+    """The reference's paged cache: a pool of fixed-size blocks on
+    ``device`` and per-request block tables kept on the host.  ``gather``
+    copies a request's tokens into contiguous form.  Host bookkeeping
+    around the pool, with no kernel: each ``append`` and ``gather`` is one
+    indexed copy per pool, its block and offset indices built on the host.
+    The pool holds ``dtype`` (the reference's numpy pool is f32 whatever
+    its ``dtype``)."""
+
+    def __init__(self, n_blocks: int, block_size: int, n_kv: int, head_dim: int, dtype, *,
+                 device: torch.device):
+        self.block_size = block_size
+        self.n_kv = n_kv
+        self.head_dim = head_dim
+        self.device = torch.device(device)
+        shape = (n_blocks, block_size, n_kv, head_dim)
+        self.k_pool = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.v_pool = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.free: list[int] = list(range(n_blocks))[::-1]
+        self.tables: dict[int, list[int]] = {}
+        self.lengths: dict[int, int] = {}
+
+    @property
+    def n_free_blocks(self) -> int:
+        return len(self.free)
+
+    def allocate(self, req_id: int) -> None:
+        assert req_id not in self.tables
+        self.tables[req_id] = []
+        self.lengths[req_id] = 0
+
+    def release(self, req_id: int) -> None:
+        self.free.extend(self.tables.pop(req_id, []))
+        self.lengths.pop(req_id, None)
+
+    def _ensure_capacity(self, req_id: int, new_len: int) -> None:
+        need = -(-new_len // self.block_size)  # ceil
+        table = self.tables[req_id]
+        while len(table) < need:
+            if not self.free:
+                raise MemoryError("paged KV cache exhausted")
+            table.append(self.free.pop())
+
+    def _slots(self, req_id: int, start: int, stop: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """(block, offset) index tensors of positions [start, stop)."""
+        table, bs = self.tables[req_id], self.block_size
+        blk = [table[p // bs] for p in range(start, stop)]
+        off = [p % bs for p in range(start, stop)]
+        return (torch.tensor(blk, dtype=torch.long, device=self.device),
+                torch.tensor(off, dtype=torch.long, device=self.device))
+
+    def append(self, req_id: int, k: torch.Tensor, v: torch.Tensor) -> None:
+        """k/v: (T, KV, D) -- append T tokens for request req_id."""
+        t = k.shape[0]
+        start = self.lengths[req_id]
+        self._ensure_capacity(req_id, start + t)
+        blk, off = self._slots(req_id, start, start + t)
+        self.k_pool[blk, off] = k.to(self.k_pool)
+        self.v_pool[blk, off] = v.to(self.v_pool)
+        self.lengths[req_id] = start + t
+
+    def gather(self, req_id: int, max_seq: int) -> tuple[torch.Tensor, torch.Tensor, int]:
+        """A contiguous (max_seq, KV, D) copy of the request's tokens, zero
+        past its length, and the length."""
+        length = self.lengths[req_id]
+        k = torch.zeros((max_seq, self.n_kv, self.head_dim), dtype=self.k_pool.dtype,
+                        device=self.device)
+        v = torch.zeros_like(k)
+        blk, off = self._slots(req_id, 0, length)
+        k[:length] = self.k_pool[blk, off]
+        v[:length] = self.v_pool[blk, off]
+        return k, v, length

@@ -242,24 +242,34 @@ def decode_attention_reference(
     lengths: torch.Tensor,  # (B,) valid cache entries (incl. the new token)
     *,
     softmax_scale: float | None = None,
+    k_scale: torch.Tensor | None = None,  # (B, KV, Smax) int8-cache dequant
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Single-token GQA decode against a padded cache.
 
     The ``n_rep`` query heads sharing a KV head contract against it directly.
     As in the reference, scores are f32 and the probabilities are cast to the
-    cache dtype before the PV product (accumulated in f32)."""
-    if k_cache.dtype == torch.int8:
-        raise NotImplementedError("int8 KV cache: not yet ported")
+    cache dtype before the PV product (accumulated in f32).  An int8 cache
+    is cast to q's dtype; ``k_scale`` multiplies the scores before the mask
+    and the softmax, ``v_scale`` the probabilities after it, before their
+    cast."""
     b, h, d = q.shape
     _, kvh, smax, _ = k_cache.shape
     rep = h // kvh
     scale = softmax_scale if softmax_scale is not None else 1.0 / float(np.sqrt(d))
+    quant = k_cache.dtype == torch.int8
+    kc = k_cache.to(q.dtype) if quant else k_cache
+    vc = v_cache.to(q.dtype) if quant else v_cache
     qg = q.reshape(b, kvh, rep, d)
-    s = torch.einsum("bgrd,bgsd->bgrs", wide(qg), wide(k_cache)) * scale
+    s = torch.einsum("bgrd,bgsd->bgrs", wide(qg), wide(kc)) * scale
+    if k_scale is not None:
+        s = s * k_scale[:, :, None, :]
     valid = torch.arange(smax, device=q.device)[None, :] < lengths[:, None]  # (B, S)
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
-    out = torch.einsum("bgrs,bgsd->bgrd", wide(p), wide(v_cache))
+    p = torch.softmax(s, dim=-1)
+    if v_scale is not None:
+        p = p * v_scale[:, :, None, :]
+    out = torch.einsum("bgrs,bgsd->bgrd", wide(p.to(vc.dtype)), wide(vc))
     return out.reshape(b, h, d).to(q.dtype)
 
 

@@ -40,13 +40,17 @@ def moe_template(cfg) -> dict[str, TensorSpec]:
 
 def _expert_ffn(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     """x: (G, E, C, d) -> (G, E, C, d), every expert over its own buffer.
-    SwiGLU, as olmoe's and grok-1's experts are; no registered config has
-    non-gated experts, and they raise."""
-    if not cfg.gated_mlp:
-        raise NotImplementedError(f"mlp={cfg.mlp!r} experts: not yet ported")
+    SwiGLU (olmoe's and grok-1's experts), else the reference's non-gated
+    experts: gelu in f32, the tanh form that ``jax.nn.gelu`` takes by
+    default, for every other ``mlp``.  That includes ``relu2``: the
+    reference's experts apply gelu there, not squared ReLU, and so do
+    these."""
     up = torch.einsum("gecd,edf->gecf", x, params["w_up"])
-    gate = torch.einsum("gecd,edf->gecf", x, params["w_gate"])
-    hidden = F.silu(gate.float()).to(x.dtype) * up
+    if cfg.gated_mlp:
+        gate = torch.einsum("gecd,edf->gecf", x, params["w_gate"])
+        hidden = F.silu(gate.float()).to(x.dtype) * up
+    else:
+        hidden = F.gelu(up.float(), approximate="tanh").to(x.dtype)
     return torch.einsum("gecf,efd->gecd", hidden, params["w_down"])
 
 

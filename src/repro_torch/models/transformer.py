@@ -32,8 +32,10 @@ one K/V entry at a free row's length, which is never read: see
 ``attention.gqa_decode``).  ``frames`` (B, Sf, d) feed the vlm and encdec
 stub frontends in ``train_forward`` and the prefill; decode reads the cross
 cache, and ``forward_layers_range`` runs an enc-dec decoder's layers
-without cross-attention, as the reference's does.  Only the int8 cache
-raises.
+without cross-attention, as the reference's does.  ``kv_quant`` stores the
+GQA caches (the hybrid's shared ones and the enc-dec model's self caches
+too) in int8 with per-token scales; the cross cache and the MLA latent
+cache stay in the model dtype, as in the reference.
 
 Training: ``lm_loss`` is the reference's cross-entropy (plus the MoE aux
 loss) over ``train_forward``'s logits, and autograd differentiates it; on the
@@ -66,8 +68,6 @@ FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.kv_quant:
-        raise NotImplementedError(f"{cfg.name}: kv_quant (the int8 KV cache): not yet ported")
     if cfg.family not in FAMILIES:
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r} (families {FAMILIES})")
     if cfg.family != "ssm" and cfg.attn not in ("gqa", "mla"):
@@ -279,7 +279,9 @@ def init_caches(
     rope); SSM conv (L, B, K-1, d_xbc) and h (L, B, H, P, N).  The hybrid's
     ``shared``: a GQA cache per site, (n_layers // attn_every, B, ...).  The
     enc-dec model's ``cross``: k/v (L, B, KV, n_frontend_tokens, D) and
-    lengths (B,), written by the prefill."""
+    lengths (B,), written by the prefill.  With ``kv_quant`` the GQA caches
+    hold int8 k/v and f32 k_scale/v_scale (L, B, KV, S); the MLA and cross
+    caches are built as without it, as the reference builds them."""
     _check_family(cfg)
     dev = resolve_device(device)
 

@@ -1,4 +1,5 @@
-"""Per-instance serving engine of the port: continuous batching, eager.
+"""Per-instance serving engine of the port: continuous batching, with the
+decode step captured once as a CUDA graph.
 
 The same public API as ``repro.serving.engine.InstanceEngine``.  A fixed
 number of decode slots; finished sequences free their slot at once and queued
@@ -7,7 +8,17 @@ slots, appends to the caches of live slots only, and keeps the last token of
 the others.  One host read per step (``tolist``) collects the new tokens.
 ``loaded_layers`` tracks live-scaling progress (``can_serve_alone``).
 
-The engine runs on the device its parameters are on.
+The engine runs on the device its parameters are on.  On CUDA it captures
+its decode step (``TF.decode_step`` over its own ``last_tokens``,
+``slot_live`` and cache tree) once, at its first admission, as one
+``torch.cuda.CUDAGraph``, and each step replays it: the counterpart of the
+JAX engine's decode step lowered once per (arch, n_slots) on first use, so
+that a scaled instance pays no per-launch host cost, and an engine that
+only prefills (a disaggregated prefill pool's) never captures.  The graph reads and writes fixed
+storage, so every buffer it touches keeps its storage for the engine's
+life: admission copies into the slots, the step updates in place, and no
+path may swap the engine's parameter tensors.  On the CPU the same step
+runs eagerly.  Prefill runs eagerly on both.
 """
 
 from __future__ import annotations
@@ -19,6 +30,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.models import transformer as TF
 from repro_torch.models.config import ModelConfig
 
@@ -57,6 +69,53 @@ class InstanceEngine:
         self.slot_live = torch.zeros((n_slots,), dtype=torch.bool, device=self.device)
         self.loaded_layers = cfg.n_layers  # < n_layers while live-scaling
         self.steps = 0
+        self._graph: torch.cuda.CUDAGraph | None = None
+        self._graph_launches: dict[str, int] = {}  # kernel launches of one replay
+        self._capture_pending = self.device.type == "cuda"  # at the first admission
+
+    # -- the decode step ---------------------------------------------------------
+    def _decode_all(self) -> None:
+        """Decode every slot in place: live slots' caches and states advance
+        and ``last_tokens`` takes their new tokens; free slots keep theirs.
+        This is the captured region: nothing in it reads the host or keeps
+        a tensor it allocated."""
+        nxt, _ = TF.decode_step(self.cfg, self.params, self.last_tokens, self.caches,
+                                self.slot_live)
+        self.last_tokens.copy_(torch.where(self.slot_live, nxt, self.last_tokens))
+
+    def _capture(self) -> None:
+        """Warm up ``_decode_all`` on a side stream, then capture it as one
+        CUDA graph.  This runs once, before the first admission's splice,
+        while every slot is free: the warm-up runs on the real buffers, and
+        the only writes a step makes for a free slot (an MoE model's K/V
+        entry, and its scales in an int8 cache, at the slot's length:
+        ``attention.gqa_decode``) land in a slot row that ``_splice_slot``
+        overwrites whole when it admits a request.  Neither the warm-up's
+        launches nor the capture count as launches; each replay adds the
+        captured step's."""
+        assert not bool(self.slot_live.any()), "the decode step is captured while every slot is free"
+        self._capture_pending = False
+        with torch.cuda.device(self.device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with ops.uncounted(), torch.cuda.stream(side):
+                self._decode_all()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with ops.uncounted() as per_step, torch.cuda.graph(graph):
+                self._decode_all()
+        self._graph, self._graph_launches = graph, per_step
+
+    def _decode(self) -> None:
+        """One decode step: a replay of the captured graph on CUDA (its
+        launches added to the kernels' counters; a step always follows an
+        admission, which captured it), ``_decode_all`` on the CPU or where
+        ``_capture_pending`` was cleared to keep an engine eager."""
+        if self._graph is None:
+            self._decode_all()
+            return
+        self._graph.replay()
+        ops.add_launch_counts(self._graph_launches)
 
     # -- live scaling hooks -----------------------------------------------------
     def set_loaded_layers(self, k: int) -> None:
@@ -72,9 +131,9 @@ class InstanceEngine:
     def _splice_slot(self, slot: int, one: Any, first_token: int) -> None:
         """Copy a 1-slot prefill cache and its first token into ``slot`` in
         place.  Local admission and migrated-KV admission share it.  Every
-        leaf of the cache tree (the layers' caches or SSM states, the
-        hybrid's shared-block caches) whose axis 1 is the slot axis takes
-        the request's row, the reference engine's rule."""
+        leaf of the cache tree (the layers' caches or SSM states and an int8
+        cache's scales, the hybrid's shared-block caches) whose axis 1 is
+        the slot axis takes the request's row, the reference engine's rule."""
 
         def splice(old, new):
             if isinstance(old, dict):
@@ -83,6 +142,8 @@ class InstanceEngine:
             elif old.dim() >= 2 and old.shape[1] == self.n_slots:
                 old[:, slot].copy_(new[:, 0])
 
+        if self._capture_pending:
+            self._capture()
         splice(self.caches, one)
         self.last_tokens[slot] = int(first_token)
         self.slot_live[slot] = True
@@ -128,10 +189,7 @@ class InstanceEngine:
         finished: list[ServeRequest] = []
         if not self.active:
             return finished
-        nxt, self.caches = TF.decode_step(
-            self.cfg, self.params, self.last_tokens, self.caches, self.slot_live
-        )
-        self.last_tokens = torch.where(self.slot_live, nxt, self.last_tokens)
+        self._decode()
         self.steps += 1
         tokens = self.last_tokens.tolist()
         for slot, req in list(self.active.items()):

@@ -131,3 +131,103 @@ def test_prefill_only_then_admit_prefilled_matches_local_admission(weights):
     full.step()
     assert not full.admit_prefilled(ServeRequest(2, prompt, 5), first, one)
     assert TF.init_caches(CFG, 1, 32, device="cpu")["layers"]["k"].shape == one["layers"]["k"].shape
+
+
+# ---------------------------------------------------------------------------
+# What the captured decode step needs: fixed storage
+# ---------------------------------------------------------------------------
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in _leaves(sub, path + (key,)).items()}
+    return {path: tree}
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["cache", "int8_cache"])
+@pytest.mark.parametrize("arch", ["granite-8b", "olmoe-1b-7b", "mamba2-370m", "zamba2-2.7b",
+                                  "whisper-large-v3", "pixtral-12b", "minicpm3-4b"])
+def test_decode_step_under_a_live_mask_keeps_every_cache_leaf_in_place(arch, quant):
+    """Every family (dense, MoE, SSM, hybrid, enc-dec, VLM, MLA), with and
+    without the int8 cache: three decode steps under a live mask keep every
+    cache leaf (the layers' caches or states, scales, the hybrid's shared
+    caches, the cross cache) in its storage, the CPU guard of what a CUDA
+    graph of the step needs, and leave the rows that are not live as they
+    were (an MoE model still appends for a free row: its K/V entry and
+    scales at the row's length, or at the batch's largest length in
+    lockstep, where no later step of the row reads)."""
+    cfg = get_config(arch, reduced=True).replace(dtype=torch.float32, kv_quant=quant)
+    params = TF.init_params(cfg, 0, device="cpu")
+    b, max_seq = 3, 24
+    caches = TF.init_caches(cfg, b, max_seq, device="cpu")
+    frames = None
+    if cfg.family in ("encdec", "vlm"):
+        frames = torch.randn(b, cfg.n_frontend_tokens, cfg.d_model) * 0.02
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab_size, (b, 10))).int()
+    nxt, caches = TF.prefill(cfg, params, toks, caches, frames)
+    live = torch.tensor([True, False, True])
+    before = {k: (v.data_ptr(), v.clone()) for k, v in _leaves(caches).items()}
+    for _ in range(3):
+        nxt, out = TF.decode_step(cfg, params, nxt, caches, live)
+        assert out is caches
+    after = _leaves(caches)
+    assert after.keys() == before.keys()
+    for key, (ptr, old) in before.items():
+        assert after[key].data_ptr() == ptr, key
+        if key[-1] == "lengths" and key[0] == "cross":
+            assert torch.equal(after[key], old), key
+        elif cfg.n_experts and key[-1] in ("k", "v", "k_scale", "v_scale"):
+            continue  # the free row's entry past its length is rewritten
+        else:
+            assert torch.equal(after[key][:, 1], old[:, 1]), key
+
+
+def test_serving_paths_keep_the_engines_parameter_tensors():
+    """The captured decode step reads the parameters' storage, so no serving
+    path may swap an engine's parameter tensors after construction: the
+    colocated loop (an engine that live-scales in) and the disaggregated
+    runtime (engines made, mutated and retired as it scales) leave every
+    engine on the caller's dict, its leaves the same tensors in the same
+    storage."""
+    from repro_torch.launch import serve
+
+    params = TF.init_params(CFG, 0, device="cpu")
+    before = {k: (v, v.data_ptr()) for k, v in _leaves(params).items()}
+    base = ["--device", "cpu", "--requests", "6", "--gen-len", "5"]
+    out = serve.run_colocated(serve.build_parser().parse_args(base), CFG, params)
+    rt = serve.run_disagg(serve.build_parser().parse_args(base + ["--disagg"]), CFG, params)
+    engines = list(out["engines"]) + [pe.engine for pe in rt.pool.all()]
+    assert len(engines) >= 3
+    for eng in engines:
+        assert eng.params is params
+    for key, (t, ptr) in before.items():
+        now = _leaves(params)[key]
+        assert now is t and now.data_ptr() == ptr, key
+
+
+def test_engine_on_the_cpu_steps_eagerly_and_never_captures(weights):
+    """Only an engine on CUDA captures its decode step (at its first
+    admission); on the CPU nothing is pending and no graph is made."""
+    _, params = weights
+    eng = InstanceEngine(CFG, params, n_slots=2, max_seq=32)
+    assert not eng._capture_pending and eng._graph is None
+    eng.submit(ServeRequest(0, _prompts(1)[0], 3))
+    assert len(eng.run_until_done()) == 1
+    assert eng._graph is None and eng._graph_launches == {}
+
+
+def test_uncounted_launches_and_replayed_counts():
+    """ops.uncounted() leaves the counters as they were and reports the
+    launches made inside it; add_launch_counts() adds a replay's."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    ops.add_launch_counts({"rmsnorm": 2})
+    with ops.uncounted() as inside:
+        ops.add_launch_counts({"rmsnorm": 5, "decode_attention": 3})
+    assert inside == {"rmsnorm": 5, "flash_attention": 0, "decode_attention": 3,
+                      "rmsnorm_bwd": 0, "flash_attention_bwd": 0}
+    assert ops.launch_counts()["rmsnorm"] == 2 and ops.launch_counts()["decode_attention"] == 0
+    ops.add_launch_counts(inside)
+    assert ops.launch_counts()["rmsnorm"] == 7
+    ops.reset_launch_counts()

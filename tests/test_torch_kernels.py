@@ -469,6 +469,130 @@ def test_decode_kernel_new_n_reps(cuda, n_rep, d, dt):
     _close(got[1:], ref.decode_attention_ref(q, k, v, lens)[1:], dt)
 
 
+def _int8_cache(seed, b, kv, s, d, device):
+    """An int8 cache (b, kv, s, d) and its f32 scales, quantized from normal
+    K/V by the cache's own quantize_kv."""
+    from repro_torch.models.kvcache import quantize_kv
+
+    _, (k, v) = _inputs(seed, [(b, kv, s, d), (b, kv, s, d)], "f32", device)
+    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+    return kq, vq, ks, vs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128, 192])
+@pytest.mark.parametrize("n_rep", [1, 2, 3, 4, 6, 8, 12])
+def test_decode_kernel_int8_cache(cuda, n_rep, d, dt):
+    """The int8 cache with its (B, KV, S) scales against the plain version,
+    with a bf16 or f32 q, at every head dim and n_rep of the kernel.
+    Lengths 0, S, 1, one chunk + 1 and ragged; S = 600 is no multiple of
+    the chunk, so a chunk's scales start at offsets that are not multiples
+    of 16 bytes."""
+    b, s, kv = 5, 600, 2
+    chunk = decode_plan(b, kv, s, d, 1, n_rep).chunk
+    _, (q,) = _inputs(17, [(b, kv * n_rep, d)], dt, cuda)
+    kq, vq, ks, vs = _int8_cache(18, b, kv, s, d, cuda)
+    lens = torch.tensor([0, s, 1, chunk + 1, 333], dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q, kq, vq, lens, k_scale=ks, v_scale=vs, impl="kernel")
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    _close(got[1:], ref.decode_attention_ref(q, kq, vq, lens, k_scale=ks, v_scale=vs)[1:], dt)
+
+
+@pytest.mark.cuda
+def test_decode_kernel_int8_ignores_rows_and_scales_past_length(cuda):
+    """Values and scales past each length (stale after a slot is reused)
+    change nothing."""
+    _, (q,) = _inputs(19, [(2, 8, 128)], "bf16", cuda)
+    kq, vq, ks, vs = _int8_cache(20, 2, 2, 300, 128, cuda)
+    lens = torch.tensor([100, 257], dtype=torch.int32, device=cuda)
+    out1 = ops.decode_attention(q, kq, vq, lens, k_scale=ks, v_scale=vs, impl="kernel")
+    past = (torch.arange(300, device=cuda)[None, None, :] >= lens[:, None, None].long()).expand(2, 2, 300)
+    kq2, vq2 = kq.clone(), vq.clone()
+    kq2[past], vq2[past] = 127, -127
+    out2 = ops.decode_attention(q, kq2, vq2, lens, k_scale=torch.where(past, 1e6, ks),
+                                v_scale=torch.where(past, 1e6, vs), impl="kernel")
+    assert torch.equal(out1, out2)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,quant", [("granite-8b", False), ("granite-8b", True),
+                                        ("olmoe-1b-7b", True), ("mamba2-370m", False),
+                                        ("zamba2-2.7b", True), ("pixtral-12b", True)])
+def test_captured_engine_matches_the_eager_step(cuda, arch, quant):
+    """The engine's decode step, captured once at the first admission as a
+    CUDA graph, against the same engine stepping eagerly (told not to
+    capture): equal tokens over queueing, slot reuse and staggered
+    finishes (bf16 REDUCED), each replay counting the captured step's
+    launches, and every cache leaf and parameter kept in its storage."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TF
+    from repro_torch.serving.engine import InstanceEngine, ServeRequest
+
+    cfg = get_config(arch, reduced=True).replace(kv_quant=quant)
+    params = TF.init_params(cfg, 0, device=cuda)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, 6 + 3 * (i % 2)).astype(np.int32) for i in range(5)]
+    out = {}
+    for mode in ("graph", "eager"):
+        eng = InstanceEngine(cfg, params, n_slots=3, max_seq=40)
+        assert eng._graph is None and eng._capture_pending
+        if mode == "eager":
+            eng._capture_pending = False
+        ptrs = [t.data_ptr() for t in _leaves(eng.caches) + _leaves(params)]
+        ops.reset_launch_counts()
+        for i, p in enumerate(prompts):
+            eng.submit(ServeRequest(i, p, 4 + i % 3))
+        done = eng.run_until_done()
+        counts = ops.launch_counts()
+        out[mode] = {r.rid: r.out_tokens for r in done}
+        out[mode + "_launches"] = counts
+        assert len(done) == 5
+        assert (eng._graph is not None) == (mode == "graph")
+        if mode == "graph":
+            assert eng._graph_launches["rmsnorm"] > 0
+        assert [t.data_ptr() for t in _leaves(eng.caches) + _leaves(params)] == ptrs
+    assert out["graph"] == out["eager"]
+    assert out["graph_launches"] == out["eager_launches"]
+
+
+@pytest.mark.cuda
+def test_engine_captures_at_its_first_admission_only(cuda):
+    """A prefill-only engine (a disaggregated prefill pool's) never
+    captures; an engine captures at its first admission, local or
+    migrated, and never again; a migrated request then decodes as a local
+    one does (bf16 REDUCED)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TF
+    from repro_torch.serving.engine import InstanceEngine, ServeRequest
+
+    cfg = get_config("granite-8b", reduced=True)
+    params = TF.init_params(cfg, 0, device=cuda)
+    prompts = [np.arange(3 + i, 11 + i, dtype=np.int32) for i in range(2)]
+    src = InstanceEngine(cfg, params, n_slots=2, max_seq=32)
+    dst = InstanceEngine(cfg, params, n_slots=2, max_seq=32)
+    local = InstanceEngine(cfg, params, n_slots=2, max_seq=32)
+    req = ServeRequest(0, prompts[0], 5)
+    first, one = src.prefill_only(req)
+    assert src._graph is None and src._capture_pending
+    assert dst._graph is None
+    assert dst.admit_prefilled(req, first, one)
+    graph = dst._graph
+    assert graph is not None and not dst._capture_pending
+    dst.run_until_done()
+    dst.submit(ServeRequest(1, prompts[1], 4))
+    dst.run_until_done()
+    assert dst._graph is graph
+    local.submit(ServeRequest(0, prompts[0], 5))
+    assert local.run_until_done()[0].out_tokens == req.out_tokens
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["granite-8b", "whisper-large-v3"])
 def test_batched_prefill_and_decode_run_on_the_kernels(cuda, arch):

@@ -10,8 +10,11 @@ the products sum in another order), in a drop-heavy case
 (capacity_factor 0.25) and a drop-free one (8.0) as in
 tests/test_moe_dispatch.py, with ``moe_group_size`` honoured, and with a
 forced routing tie that must pick the lower expert index as ``lax.top_k``
-does.
+does.  The non-gated experts of an MoE config whose ``mlp`` is not swiglu
+(gelu, and gelu too for relu2, as the reference has it) in f32 and bf16.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -29,10 +32,10 @@ from repro_torch.models import bridge, moe  # noqa: E402
 TOL = dict(atol=3e-5, rtol=3e-5)
 
 
-def _layer0(cf: float, dt: str = "f32", seed: int = 0, arch: str = "olmoe-1b-7b"):
+def _layer0(cf: float, dt: str = "f32", seed: int = 0, arch: str = "olmoe-1b-7b", **fields):
     jd, td = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dt]
-    jcfg = jax_get_config(arch, reduced=True).replace(capacity_factor=cf, dtype=jd)
-    cfg = get_config(arch, reduced=True).replace(capacity_factor=cf, dtype=td)
+    jcfg = jax_get_config(arch, reduced=True).replace(capacity_factor=cf, dtype=jd, **fields)
+    cfg = get_config(arch, reduced=True).replace(capacity_factor=cf, dtype=td, **fields)
     rng = np.random.default_rng(seed)
     tree = {}
     for name, spec in JMOE.moe_template(jcfg).items():
@@ -131,3 +134,29 @@ def test_moe_template_matches_jax():
     assert jt.keys() == tt.keys()
     for name in jt:
         assert jt[name].shape == tt[name].shape and jt[name].init == tt[name].init
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("mlp", ["gelu", "relu2"])
+def test_non_gated_experts_match_jax(mlp, dt):
+    """An MoE config whose mlp is not swiglu has non-gated experts (no
+    w_gate): gelu in f32, tanh form, for gelu and, as the reference has it,
+    for relu2 too.  f32 at 3e-5; bf16 with the JAX side op by op at 2e-2."""
+    jcfg, jp, cfg, p = _layer0(1.25, dt, mlp=mlp)
+    assert "w_gate" not in p and "w_gate" not in jp
+    x = _x((2, 12, cfg.d_model), 5)
+    with jax.disable_jit() if dt == "bf16" else contextlib.nullcontext():
+        (jout, jaux), (out, aux) = _both(jcfg, jp, cfg, p, x)
+    tol = TOL if dt == "f32" else dict(atol=2e-2, rtol=2e-2)
+    np.testing.assert_allclose(out, jout, **tol)
+    np.testing.assert_allclose(aux, jaux, **tol)
+
+
+def test_relu2_experts_apply_gelu_like_the_reference():
+    """The reference's quirk, kept: relu2 experts compute what gelu experts
+    compute on the same weights, not squared ReLU."""
+    _, _, cfg, p = _layer0(1.25, mlp="gelu")
+    x = torch.from_numpy(_x((1, 10, cfg.d_model), 6))
+    gelu, _ = moe.moe_forward(p, x, cfg)
+    relu2, _ = moe.moe_forward(p, x, cfg.replace(mlp="relu2"))
+    assert torch.equal(gelu, relu2)
