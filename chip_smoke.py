@@ -148,6 +148,22 @@ Run from the root of a checkout.  Phases, each of which must pass:
               from it, whose losses equal the unbroken run's bit for bit;
               (d) torch.profiler over one more step (also the backward
               kernels' time by launch within it)
+ 12. mesh     (a) run_train sharded (repro_torch.launch.train with a mesh)
+              on a one-rank NCCL group, the ("data", "model") host mesh,
+              phase 11c's config, batch, schedule and seed, 3 steps: the
+              parameters and Adam moments DTensors in the rules' placements,
+              the four training kernels launched exactly as 3 of 11c's
+              steps (on the DTensors' local blocks), each loss and grad norm
+              within 2e-2 of 11c's first 3 (bit-equal or not, recorded),
+              step ms and peak GiB beside 11c's, and the step-3 checkpoint
+              restored into an unsharded run that trains step 3 as 11c did;
+              (b) the dry-run CLI (repro_torch.launch.dryrun, a fake
+              process group of 256 / 512 ranks on the CPU) for granite-8b's
+              train_4k, prefill_32k and decode_32k on both production
+              meshes, in a subprocess started before the build and
+              awaited after it, so that no timed phase runs beside it:
+              every cell ok; its per-device GB, roofline terms and
+              bottleneck logged
 
 It prints one JSON ``kernels`` line (the three forward kernels, the decode
 kernel over the int8 cache with its launches in phase 7b, and the two
@@ -167,6 +183,7 @@ import math
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2367,8 +2384,6 @@ def phase_train_loop(torch, np, ops, TF, base_cfg, train_cli, opt_mod, step_mod,
     losses equal A's); (C) a third resuming from that checkpoint, whose
     losses for steps 6-11 equal A's bit for bit.  Then torch.profiler over
     one more step: device time, busy share, tokens/s, model TFLOP/s."""
-    import tempfile
-
     cfg = base_cfg.replace(n_layers=TRAIN_LAYERS)
     t = TRAIN
     opt_cfg = opt_mod.AdamWConfig(lr=1e-3, warmup_steps=3, total_steps=t["steps"])
@@ -2390,8 +2405,8 @@ def phase_train_loop(torch, np, ops, TF, base_cfg, train_cli, opt_mod, step_mod,
           f"train: launch counts {totals} != {t['steps']} steps of the path's {want}")
     check(all(totals[k] > 0 for k in ("rmsnorm", "flash_attention", *BWD_KERNELS)),
           f"train: a kernel of the path was not launched: {totals}")
-    losses = a["losses"]
-    check(all(math.isfinite(x) for x in losses + a["grad_norms"]), f"train: losses {losses}")
+    losses, grad_norms = a["losses"], a["grad_norms"]
+    check(all(math.isfinite(x) for x in losses + grad_norms), f"train: losses {losses}")
     check(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
     n_params = sum(p.numel() for p in opt_mod.tree_leaves(a["params"]))
     embed = a["params"]["embed"]["tok"].numel()
@@ -2447,7 +2462,8 @@ def phase_train_loop(torch, np, ops, TF, base_cfg, train_cli, opt_mod, step_mod,
     row = {
         "model": cfg.name, "layers": cfg.n_layers, "params": n_params, "dtype": "bf16",
         "moments": "f32", "batch": t["batch"], "seq": t["seq"], "microbatches": t["microbatches"],
-        "steps": t["steps"], "losses": losses, "loss_first": losses[0], "loss_last": losses[-1],
+        "steps": t["steps"], "losses": losses, "grad_norms": grad_norms,
+        "loss_first": losses[0], "loss_last": losses[-1],
         "launches_per_step": want, "launches_total": totals,
         "step_ms": [x * 1e3 for x in step_s], "step_ms_median": med_ms,
         "tokens_per_s": tokens / (med_ms / 1e3), "model_tflops_per_step": model_flops / 1e12,
@@ -2480,6 +2496,143 @@ def phase_train(torch, np, ops, ref, TF, get_config, train_cli, opt_mod, step_mo
     return rows
 
 
+MESH_STEPS = 3  # phase 12a: sharded steps, held to 11c's first three
+MESH_TOL = TOL["bf16"]  # relative, on each loss and grad norm
+DRYRUN_ARCH = "granite-8b"  # phase 12b: its train_4k, prefill_32k, decode_32k on both meshes
+
+
+def start_dryrun(out_dir: Path):
+    """Phase 12b's dry-run in a subprocess on the CPU (a fake process group
+    cannot share a process with NCCL), started before the kernels' build so
+    that it runs beside nvcc and ends before any phase is timed; one
+    thread, no CUDA device."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1",
+           "CUDA_VISIBLE_DEVICES": ""}
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DRYRUN_ARCH,
+           "--mesh", "both", "--out", str(out_dir), "--force"]
+    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def phase_mesh_train(torch, ops, TF, base_cfg, train_cli, opt_mod, mesh_mod, sh, steps_mod,
+                     train_row: dict) -> dict:
+    """12a: 3 sharded steps of phase 11c's run on a one-rank NCCL group, held
+    to 11c's first three; the step-3 checkpoint restored unsharded."""
+
+    cfg = base_cfg.replace(n_layers=TRAIN_LAYERS)
+    t = TRAIN
+    opt_cfg = opt_mod.AdamWConfig(lr=1e-3, warmup_steps=3, total_steps=t["steps"])  # 11c's
+    kw = dict(batch=t["batch"], seq=t["seq"], microbatches=t["microbatches"], log_every=1,
+              seed=SEED, device="cuda")
+    started = mesh_mod.init_process_group("cuda")
+    try:
+        mesh = mesh_mod.make_host_mesh()
+        rules = steps_mod.make_rules(cfg, mesh)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as ckpt_dir:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            a = train_cli.run_train(cfg, opt_cfg, steps=MESH_STEPS, mesh=mesh, ckpt_dir=ckpt_dir,
+                                    ckpt_every=MESH_STEPS, **kw)
+            wall = time.perf_counter() - t0
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            counts = ops.launch_counts()
+            want = {k: v * MESH_STEPS for k, v in train_launches(cfg, t["microbatches"]).items()}
+            check(counts == want, f"mesh: launch counts {counts} != {MESH_STEPS} steps of {want}")
+            tmpl = TF.param_template(cfg)
+            placed = 0
+            for tree in (a["params"], a["opt_state"]["m"], a["opt_state"]["v"]):
+                def one(leaf, spec):
+                    nonlocal placed
+                    pl = sh.placements_for(rules.spec_for_shape(spec.shape, spec.axes), mesh)
+                    check(sh.is_dtensor(leaf) and tuple(leaf.placements) == pl,
+                          f"mesh: a leaf {spec.shape} is not a DTensor in {pl}")
+                    placed += 1
+
+                sh.map_pair(one, tree, tmpl)
+            ref_l, ref_g = train_row["losses"][:MESH_STEPS], train_row["grad_norms"][:MESH_STEPS]
+            rel = [abs(x - y) / abs(y) for x, y in zip(a["losses"] + a["grad_norms"], ref_l + ref_g)]
+            check(max(rel) <= MESH_TOL, f"mesh: losses {a['losses']} / grad norms "
+                  f"{a['grad_norms']} against 11c's {ref_l} / {ref_g}")
+            bit_equal = a["losses"] == ref_l and a["grad_norms"] == ref_g
+            step_ms = [x * 1e3 for x in a["step_s"]]
+            del a
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            b = train_cli.run_train(cfg, opt_cfg, steps=MESH_STEPS + 1, ckpt_dir=ckpt_dir,
+                                    ckpt_every=t["steps"] + 1, **kw)
+            restore_s = time.perf_counter() - t0
+        check(b["start_step"] == MESH_STEPS, f"mesh: the unsharded run resumed at {b['start_step']}")
+        check(not sh.is_dtensor(b["params"]["embed"]["tok"]), "mesh: the restored run is sharded")
+        resumed = b["losses"][0]
+        want_l = train_row["losses"][MESH_STEPS]
+        check(abs(resumed - want_l) <= MESH_TOL * abs(want_l),
+              f"mesh: the restored run's step {MESH_STEPS} loss {resumed} against 11c's {want_l}")
+        del b
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
+    row = {"model": cfg.name, "mesh": list(mesh.shape), "steps": MESH_STEPS,
+           "launches": counts, "leaves_placed": placed, "max_rel_diff": max(rel),
+           "bit_equal": bit_equal, "step_ms": step_ms, "step_ms_median": sorted(step_ms)[len(step_ms) // 2],
+           "phase11_step_ms_median": train_row["step_ms_median"], "peak_gib": peak_gib,
+           "phase11_peak_gib": train_row["peak_mem_gib"], "wall_s": wall,
+           "restored_step_loss": resumed, "phase11_loss": want_l,
+           "restored_bit_equal": resumed == want_l, "restore_run_s": restore_s}
+    log("[mesh] sharded train " + json.dumps(row))
+    return row
+
+
+def phase_mesh_dryrun(rc: int, out: str, out_dir: Path, log_dir: Path | None) -> dict:
+    """12b: the dry-run subprocess's cells (it ended after the build, before
+    phase 1): every cell ok."""
+    if log_dir is not None:
+        (log_dir / "dryrun.log").write_text(out)
+    check(rc == 0, f"dryrun: exit {rc}:\n{out[-3000:]}")
+    cells = {}
+    for path in sorted(out_dir.glob("*.json")):
+        rec = json.loads(path.read_text())
+        check(rec.get("ok"), f"dryrun: {path.name} failed: {rec.get('error')}")
+        gb = (rec["argument_bytes_per_dev"] + rec["temp_bytes_per_dev"]) / 1e9
+        cells[f"{rec['shape']} {rec['mesh']}"] = {
+            "chips": rec["chips"], "argument_gb": rec["argument_bytes_per_dev"] / 1e9,
+            "temp_gb": rec["temp_bytes_per_dev"] / 1e9, "fits_80gb": rec["fits_80gb"],
+            "t_compute_ms": rec["t_compute"] * 1e3, "t_memory_ms": rec["t_memory"] * 1e3,
+            "t_collective_ms": rec["t_collective"] * 1e3, "bottleneck": rec["bottleneck"],
+            "useful_flop_frac": rec["useful_flop_frac"], "run_s": rec["run_s"]}
+        log(f"[dryrun] {DRYRUN_ARCH} {rec['shape']} {rec['mesh']} ({rec['chips']} devices): "
+            f"{gb:.2f} GB a device, t_compute {rec['t_compute'] * 1e3:.2f} ms, t_memory "
+            f"{rec['t_memory'] * 1e3:.2f} ms, t_collective {rec['t_collective'] * 1e3:.2f} ms, "
+            f"bottleneck {rec['bottleneck']}")
+    check(len(cells) == 6, f"dryrun: {len(cells)} cells, not granite-8b's 3 x 2 meshes")
+    return cells
+
+
+def phase_mesh(torch, ops, TF, get_config, train_cli, opt_mod, train_row, dryrun, log_dir) -> dict:
+    """Phase 12: 12a the sharded train step, 12b the dry-run's cells."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps as steps_mod
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = {"train": phase_mesh_train(torch, ops, TF, get_config("granite-8b"), train_cli,
+                                      opt_mod, mesh_mod, sh, steps_mod, train_row)}
+    rows["dryrun"] = phase_mesh_dryrun(*dryrun, log_dir)
+    rows["wall_s"] = time.perf_counter() - t_phase
+    log(f"[mesh] phase passed in {rows['wall_s']:.1f} s")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -2496,9 +2649,41 @@ def main(argv: list[str] | None = None) -> int:
         return 1
     import numpy as np
 
+    from repro_torch.kernels import _build
+
+    t_all = time.perf_counter()
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    log(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda}")
+
+    dryrun_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    proc = start_dryrun(dryrun_dir)
+    try:
+        build_s = _build.build()
+        log(f"[build] {len(_build.SOURCES)} kernel libraries built in {build_s:.1f} s")
+        if args.log_dir is not None:
+            args.log_dir.mkdir(parents=True, exist_ok=True)
+            for name in _build.SOURCES:
+                if _build.log_path(name).exists():
+                    shutil.copy(_build.log_path(name), args.log_dir / f"nvcc_{name}.log")
+        fwd_build = fwd_build_report()
+        t0 = time.perf_counter()
+        out, _ = proc.communicate(timeout=600)
+        log(f"[dryrun] subprocess ended {time.perf_counter() - t0:.1f} s after the build "
+            f"(exit {proc.returncode}); no phase ran beside it")
+        dryrun = (proc.returncode, out, dryrun_dir)
+        return _phases(args, torch, np, t_all, card, kind, build_s, fwd_build, dryrun)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(dryrun_dir, ignore_errors=True)
+
+
+def _phases(args, torch, np, t_all, card, kind, build_s, fwd_build, dryrun) -> int:
     from repro_torch.configs import get_config
     from repro_torch.core import live_scaling as live
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.launch import serve as serve_cli
     from repro_torch.launch import train as train_cli
     from repro_torch.models import kvcache
@@ -2507,20 +2692,6 @@ def main(argv: list[str] | None = None) -> int:
     from repro_torch.serving import engine as engine_mod
     from repro_torch.training import optimizer as opt_mod
     from repro_torch.training import train_step as step_mod
-
-    t_all = time.perf_counter()
-    card = card_line()
-    kind = torch.cuda.get_device_name(0)
-    log(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda}")
-
-    build_s = _build.build()
-    log(f"[build] {len(_build.SOURCES)} kernel libraries built in {build_s:.1f} s")
-    if args.log_dir is not None:
-        args.log_dir.mkdir(parents=True, exist_ok=True)
-        for name in _build.SOURCES:
-            if _build.log_path(name).exists():
-                shutil.copy(_build.log_path(name), args.log_dir / f"nvcc_{name}.log")
-    fwd_build = fwd_build_report()
 
     kern = phase_kernels(torch, ops, ref)
     cfg = get_config("granite-8b")
@@ -2562,6 +2733,8 @@ def main(argv: list[str] | None = None) -> int:
                               args.log_dir)
     train = phase_train(torch, np, ops, ref, TF, get_config, train_cli, opt_mod, step_mod,
                         args.log_dir)
+    mesh = phase_mesh(torch, ops, TF, get_config, train_cli, opt_mod, train["loop"], dryrun,
+                      args.log_dir)
 
     line = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
@@ -2595,6 +2768,7 @@ def main(argv: list[str] | None = None) -> int:
                   "long_context": long_ctx,
                   "maas": fleet_row, "families": families, "last_configs": last,
                   "train": {**train, "kernels": [train["kernels"][k] for k in sorted(train["kernels"])]},
+                  "mesh": mesh,
                   "wall_s": time.perf_counter() - t_all}
         (args.log_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")

@@ -19,6 +19,22 @@ and no saved tensors.  Only the Function asks the flash kernel for each
 row's log-sum-exp, which its backward reads.  A gradient through a kernel is
 a backward kernel or an error, never the plain version.
 ``decode_attention`` serves decode only and has no gradient.
+
+DTensors (a model sharded over a device mesh).  Each op takes the same
+kernel or plain version on this rank's block, above that choice: the inputs
+are first redistributed to a layout the op can run block by block, and the
+result is wrapped back as a DTensor.  ``rmsnorm`` keeps x's batch and
+sequence shards (it reduces over the last dimension, which the rules never
+shard) and gathers ``w``.  The attentions keep batch and head shards; a
+sharded sequence (q's, or the cache's) is gathered, because the kernels
+take no query offset and no partial softmax statistics to combine.  Under
+GQA the rules may shard q's heads over an axis that does not divide the KV
+heads, which then stay whole: the local q head ``h`` is global head
+``offset + h``, so each rank slices the KV heads its q heads read.  A
+replicated operand whose block-wise gradient differs per rank (``w`` beside
+a sharded x, the sliced KV heads) receives a partial gradient, summed over
+that mesh axis by autograd.  Plain tensors beside DTensors count as
+replicated.
 """
 
 from __future__ import annotations
@@ -28,6 +44,7 @@ from typing import Iterator
 
 import torch
 
+from repro_torch.distributed import sharding as sh
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
@@ -98,7 +115,116 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+# ---------------------------------------------------------------------------
+# DTensor inputs: the op on this rank's block
+# ---------------------------------------------------------------------------
+
+
+def _mesh_of(*ts) -> object:
+    return next(t.device_mesh for t in ts if sh.is_dtensor(t))
+
+
+def _rmsnorm_blocks(x, w, eps, impl):
+    """rmsnorm of a DTensor x, row block by row block."""
+    Partial, Replicate, _ = sh.placement_types()
+    mesh = _mesh_of(x, w)
+    x, w = sh.as_dtensor(x, mesh), sh.as_dtensor(w, mesh)
+    last = x.ndim - 1
+    x_pl = [p if p.is_shard() and p.dim < last else Replicate() for p in x.placements]
+    x = sh.redistributed(x, x_pl)
+    w_local = sh.redistributed(w, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Partial() if p.is_shard() else Replicate() for p in x_pl])
+    out = rmsnorm(x.to_local(), w_local, eps=eps, impl=impl)
+    return sh.from_block(out, mesh, x_pl, x.shape)
+
+
+def _attention_layout(q, kvs, q_heads: int, kv_heads: int):
+    """Placements that let attention run block by block: per mesh dimension,
+    a batch shard of q is kept (the KV side follows it), a head shard of q
+    is kept with the KV side's head shard where both divide evenly, else the
+    KV side is replicated; anything else (a sequence shard, a partial) is
+    gathered.  Returns (q's, the KV side's, the mesh dims whose KV heads are
+    replicated beside q's head shard)."""
+    _, Replicate, Shard = sh.placement_types()
+    sizes = q.device_mesh.shape
+    q_pl, kv_pl, sliced = [], [], []
+    for i, pq in enumerate(q.placements):
+        if pq.is_shard(0):
+            q_pl.append(Shard(0))
+            kv_pl.append(Shard(0))
+        elif pq.is_shard(q_heads) and q.shape[q_heads] % sizes[i] == 0:
+            q_pl.append(Shard(q_heads))
+            even = all(t.placements[i].is_shard(kv_heads) for t in kvs) and \
+                kvs[0].shape[kv_heads] % sizes[i] == 0
+            kv_pl.append(Shard(kv_heads) if even else Replicate())
+            if not even:
+                sliced.append(i)
+        else:
+            q_pl.append(Replicate())
+            kv_pl.append(Replicate())
+    return q_pl, kv_pl, sliced
+
+
+def _kv_heads_for(q, q_pl, kv, kv_pl, q_heads: int, kv_heads: int) -> slice | list[int]:
+    """The local KV heads this rank's q heads read: global q head g reads KV
+    head g // n_rep.  A slice where the local heads share them in equal
+    groups (the kernels' h // n_rep), else one KV head per q head."""
+    mesh = q.device_mesh
+    qb = sh.local_block(tuple(q.shape), mesh, tuple(q_pl))[q_heads]
+    kb = sh.local_block(tuple(kv.shape), mesh, tuple(kv_pl))[kv_heads]
+    n_rep = q.shape[q_heads] // kv.shape[kv_heads]
+    heads = [(g // n_rep) - kb.start for g in range(qb.start, qb.stop)]
+    if min(heads) < 0 or max(heads) >= kb.stop - kb.start:
+        raise ValueError(f"q heads {qb} read KV heads outside this rank's block {kb}")
+    lo, hi = heads[0], heads[-1] + 1
+    group = len(heads) // (hi - lo)
+    if len(heads) % (hi - lo) == 0 and heads == [lo + j // group for j in range(len(heads))]:
+        return slice(lo, hi)
+    return heads
+
+
+def _flash_blocks(q, k, v, causal, softmax_scale, impl):
+    Partial, Replicate, _ = sh.placement_types()
+    mesh = _mesh_of(q, k, v)
+    q, k, v = (sh.as_dtensor(t, mesh) for t in (q, k, v))
+    q_pl, kv_pl, sliced = _attention_layout(q, (k, v), 2, 2)
+    q, k, v = sh.redistributed(q, q_pl), sh.redistributed(k, kv_pl), sh.redistributed(v, kv_pl)
+    grad_pl = [Partial() if i in sliced else p for i, p in enumerate(kv_pl)]
+    heads = _kv_heads_for(q, q_pl, k, kv_pl, 2, 2)
+    kl, vl = (t.to_local(grad_placements=grad_pl)[:, :, heads] for t in (k, v))
+    out = flash_attention(q.to_local(), kl.contiguous(), vl.contiguous(), causal=causal,
+                          softmax_scale=softmax_scale, impl=impl)
+    return sh.from_block(out, mesh, q_pl, (*q.shape[:3], v.shape[3]))
+
+
+def _decode_blocks(q, k_cache, v_cache, lengths, kw, impl):
+    _, Replicate, Shard = sh.placement_types()
+    mesh = _mesh_of(q, k_cache, v_cache)
+    q, k_cache, v_cache, lengths = (sh.as_dtensor(t, mesh) for t in (q, k_cache, v_cache, lengths))
+    scales = {n: sh.as_dtensor(kw[n], mesh) for n in ("k_scale", "v_scale") if kw.get(n) is not None}
+    q_pl, kv_pl, _ = _attention_layout(q, (k_cache, v_cache), 1, 1)
+    b_pl = [Shard(0) if p.is_shard(0) else Replicate() for p in q_pl]
+    q, lengths = sh.redistributed(q, q_pl), sh.redistributed(lengths, b_pl)
+    k_cache, v_cache = sh.redistributed(k_cache, kv_pl), sh.redistributed(v_cache, kv_pl)
+    heads = _kv_heads_for(q, q_pl, k_cache, kv_pl, 1, 1)
+    local = {n: sh.redistributed(t, kv_pl).to_local()[:, heads].contiguous()
+             for n, t in scales.items()}
+    out = decode_attention(
+        q.to_local(), k_cache.to_local()[:, heads].contiguous(),
+        v_cache.to_local()[:, heads].contiguous(),
+        lengths.to_local(), softmax_scale=kw.get("softmax_scale"), impl=impl,
+        k_scale=local.get("k_scale"), v_scale=local.get("v_scale"))
+    return sh.from_block(out, mesh, q_pl, q.shape)
+
+
+# ---------------------------------------------------------------------------
+# The ops
+# ---------------------------------------------------------------------------
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5, impl: str | None = None):
+    if sh.is_dtensor(x) or sh.is_dtensor(w):
+        return _rmsnorm_blocks(x, w, eps, impl)
     if _use_kernel(impl, x):
         if _needs_grad(x, w):
             return _RMSNorm.apply(x, w, eps)
@@ -115,6 +241,8 @@ def flash_attention(
     softmax_scale: float | None = None,
     impl: str | None = None,
 ):
+    if any(sh.is_dtensor(t) for t in (q, k, v)):
+        return _flash_blocks(q, k, v, causal, softmax_scale, impl)
     if _use_kernel(impl, q):
         if _needs_grad(q, k, v):
             return _FlashAttention.apply(q, k, v, causal, softmax_scale)
@@ -135,6 +263,8 @@ def decode_attention(
 ):
     """``k_scale``/``v_scale``: the (B, KV, S) scales of an int8 cache."""
     kw = dict(softmax_scale=softmax_scale, k_scale=k_scale, v_scale=v_scale)
+    if any(sh.is_dtensor(t) for t in (q, k_cache, v_cache)):
+        return _decode_blocks(q, k_cache, v_cache, lengths, kw, impl)
     if _use_kernel(impl, q):
         return _decode.decode_attention(q, k_cache, v_cache, lengths, **kw)
     return ref.decode_attention_ref(q, k_cache, v_cache, lengths, **kw)

@@ -17,11 +17,11 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import TensorSpec, matmul, pad, seq_sharded, shard
 from repro_torch.kernels import ops
 from repro_torch.models import kvcache
-from repro_torch.models.layers import NEG_INF, TensorSpec, apply_rope, rope_for
+from repro_torch.models.layers import NEG_INF, apply_rope, rope_for
 
 
 def gqa_template(cfg) -> dict[str, TensorSpec]:
@@ -29,27 +29,28 @@ def gqa_template(cfg) -> dict[str, TensorSpec]:
     hd = cfg.resolved_head_dim
     h, kv = cfg.n_heads, cfg.n_kv_heads
     t = {
-        "wq": TensorSpec((d, h, hd), dtype=cfg.dtype),
-        "wk": TensorSpec((d, kv, hd), dtype=cfg.dtype),
-        "wv": TensorSpec((d, kv, hd), dtype=cfg.dtype),
-        "wo": TensorSpec((h, hd, d), dtype=cfg.dtype),
+        "wq": TensorSpec((d, h, hd), ("d_model", "heads", "head_dim"), dtype=cfg.dtype),
+        "wk": TensorSpec((d, kv, hd), ("d_model", "kv_heads", "head_dim"), dtype=cfg.dtype),
+        "wv": TensorSpec((d, kv, hd), ("d_model", "kv_heads", "head_dim"), dtype=cfg.dtype),
+        "wo": TensorSpec((h, hd, d), ("heads", "head_dim", "d_model"), dtype=cfg.dtype),
     }
     if cfg.qkv_bias:
-        t["bq"] = TensorSpec((h, hd), init="zeros", dtype=cfg.dtype)
-        t["bk"] = TensorSpec((kv, hd), init="zeros", dtype=cfg.dtype)
-        t["bv"] = TensorSpec((kv, hd), init="zeros", dtype=cfg.dtype)
+        t["bq"] = TensorSpec((h, hd), ("heads", "head_dim"), init="zeros", dtype=cfg.dtype)
+        t["bk"] = TensorSpec((kv, hd), ("kv_heads", "head_dim"), init="zeros", dtype=cfg.dtype)
+        t["bv"] = TensorSpec((kv, hd), ("kv_heads", "head_dim"), init="zeros", dtype=cfg.dtype)
     return t
 
 
 def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum('bsd,dhk->bshk') as one matrix product."""
     d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+    return matmul(x, w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
 
 
 def _gqa_q(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     q = _proj_heads(x, params["wq"])
-    return q + params["bq"] if cfg.qkv_bias else q
+    q = q + params["bq"] if cfg.qkv_bias else q
+    return shard(q, "batch", "seq", "act_heads", None)
 
 
 def _gqa_qkv(params: dict, x: torch.Tensor, cfg):
@@ -58,7 +59,18 @@ def _gqa_qkv(params: dict, x: torch.Tensor, cfg):
     if cfg.qkv_bias:
         k = k + params["bk"]
         v = v + params["bv"]
+    k = shard(k, "batch", "seq", "act_heads", None)
+    v = shard(v, "batch", "seq", "act_heads", None)
     return _gqa_q(params, x, cfg), k, v
+
+
+def _seq_parallel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """The sequence-parallel layout (where the rules shard 'seq'): q stays a
+    sequence shard and k/v are gathered once per layer."""
+    if not seq_sharded():
+        return q, k, v
+    return (shard(q, "batch", "seq", None, None), shard(k, "batch", None, None, None),
+            shard(v, "batch", None, None, None))
 
 
 def cross_kv(params: dict, enc_out: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -70,7 +82,7 @@ def cross_kv(params: dict, enc_out: torch.Tensor) -> tuple[torch.Tensor, torch.T
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum('...hk,hkd->...d') as one matrix product."""
     h, k, d = wo.shape
-    return out.reshape(*out.shape[:-2], h * k) @ wo.reshape(h * k, d)
+    return matmul(out.reshape(*out.shape[:-2], h * k), wo.reshape(h * k, d))
 
 
 def gqa_prefill(
@@ -89,17 +101,19 @@ def gqa_prefill(
     side takes RoPE and no cache is written; the reference also projects a
     k and v of ``x`` there and drops them."""
     if kv_override is not None:
-        out = ops.flash_attention(_gqa_q(params, x, cfg), *kv_override, causal=causal)
-        return _out_proj(out, params["wo"]), None
+        q, k, v = _seq_parallel(_gqa_q(params, x, cfg), *kv_override)
+        out = ops.flash_attention(q, k, v, causal=causal)
+        return shard(_out_proj(out, params["wo"]), "batch", "seq", "act_d_model"), None
     q, k, v = _gqa_qkv(params, x, cfg)
     cos, sin = rope_for(positions, cfg.resolved_head_dim, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    q, k, v = _seq_parallel(q, k, v)
     out = ops.flash_attention(q, k, v, causal=causal)
     if cache is not None:
         lengths = (positions[:, -1] + 1).to(torch.int32)
         cache = kvcache.write_prompt_kv(cache, k, v, lengths)
-    return _out_proj(out, params["wo"]), cache
+    return shard(_out_proj(out, params["wo"]), "batch", "seq", "act_d_model"), cache
 
 
 def gqa_decode(
@@ -131,7 +145,7 @@ def gqa_decode(
     if cross_cache is not None:
         q = _gqa_q(params, x, cfg)[:, 0].contiguous()  # (B, H, D)
         out = ops.decode_attention(q, cross_cache["k"], cross_cache["v"], cross_cache["lengths"])
-        return _out_proj(out, params["wo"])[:, None], cache
+        return shard(_out_proj(out, params["wo"])[:, None], "batch", "seq", "act_d_model"), cache
     q, k, v = _gqa_qkv(params, x, cfg)
     pos = cache["lengths"][:, None]  # (B, 1)
     cos, sin = rope_for(pos, cfg.resolved_head_dim, cfg.rope_theta)
@@ -145,7 +159,7 @@ def gqa_decode(
                                k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
     if coupled:
         cache["lengths"].copy_(torch.where(live, cache["lengths"], saved))
-    return _out_proj(out, params["wo"])[:, None], cache
+    return shard(_out_proj(out, params["wo"])[:, None], "batch", "seq", "act_d_model"), cache
 
 
 # ---------------------------------------------------------------------------
@@ -167,20 +181,21 @@ def mla_template(cfg) -> dict[str, TensorSpec]:
     qlr, kvlr = cfg.q_lora_rank, cfg.kv_lora_rank
     nope, rope_d, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     return {
-        "w_dq": TensorSpec((d, qlr), dtype=cfg.dtype),
-        "q_norm": TensorSpec((qlr,), init="ones", dtype=cfg.dtype),
-        "w_uq": TensorSpec((qlr, h, nope + rope_d), dtype=cfg.dtype),
-        "w_dkv": TensorSpec((d, kvlr), dtype=cfg.dtype),
-        "kv_norm": TensorSpec((kvlr,), init="ones", dtype=cfg.dtype),
-        "w_kr": TensorSpec((d, rope_d), dtype=cfg.dtype),
-        "w_uk": TensorSpec((kvlr, h, nope), dtype=cfg.dtype),
-        "w_uv": TensorSpec((kvlr, h, vdim), dtype=cfg.dtype),
-        "wo": TensorSpec((h, vdim, d), dtype=cfg.dtype),
+        "w_dq": TensorSpec((d, qlr), ("d_model", "lora"), dtype=cfg.dtype),
+        "q_norm": TensorSpec((qlr,), ("lora",), init="ones", dtype=cfg.dtype),
+        "w_uq": TensorSpec((qlr, h, nope + rope_d), ("lora", "heads", "head_dim"),
+                           dtype=cfg.dtype),
+        "w_dkv": TensorSpec((d, kvlr), ("d_model", "lora"), dtype=cfg.dtype),
+        "kv_norm": TensorSpec((kvlr,), ("lora",), init="ones", dtype=cfg.dtype),
+        "w_kr": TensorSpec((d, rope_d), ("d_model", "head_dim"), dtype=cfg.dtype),
+        "w_uk": TensorSpec((kvlr, h, nope), ("lora", "heads", "head_dim"), dtype=cfg.dtype),
+        "w_uv": TensorSpec((kvlr, h, vdim), ("lora", "heads", "head_dim"), dtype=cfg.dtype),
+        "wo": TensorSpec((h, vdim, d), ("heads", "head_dim", "d_model"), dtype=cfg.dtype),
     }
 
 
 def _mla_q(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg):
-    cq = ops.rmsnorm(x @ params["w_dq"], params["q_norm"], eps=cfg.norm_eps)
+    cq = ops.rmsnorm(matmul(x, params["w_dq"]), params["q_norm"], eps=cfg.norm_eps)
     q = _proj_heads(cq, params["w_uq"])
     q_nope = q[..., : cfg.qk_nope_dim]
     q_rope = q[..., cfg.qk_nope_dim :]
@@ -189,8 +204,8 @@ def _mla_q(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg):
 
 
 def _mla_ckv(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg):
-    c = ops.rmsnorm(x @ params["w_dkv"], params["kv_norm"], eps=cfg.norm_eps)
-    kr = (x @ params["w_kr"])[:, :, None, :]  # (B, S, 1, rope)
+    c = ops.rmsnorm(matmul(x, params["w_dkv"]), params["kv_norm"], eps=cfg.norm_eps)
+    kr = matmul(x, params["w_kr"])[:, :, None, :]  # (B, S, 1, rope)
     cos, sin = rope_for(positions, cfg.qk_rope_dim, cfg.rope_theta)
     return c, apply_rope(kr, cos, sin)[:, :, 0]  # (B, S, rope)
 
@@ -214,13 +229,14 @@ def mla_prefill(
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope], dim=-1)
     qk_dim, vdim = cfg.mla_qk_head_dim, cfg.v_head_dim
-    v_p = F.pad(v, (0, qk_dim - vdim)) if vdim < qk_dim else v
+    v_p = pad(v, (0, qk_dim - vdim)) if vdim < qk_dim else v
+    q, k, v_p = _seq_parallel(q, k, v_p)
     out = ops.flash_attention(q, k, v_p, causal=True, softmax_scale=1.0 / math.sqrt(qk_dim))
     out = out[..., :vdim]
     if cache is not None:
         lengths = (positions[:, -1] + 1).to(torch.int32)
         cache = kvcache.write_prompt_mla(cache, c, kr, lengths)
-    return _out_proj(out, params["wo"]), cache
+    return shard(_out_proj(out, params["wo"]), "batch", "seq", "act_d_model"), cache
 
 
 def mla_decode(
@@ -249,5 +265,6 @@ def mla_decode(
     s = torch.where(valid[:, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     ctx = torch.einsum("bhs,bsr->bhr", p, ckv)  # (B, H, kvlr)
-    out = torch.einsum("bhr,rhk->bhk", ctx, params["w_uv"].float())
-    return _out_proj(out.to(x.dtype), params["wo"])[:, None], cache
+    out = shard(torch.einsum("bhr,rhk->bhk", ctx, params["w_uv"].float()), "batch", "act_heads")
+    return shard(_out_proj(out.to(x.dtype), params["wo"])[:, None], "batch", "seq",
+                 "act_d_model"), cache

@@ -122,3 +122,17 @@ class ModelConfig:
         from repro_torch.models.transformer import param_template
 
         return param_count(param_template(self))
+
+    def approx_active_params(self) -> int:
+        """Parameters active per token: a MoE counts its experts' leaves at
+        top_k / n_experts (the reference's roofline MODEL_FLOPS count)."""
+        total = self.approx_params()
+        if self.n_experts and self.top_k:
+            from repro_torch.models.layers import param_count
+            from repro_torch.models.transformer import param_template
+
+            expert = param_template(self)["layers"].get("moe")
+            if expert is not None:
+                e_count = param_count(expert)
+                total = total - e_count + (e_count * self.top_k) // self.n_experts
+        return total

@@ -27,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor, pad
+
 
 def quantize_kv(x: torch.Tensor, dim: int = -1) -> tuple[torch.Tensor, torch.Tensor]:
     """x -> (int8 values, f32 scales) with absmax scaling along ``dim``, as
@@ -62,19 +64,65 @@ def init_kv_cache(
     return out
 
 
+def kv_cache_axes(*, quant: bool = False) -> dict:
+    """Logical axes of a GQA cache's leaves (the int8 scales included), for
+    :mod:`repro_torch.distributed.sharding`."""
+    out = {
+        "k": ("cache_batch", "cache_kv_heads", "cache_seq", "head_dim"),
+        "v": ("cache_batch", "cache_kv_heads", "cache_seq", "head_dim"),
+        "lengths": ("cache_batch",),
+    }
+    if quant:
+        out["k_scale"] = ("cache_batch", "cache_kv_heads", "cache_seq")
+        out["v_scale"] = ("cache_batch", "cache_kv_heads", "cache_seq")
+    return out
+
+
+# -- DTensor caches ----------------------------------------------------------
+#
+# A sharded cache (a DTensor, its sequence dim split over a mesh axis by
+# default) cannot take a write through an index or a slice along a sharded
+# dim in place.  Its writers take the reference's form instead: a masked
+# ``where`` over the whole buffer, which every rank applies to its own block.
+
+
+def _put_prefix(buf: torch.Tensor, dim: int, new: torch.Tensor) -> None:
+    """buf[..., :n, ...] = new along ``dim``, n = new.shape[dim]."""
+    if not is_dtensor(buf):
+        buf.narrow(dim, 0, new.shape[dim]).copy_(new)
+        return
+    n, size = new.shape[dim], buf.shape[dim]
+    if n == size:
+        buf.copy_(new)
+        return
+    widths = (0, 0) * (buf.dim() - 1 - dim) + (0, size - n)
+    keep = (torch.arange(size, device=buf.device) < n).reshape(
+        *[size if d == dim else 1 for d in range(buf.dim())])
+    buf.copy_(torch.where(keep, pad(new.to(buf.dtype), widths), buf))
+
+
+def _put_at(buf: torch.Tensor, dim: int, new: torch.Tensor, pos: torch.Tensor,
+            ok: torch.Tensor) -> None:
+    """Row b of ``buf`` takes ``new[b]`` at position ``pos[b]`` along ``dim``
+    where ``ok[b]``, by a masked ``where`` over the whole buffer."""
+    size = buf.shape[dim]
+    hit = (torch.arange(size, device=buf.device)[None, :] == pos[:, None]) & ok[:, None]
+    hit = hit.reshape(buf.shape[0], *[size if d == dim else 1 for d in range(1, buf.dim())])
+    buf.copy_(torch.where(hit, new.to(buf.dtype).unsqueeze(dim), buf))
+
+
 def write_prompt_kv(
     cache: dict, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor
 ) -> dict:
     """Write a prompt's K/V (B, S, KV, D activations) at positions [0, S),
     quantized where the cache is int8."""
-    s = k.shape[1]
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
     if "k_scale" in cache:
         (kt, ks), (vt, vs) = quantize_kv(kt), quantize_kv(vt)
-        cache["k_scale"][:, :, :s].copy_(ks)
-        cache["v_scale"][:, :, :s].copy_(vs)
-    cache["k"][:, :, :s].copy_(kt)
-    cache["v"][:, :, :s].copy_(vt)
+        _put_prefix(cache["k_scale"], 2, ks)
+        _put_prefix(cache["v_scale"], 2, vs)
+    _put_prefix(cache["k"], 2, kt)
+    _put_prefix(cache["v"], 2, vt)
     cache["lengths"].copy_(lengths)
     return cache
 
@@ -95,6 +143,10 @@ def _uniform_write(buf: torch.Tensor, dim: int, new: torch.Tensor, lengths: torc
     clamps its start, in place; rows that are not live keep theirs.  The
     position stays on the device (no host read)."""
     pos = lengths.max().long().clamp(0, buf.shape[dim] - 1).reshape(1)
+    if is_dtensor(buf):
+        every = torch.ones_like(lengths, dtype=torch.bool)
+        _put_at(buf, dim, new, pos.expand(lengths.shape[0]), every if live is None else live)
+        return
     new = new.to(buf.dtype).unsqueeze(dim)
     if live is not None:
         keep = live.reshape(-1, *([1] * (buf.dim() - 1)))
@@ -139,7 +191,15 @@ def append_kv(
     if "k_scale" in cache:
         (k_new, ks), (v_new, vs) = quantize_kv(k_new), quantize_kv(v_new)
         for buf, new in ((cache["k_scale"], ks), (cache["v_scale"], vs)):
-            buf[rows, :, pos] = torch.where(ok[:, None], new, buf[rows, :, pos])
+            if is_dtensor(buf):
+                _put_at(buf, 2, new, pos, ok)
+            else:
+                buf[rows, :, pos] = torch.where(ok[:, None], new, buf[rows, :, pos])
+    if is_dtensor(k):
+        _put_at(k, 2, k_new, pos, ok)
+        _put_at(v, 2, v_new, pos, ok)
+        cache["lengths"].add_(1 if live is None else live.to(torch.int32))
+        return cache
     keep = ok[:, None, None]
     k[rows, :, pos] = torch.where(keep, k_new.to(k.dtype), k[rows, :, pos])
     v[rows, :, pos] = torch.where(keep, v_new.to(v.dtype), v[rows, :, pos])
@@ -188,14 +248,21 @@ def init_mla_cache(
     }
 
 
+def mla_cache_axes() -> dict:
+    return {
+        "ckv": ("cache_batch", "cache_seq", None),
+        "krope": ("cache_batch", "cache_seq", None),
+        "lengths": ("cache_batch",),
+    }
+
+
 def write_prompt_mla(
     cache: dict, ckv: torch.Tensor, krope: torch.Tensor, lengths: torch.Tensor
 ) -> dict:
     """Write a prompt's latents (B, S, kv_lora) and rope keys (B, S, rope) at
     positions [0, S)."""
-    s = ckv.shape[1]
-    cache["ckv"][:, :s].copy_(ckv)
-    cache["krope"][:, :s].copy_(krope)
+    _put_prefix(cache["ckv"], 1, ckv)
+    _put_prefix(cache["krope"], 1, krope)
     cache["lengths"].copy_(lengths)
     return cache
 
@@ -224,6 +291,11 @@ def append_mla(
     free or full slot is never written."""
     ckv, krope = cache["ckv"], cache["krope"]
     rows, pos, ok = _append_index(cache["lengths"], ckv.shape[1], live)
+    if is_dtensor(ckv):
+        _put_at(ckv, 1, ckv_new, pos, ok)
+        _put_at(krope, 1, krope_new, pos, ok)
+        cache["lengths"].add_(1 if live is None else live.to(torch.int32))
+        return cache
     keep = ok[:, None]
     ckv[rows, pos] = torch.where(keep, ckv_new.to(ckv.dtype), ckv[rows, pos])
     krope[rows, pos] = torch.where(keep, krope_new.to(krope.dtype), krope[rows, pos])
@@ -244,6 +316,13 @@ def init_ssm_state(batch: int, cfg, *, device: torch.device) -> dict:
         "h": torch.zeros(
             (batch, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state), dtype=torch.float32,
             device=device),
+    }
+
+
+def ssm_state_axes() -> dict:
+    return {
+        "conv": ("cache_batch", None, None),
+        "h": ("cache_batch", "ssm_heads", None, None),
     }
 
 

@@ -13,73 +13,32 @@ operands upcast to f32; the product of two bf16 values is exact in f32.
 
 from __future__ import annotations
 
-import dataclasses
 import functools
-from typing import Any
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (  # noqa: F401  (the templates' and init laws' home)
+    TensorSpec,
+    as_dtensor,
+    from_block,
+    gather_dims,
+    init_std,
+    is_dtensor,
+    local_block,
+    matmul,
+    map_template,
+    param_count,
+    placement_types,
+    redistributed,
+    shard,
+    ssm_a_from_uniform,
+    ssm_dt_from_uniform,
+    stack_template,
+)
+
 NEG_INF = -1e30
-
-
-# ---------------------------------------------------------------------------
-# Parameter templates (shape + init law per leaf)
-# ---------------------------------------------------------------------------
-
-
-@dataclasses.dataclass(frozen=True)
-class TensorSpec:
-    """Declarative parameter leaf: shape, init law and dtype."""
-
-    shape: tuple[int, ...]
-    init: str = "normal"  # 'normal' | 'zeros' | 'ones'
-    dtype: Any = torch.float32
-
-    def stacked(self, n: int) -> "TensorSpec":
-        """Prepend the scan-over-layers axis."""
-        return dataclasses.replace(self, shape=(n, *self.shape))
-
-
-def map_template(fn, template: Any) -> Any:
-    if isinstance(template, dict):
-        return {k: map_template(fn, v) for k, v in template.items()}
-    return fn(template)
-
-
-def stack_template(template: Any, n: int) -> Any:
-    return map_template(lambda s: s.stacked(n), template)
-
-
-def param_count(template: Any) -> int:
-    if isinstance(template, dict):
-        return sum(param_count(v) for v in template.values())
-    return int(np.prod(template.shape))
-
-
-def init_std(spec: TensorSpec) -> float:
-    """The reference's init law: std = 1/sqrt(shape[0]) for rank >= 2.
-
-    On a stacked layer leaf shape[0] is ``n_layers``, so every layer weight
-    gets std 1/sqrt(n_layers) (1/6 for 36-layer granite).  Copied as it is so
-    that a port-initialised model behaves like a JAX-initialised one."""
-    fan_in = spec.shape[0] if len(spec.shape) >= 2 else max(spec.shape[-1], 1)
-    return 1.0 / float(np.sqrt(max(fan_in, 1)))
-
-
-def ssm_a_from_uniform(u: torch.Tensor) -> torch.Tensor:
-    """The reference's ``ssm_a`` law on uniform draws u in [0, 1): Mamba2's A
-    is a negative scalar per head, A = -exp(u * (log 16 - log 1) + log 1).
-    The leaf that holds it is named ``a_log``; the model uses it as A."""
-    return -torch.exp(u * float(np.log(16.0) - np.log(1.0)) + float(np.log(1.0)))
-
-
-def ssm_dt_from_uniform(u: torch.Tensor) -> torch.Tensor:
-    """The reference's ``ssm_dt`` law: dt = exp(u * (log 0.1 - log 1e-3) +
-    log 1e-3) spans [1e-3, 1e-1], and the bias is softplus's inverse of it."""
-    dt = torch.exp(u * float(np.log(0.1) - np.log(1e-3)) + float(np.log(1e-3)))
-    return dt + torch.log(-torch.expm1(-dt))
 
 
 # ---------------------------------------------------------------------------
@@ -281,11 +240,11 @@ def decode_attention_reference(
 def mlp_template(cfg) -> dict[str, TensorSpec]:
     d, f = cfg.d_model, cfg.d_ff
     t = {
-        "w_up": TensorSpec((d, f), dtype=cfg.dtype),
-        "w_down": TensorSpec((f, d), dtype=cfg.dtype),
+        "w_up": TensorSpec((d, f), ("d_model", "d_ff"), dtype=cfg.dtype),
+        "w_down": TensorSpec((f, d), ("d_ff", "d_model"), dtype=cfg.dtype),
     }
     if cfg.gated_mlp:
-        t["w_gate"] = TensorSpec((d, f), dtype=cfg.dtype)
+        t["w_gate"] = TensorSpec((d, f), ("d_model", "d_ff"), dtype=cfg.dtype)
     return t
 
 
@@ -294,9 +253,9 @@ def mlp_forward(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     the input dtype, so a bf16 square rounds to bf16 as the reference's
     does) or whisper's gelu (f32, the tanh form that ``jax.nn.gelu`` takes by
     default)."""
-    up = x @ params["w_up"]
+    up = matmul(x, params["w_up"])
     if cfg.mlp == "swiglu":
-        gate = x @ params["w_gate"]
+        gate = matmul(x, params["w_gate"])
         hidden = F.silu(wide(gate)).to(x.dtype) * up
     elif cfg.mlp == "relu2":
         r = F.relu(up)
@@ -305,7 +264,8 @@ def mlp_forward(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
         hidden = F.gelu(wide(up), approximate="tanh").to(x.dtype)
     else:
         raise ValueError(f"unknown mlp {cfg.mlp!r}")
-    return hidden @ params["w_down"]
+    hidden = shard(hidden, "batch", "seq", "act_d_ff")
+    return matmul(hidden, params["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -315,9 +275,9 @@ def mlp_forward(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 
 def embedding_template(cfg) -> dict[str, TensorSpec]:
     pv = cfg.padded_vocab_size
-    t = {"tok": TensorSpec((pv, cfg.d_model), dtype=cfg.dtype)}
+    t = {"tok": TensorSpec((pv, cfg.d_model), ("vocab", "d_model"), dtype=cfg.dtype)}
     if not cfg.tie_embeddings:
-        t["unembed"] = TensorSpec((cfg.d_model, pv), dtype=cfg.dtype)
+        t["unembed"] = TensorSpec((cfg.d_model, pv), ("d_model", "vocab"), dtype=cfg.dtype)
     return t
 
 
@@ -335,9 +295,36 @@ def embed_tokens(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
     backward sums each row's gradients in a fixed order, where
     ``index_select``'s accumulates them with float atomics, so a training
     step's bits would change from run to run."""
+    if is_dtensor(params["tok"]):
+        return shard(_embed_blocks(tokens, params["tok"]), "batch", "seq", "act_d_model")
     return F.embedding(tokens, params["tok"])
+
+
+def _embed_blocks(tokens: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+    """The lookup in a DTensor table, block by block: each rank looks its
+    token ids up in its vocab block (zero rows for ids outside it), so the
+    result is a partial sum over the vocab-sharding mesh axis; a sharded
+    d_model (the FSDP overlay) is gathered first."""
+    Partial, Replicate, _ = placement_types()
+    tok = gather_dims(tok, (1,))
+    mesh = tok.device_mesh
+    tokens = as_dtensor(tokens, mesh)
+    ids_pl, out_pl, grad_pl = [], [], []
+    for pw, pt in zip(tok.placements, tokens.placements):
+        vocab_split = pw.is_shard(0)
+        ids_pl.append(pt if pt.is_shard() and not vocab_split else Replicate())
+        out_pl.append(Partial() if vocab_split else ids_pl[-1])
+        grad_pl.append(pw if vocab_split else (Partial() if ids_pl[-1].is_shard() else pw))
+    tokens = redistributed(tokens, ids_pl)
+    rows = local_block(tuple(tok.shape), mesh, tuple(tok.placements))[0]
+    ids = tokens.to_local() - rows.start
+    inside = (ids >= 0) & (ids < rows.stop - rows.start)
+    w = tok.to_local(grad_placements=grad_pl)
+    out = F.embedding(torch.where(inside, ids, 0), w)
+    out = torch.where(inside[..., None], out, torch.zeros((), dtype=out.dtype))
+    return from_block(out, mesh, out_pl, (*tokens.shape, tok.shape[1]))
 
 
 def unembed(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     w = params["tok"].T if cfg.tie_embeddings else params["unembed"]
-    return x @ w
+    return matmul(x, w)

@@ -13,6 +13,8 @@ Decode is the O(1) recurrent step over the (H, P, N) state.
 The gated norm goes through :func:`repro_torch.kernels.ops.rmsnorm`, so on
 the card it is the rmsnorm kernel.  The parameter named ``a_log`` holds A
 itself (negative), as the reference's init law and its use here have it.
+On DTensors the chunked scan runs on each rank's block (batch and head
+shards kept, a sequence shard gathered), as the attention kernels do.
 """
 
 from __future__ import annotations
@@ -20,8 +22,19 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (
+    TensorSpec,
+    as_dtensor,
+    einsum,
+    from_block,
+    is_dtensor,
+    matmul,
+    pad,
+    placement_types,
+    redistributed,
+    shard,
+)
 from repro_torch.kernels import ops
-from repro_torch.models.layers import TensorSpec
 
 
 def mamba2_template(cfg) -> dict[str, TensorSpec]:
@@ -32,14 +45,14 @@ def mamba2_template(cfg) -> dict[str, TensorSpec]:
     d_xbc = din + 2 * g * n
     d_in_proj = 2 * din + 2 * g * n + h  # z, x, B, C, dt
     return {
-        "in_proj": TensorSpec((d, d_in_proj), dtype=cfg.dtype),
-        "conv_w": TensorSpec((cfg.ssm_conv, d_xbc), dtype=cfg.dtype),
-        "conv_b": TensorSpec((d_xbc,), init="zeros", dtype=cfg.dtype),
-        "a_log": TensorSpec((h,), init="ssm_a", dtype=torch.float32),
-        "d_skip": TensorSpec((h,), init="ones", dtype=torch.float32),
-        "dt_bias": TensorSpec((h,), init="ssm_dt", dtype=torch.float32),
-        "norm_w": TensorSpec((din,), init="ones", dtype=cfg.dtype),
-        "out_proj": TensorSpec((din, d), dtype=cfg.dtype),
+        "in_proj": TensorSpec((d, d_in_proj), ("d_model", "d_ff"), dtype=cfg.dtype),
+        "conv_w": TensorSpec((cfg.ssm_conv, d_xbc), ("conv", "d_ff"), dtype=cfg.dtype),
+        "conv_b": TensorSpec((d_xbc,), ("d_ff",), init="zeros", dtype=cfg.dtype),
+        "a_log": TensorSpec((h,), ("ssm_heads",), init="ssm_a", dtype=torch.float32),
+        "d_skip": TensorSpec((h,), ("ssm_heads",), init="ones", dtype=torch.float32),
+        "dt_bias": TensorSpec((h,), ("ssm_heads",), init="ssm_dt", dtype=torch.float32),
+        "norm_w": TensorSpec((din,), ("d_ff",), init="ones", dtype=cfg.dtype),
+        "out_proj": TensorSpec((din, d), ("d_ff", "d_model"), dtype=cfg.dtype),
     }
 
 
@@ -60,10 +73,10 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
     """Depthwise causal conv1d.  xbc: (B, S, D), w: (K, D)."""
     k = w.shape[0]
     s = xbc.shape[1]
-    pad = F.pad(xbc, (0, 0, k - 1, 0))
-    out = pad[:, 0:s] * w[0]
+    padded = pad(xbc, (0, 0, k - 1, 0))
+    out = padded[:, 0:s] * w[0]
     for i in range(1, k):
-        out = out + pad[:, i : i + s] * w[i]
+        out = out + padded[:, i : i + s] * w[i]
     return F.silu((out + b).float()).to(xbc.dtype)
 
 
@@ -86,6 +99,8 @@ def ssd_chunked(
     h_init: torch.Tensor | None = None,  # (B, H, P, N)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B, S, H, P) in x's dtype, final state (B, H, P, N) f32)."""
+    if is_dtensor(x):
+        return _ssd_blocks(x, dt, a, b_in, c_in, chunk, h_init)
     bsz, s, h, p = x.shape
     g, n = b_in.shape[2], b_in.shape[3]
     rep = h // g
@@ -131,6 +146,40 @@ def ssd_chunked(
     return y.to(x.dtype), h_prev
 
 
+def _ssd_blocks(x, dt, a, b_in, c_in, chunk, h_init):
+    """``ssd_chunked`` on this rank's block of DTensor inputs: per mesh dim a
+    batch shard of x is kept (every input follows it), a head shard is kept
+    where B and C have one group (they are then replicated and get a
+    partial gradient), anything else is gathered."""
+    Partial, Replicate, Shard = placement_types()
+    mesh = x.device_mesh
+    x, dt, a, b_in, c_in, h_init = (as_dtensor(t, mesh) for t in (x, dt, a, b_in, c_in, h_init))
+    pls = {k: [] for k in ("x", "dt", "a", "bc", "h", "a_grad", "bc_grad")}
+    for i, px in enumerate(x.placements):
+        if px.is_shard(0):
+            picks = dict(x=Shard(0), dt=Shard(0), a=Replicate(), bc=Shard(0), h=Shard(0),
+                         a_grad=Partial(), bc_grad=Shard(0))
+        elif px.is_shard(2) and b_in.shape[2] == 1 and x.shape[2] % mesh.size(i) == 0:
+            picks = dict(x=Shard(2), dt=Shard(2), a=Shard(0), bc=Replicate(), h=Shard(1),
+                         a_grad=Shard(0), bc_grad=Partial())
+        else:
+            picks = dict(x=Replicate(), dt=Replicate(), a=Replicate(), bc=Replicate(),
+                         h=Replicate(), a_grad=Replicate(), bc_grad=Replicate())
+        for k, v in picks.items():
+            pls[k].append(v)
+    x, dt, a = redistributed(x, pls["x"]), redistributed(dt, pls["dt"]), redistributed(a, pls["a"])
+    b_in, c_in = redistributed(b_in, pls["bc"]), redistributed(c_in, pls["bc"])
+    h_init = redistributed(h_init, pls["h"])
+    y, h_final = ssd_chunked(
+        x.to_local(), dt.to_local(), a.to_local(grad_placements=pls["a_grad"]),
+        b_in.to_local(grad_placements=pls["bc_grad"]),
+        c_in.to_local(grad_placements=pls["bc_grad"]), chunk,
+        None if h_init is None else h_init.to_local())
+    bsz, _, h, p = x.shape
+    return (from_block(y, mesh, pls["x"], x.shape),
+            from_block(h_final, mesh, pls["h"], (bsz, h, p, b_in.shape[3])))
+
+
 def ssd_reference(x, dt, a, b_in, c_in, h_init=None):
     """Sequential per-token recurrence, the oracle of the chunked form."""
     bsz, s, h, p = x.shape
@@ -152,14 +201,14 @@ def ssd_reference(x, dt, a, b_in, c_in, h_init=None):
 def _gated_out(params: dict, y: torch.Tensor, z: torch.Tensor, u: torch.Tensor, cfg):
     """rmsnorm(y * silu(z)) @ out_proj, in u's dtype."""
     gated = y * F.silu(z.float()).to(u.dtype)
-    return ops.rmsnorm(gated, params["norm_w"], eps=cfg.norm_eps) @ params["out_proj"]
+    return matmul(ops.rmsnorm(gated, params["norm_w"], eps=cfg.norm_eps), params["out_proj"])
 
 
 def _ssm_inputs(params: dict, u: torch.Tensor, cfg):
     """in_proj, causal conv and the split: (z, raw xbc, x (B,S,H,P), B, C,
     dt (B,S,H) f32 after softplus)."""
     b, s, _ = u.shape
-    z, xbc_raw, dt = _split_in_proj(cfg, u @ params["in_proj"])
+    z, xbc_raw, dt = _split_in_proj(cfg, matmul(u, params["in_proj"]))
     xbc = _causal_conv(xbc_raw, params["conv_w"], params["conv_b"])
     x, b_in, c_in = _split_xbc(cfg, xbc)
     x = x.reshape(b, s, cfg.ssm_nheads, cfg.ssm_headdim)
@@ -173,12 +222,12 @@ def _ssd_padded(params: dict, x, dt, b_in, c_in, cfg):
     """ssd_chunked over the sequence padded to a chunk multiple with dt = 0
     (decay 1, no state update), so the final state is exact; y sliced back."""
     s = x.shape[1]
-    pad = (-s) % cfg.ssm_chunk
-    if pad:
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        b_in = F.pad(b_in, (0, 0, 0, 0, 0, pad))
-        c_in = F.pad(c_in, (0, 0, 0, 0, 0, pad))
+    extra = (-s) % cfg.ssm_chunk
+    if extra:
+        x = pad(x, (0, 0, 0, 0, 0, extra))
+        dt = pad(dt, (0, 0, 0, extra))
+        b_in = pad(b_in, (0, 0, 0, 0, 0, extra))
+        c_in = pad(c_in, (0, 0, 0, 0, 0, extra))
     y, h_final = ssd_chunked(x, dt, params["a_log"], b_in, c_in, cfg.ssm_chunk)
     return y[:, :s], h_final
 
@@ -194,7 +243,7 @@ def mamba2_forward(params: dict, u: torch.Tensor, cfg) -> torch.Tensor:
     """Full-sequence forward (train, prefill without a state)."""
     z, _, x, b_in, c_in, dt = _ssm_inputs(params, u, cfg)
     y, _ = _ssd_padded(params, x, dt, b_in, c_in, cfg)
-    return _skip_and_gate(params, y, x, z, u, cfg)
+    return shard(_skip_and_gate(params, y, x, z, u, cfg), "batch", "seq", "act_d_model")
 
 
 def mamba2_prefill(params: dict, u: torch.Tensor, cfg, state: dict) -> tuple[torch.Tensor, dict]:
@@ -206,8 +255,9 @@ def mamba2_prefill(params: dict, u: torch.Tensor, cfg, state: dict) -> tuple[tor
     out = _skip_and_gate(params, y, x, z, u, cfg)
     k = cfg.ssm_conv - 1
     s = u.shape[1]
-    tail = xbc_raw[:, -k:] if s >= k else F.pad(xbc_raw, (0, 0, k - s, 0))
-    return out, {"conv": tail.to(state["conv"].dtype), "h": h_final}
+    tail = xbc_raw[:, -k:] if s >= k else pad(xbc_raw, (0, 0, k - s, 0))
+    return (shard(out, "batch", "seq", "act_d_model"),
+            {"conv": tail.to(state["conv"].dtype), "h": h_final})
 
 
 def mamba2_decode(params: dict, u: torch.Tensor, cfg, state: dict) -> tuple[torch.Tensor, dict]:
@@ -217,11 +267,11 @@ def mamba2_decode(params: dict, u: torch.Tensor, cfg, state: dict) -> tuple[torc
     din = cfg.d_inner
     g, n = cfg.ssm_ngroups, cfg.ssm_state
     h = cfg.ssm_nheads
-    z, xbc_new, dt = _split_in_proj(cfg, u[:, 0] @ params["in_proj"])
+    z, xbc_new, dt = _split_in_proj(cfg, matmul(u[:, 0], params["in_proj"]))
 
     # conv ring buffer: window = [conv state, new input]
     window = torch.cat([state["conv"], xbc_new[:, None, :]], dim=1)  # (B, K, D)
-    conv = torch.einsum("bkd,kd->bd", window.float(), params["conv_w"].float())
+    conv = einsum("bkd,kd->bd", window.float(), params["conv_w"].float())
     conv = F.silu(conv + params["conv_b"].float()).to(u.dtype)
     x = conv[:, :din].reshape(b, h, cfg.ssm_headdim)
     rep = h // g
@@ -231,8 +281,9 @@ def mamba2_decode(params: dict, u: torch.Tensor, cfg, state: dict) -> tuple[torc
     dt = F.softplus(dt.float() + params["dt_bias"])  # (B, H)
     decay = torch.exp(dt * params["a_log"])[..., None, None]
     h_new = state["h"] * decay + dt[..., None, None] * (x.float()[..., :, None] * b_r[:, :, None, :])
-    y = torch.einsum("bhn,bhpn->bhp", c_r, h_new)
+    y = einsum("bhn,bhpn->bhp", c_r, h_new)
     y = y + params["d_skip"][None, :, None] * x.float()
     y = y.reshape(b, 1, din).to(u.dtype)
     out = _gated_out(params, y, z[:, None], u, cfg)
-    return out, {"conv": window[:, 1:].to(state["conv"].dtype), "h": h_new}
+    return (shard(out, "batch", "seq", "act_d_model"),
+            {"conv": window[:, 1:].to(state["conv"].dtype), "h": h_new})

@@ -23,18 +23,28 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import TensorSpec
+from repro_torch.distributed.sharding import (
+    TensorSpec,
+    current_rules,
+    einsum,
+    gather_dims,
+    is_dtensor,
+    matmul,
+    pad,
+    placements_for,
+    shard,
+)
 
 
 def moe_template(cfg) -> dict[str, TensorSpec]:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     t = {
-        "router": TensorSpec((d, e), dtype=torch.float32),
-        "w_up": TensorSpec((e, d, f), dtype=cfg.dtype),
-        "w_down": TensorSpec((e, f, d), dtype=cfg.dtype),
+        "router": TensorSpec((d, e), ("d_model", "experts"), dtype=torch.float32),
+        "w_up": TensorSpec((e, d, f), ("experts", "d_model", "d_ff"), dtype=cfg.dtype),
+        "w_down": TensorSpec((e, f, d), ("experts", "d_ff", "d_model"), dtype=cfg.dtype),
     }
     if cfg.gated_mlp:
-        t["w_gate"] = TensorSpec((e, d, f), dtype=cfg.dtype)
+        t["w_gate"] = TensorSpec((e, d, f), ("experts", "d_model", "d_ff"), dtype=cfg.dtype)
     return t
 
 
@@ -45,13 +55,14 @@ def _expert_ffn(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     default, for every other ``mlp``.  That includes ``relu2``: the
     reference's experts apply gelu there, not squared ReLU, and so do
     these."""
-    up = torch.einsum("gecd,edf->gecf", x, params["w_up"])
+    up = einsum("gecd,edf->gecf", x, params["w_up"])
     if cfg.gated_mlp:
-        gate = torch.einsum("gecd,edf->gecf", x, params["w_gate"])
+        gate = einsum("gecd,edf->gecf", x, params["w_gate"])
         hidden = F.silu(gate.float()).to(x.dtype) * up
     else:
         hidden = F.gelu(up.float(), approximate="tanh").to(x.dtype)
-    return torch.einsum("gecf,efd->gecd", hidden, params["w_down"])
+    hidden = shard(hidden, "batch", "experts", None, "act_d_ff")
+    return einsum("gecf,efd->gecd", hidden, params["w_down"])
 
 
 def route_topk(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -75,7 +86,7 @@ def moe_forward(
     tokens = x.reshape(b * s, d)
     t = tokens.shape[0]
 
-    logits = tokens.float() @ params["router"]  # (T, E)
+    logits = matmul(tokens.float(), params["router"])  # (T, E)
     probs = torch.softmax(logits, dim=-1)
     topk_p, topk_i = route_topk(probs, k)  # (T, k)
     topk_p = topk_p / topk_p.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -88,10 +99,12 @@ def moe_forward(
     # G groups of g_sz tokens; the tail group is padded with invalid tokens
     g_sz = min(group_size or cfg.moe_group_size, t)
     n_groups = -(-t // g_sz)
-    pad = n_groups * g_sz - t
-    tk = F.pad(tokens, (0, 0, 0, pad)).reshape(n_groups, g_sz, d)
-    pi = F.pad(topk_p, (0, 0, 0, pad)).reshape(n_groups, g_sz, k)
-    ii = F.pad(topk_i, (0, 0, 0, pad)).reshape(n_groups, g_sz, k)
+    extra = n_groups * g_sz - t
+    if extra:
+        tokens, topk_p, topk_i = (pad(t, (0, 0, 0, extra)) for t in (tokens, topk_p, topk_i))
+    tk = tokens.reshape(n_groups, g_sz, d)
+    pi = topk_p.reshape(n_groups, g_sz, k)
+    ii = topk_i.reshape(n_groups, g_sz, k)
     vm = (torch.arange(n_groups * g_sz, device=x.device) < t).reshape(n_groups, g_sz)
 
     cap = max(int(math.ceil(cfg.capacity_factor * g_sz * k / e)), 1)
@@ -107,11 +120,18 @@ def moe_forward(
     # one-hot of the slot, zero past the capacity (jax.nn.one_hot's rule)
     oc = (pos[..., None] == torch.arange(cap, device=x.device, dtype=pos.dtype)).float()
     oc = oc * keep[..., None]  # (G, S, k, C)
-    dispatch = torch.einsum("gske,gskc->gsec", onehot, oc)  # (G, S, E, C)
-    combine = torch.einsum("gske,gskc->gsec", onehot * pi[..., None], oc)
+    dispatch = einsum("gske,gskc->gsec", onehot, oc)  # (G, S, E, C)
+    combine = einsum("gske,gskc->gsec", onehot * pi[..., None], oc)
+    dispatch = shard(dispatch, "batch", None, "experts", None)
+    combine = shard(combine, "batch", None, "experts", None)
 
-    buf = torch.einsum("gsec,gsd->gecd", dispatch.to(x.dtype), tk)  # (G, E, C, d)
+    buf = einsum("gsec,gsd->gecd", dispatch.to(x.dtype), tk)  # (G, E, C, d)
+    buf = shard(buf, "batch", "experts", None, None)
     out_buf = _expert_ffn(params, buf, cfg)
-    y = torch.einsum("gsec,gecd->gsd", combine, out_buf.float())  # (G, S, d)
-    out = y.reshape(n_groups * g_sz, d)[:t].reshape(b, s, d).to(x.dtype)
-    return out, aux
+    y = einsum("gsec,gecd->gsd", combine, out_buf.float())  # (G, S, d)
+    flat = y.reshape(n_groups * g_sz, d)[:t]
+    if is_dtensor(flat):  # gather the group shards over axes the batch is not sharded on
+        batch = placements_for(current_rules().spec_for_shape((b,), ("batch",)), flat.device_mesh)
+        flat = gather_dims(flat, (0,), keep=[p.is_shard(0) for p in batch])
+    out = flat.reshape(b, s, d).to(x.dtype)
+    return shard(out, "batch", "seq", "act_d_model"), aux

@@ -37,6 +37,12 @@ GQA caches (the hybrid's shared ones and the enc-dec model's self caches
 too) in int8 with per-token scales; the cross cache and the MLA latent
 cache stay in the model dtype, as in the reference.
 
+Sharded (:mod:`repro_torch.distributed.sharding`): under sharding rules the
+parameters, caches and batch are DTensors, the ``shard`` points constrain
+the activations (and their gradients) where the reference's do, and the
+products, attentions, norms, pads and the SSD scan run on each rank's
+blocks; without rules every ``shard`` is the identity and nothing changes.
+
 Training: ``lm_loss`` is the reference's cross-entropy (plus the MoE aux
 loss) over ``train_forward``'s logits, and autograd differentiates it; on the
 card the norms and the attentions take their backward kernels
@@ -55,6 +61,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as sh
 from repro_torch.kernels import ops
 from repro_torch.models import attention, kvcache, layers, mamba2, moe
 from repro_torch.models.config import ModelConfig
@@ -82,7 +89,7 @@ def _is_ssm(cfg) -> bool:
 
 
 def _norm_spec(cfg) -> TensorSpec:
-    return TensorSpec((cfg.d_model,), init="ones", dtype=cfg.dtype)
+    return TensorSpec((cfg.d_model,), ("d_model",), init="ones", dtype=cfg.dtype)
 
 
 def attn_layer_template(cfg, *, cross: bool = False) -> dict:
@@ -133,41 +140,23 @@ def n_layer_blocks(cfg: ModelConfig) -> int:
     return cfg.n_layers + extra
 
 
-def _init_leaf(spec: TensorSpec, gen: torch.Generator, device: torch.device) -> torch.Tensor:
-    if spec.init == "zeros":
-        return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
-    if spec.init == "ones":
-        return torch.ones(spec.shape, dtype=spec.dtype, device=device)
-    if spec.init in ("ssm_a", "ssm_dt"):
-        u = torch.rand(spec.shape, generator=gen, dtype=torch.float32, device=device)
-        law = layers.ssm_a_from_uniform if spec.init == "ssm_a" else layers.ssm_dt_from_uniform
-        return law(u).to(spec.dtype)
-    if spec.init != "normal":
-        raise ValueError(f"unknown init {spec.init!r}")
-    std = layers.init_std(spec)
-    out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
-    # draw in f32 one layer slice at a time: the largest granite leaf is
-    # 8.5 GB in f32 but one layer slice of it is 235 MB
-    for part in out.unbind(0) if len(spec.shape) > 2 else (out,):
-        noise = torch.randn(part.shape, generator=gen, dtype=torch.float32, device=device)
-        part.copy_(noise.mul_(std))
-    return out
-
-
 def init_params(
     cfg: ModelConfig,
     generator: torch.Generator | int = 0,
     device: str | torch.device | None = None,
+    rules: sh.ShardingRules | None = None,
 ) -> dict:
     """Random parameters with the reference's init law, drawn on ``device``
     from ``generator`` (or a seed).  The numbers differ from ``jax.random``'s:
-    tests that compare with JAX carry the JAX weights over instead."""
+    tests that compare with JAX carry the JAX weights over instead.  With
+    ``rules`` on a mesh every leaf is a DTensor holding this rank's block of
+    the same full draw."""
     dev = resolve_device(device)
     gen = generator
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(generator))
-    return layers.map_template(lambda s: _init_leaf(s, gen, dev), param_template(cfg))
+    return sh.init_from_template(param_template(cfg), gen, dev, rules)
 
 
 # ---------------------------------------------------------------------------
@@ -272,7 +261,8 @@ def _stack(one: dict, n: int) -> dict:
 
 
 def init_caches(
-    cfg: ModelConfig, batch: int, max_seq: int, device: str | torch.device | None = None
+    cfg: ModelConfig, batch: int, max_seq: int, device: str | torch.device | None = None,
+    *, abstract: bool = False,
 ) -> dict:
     """Stacked per-layer decode state.  ``layers``: GQA k/v (L, B, KV, S, D)
     and lengths (L, B); MLA ckv (L, B, S, kv_lora) and krope (L, B, S,
@@ -281,9 +271,11 @@ def init_caches(
     enc-dec model's ``cross``: k/v (L, B, KV, n_frontend_tokens, D) and
     lengths (B,), written by the prefill.  With ``kv_quant`` the GQA caches
     hold int8 k/v and f32 k_scale/v_scale (L, B, KV, S); the MLA and cross
-    caches are built as without it, as the reference builds them."""
+    caches are built as without it, as the reference builds them.
+    ``abstract`` builds them on the meta device: shapes and dtypes only,
+    never allocated (the reference's ShapeDtypeStructs)."""
     _check_family(cfg)
-    dev = resolve_device(device)
+    dev = torch.device("meta") if abstract else resolve_device(device)
 
     def kv():
         return kvcache.init_kv_cache(
@@ -307,6 +299,28 @@ def init_caches(
             cfg.n_layers, batch, cfg.n_frontend_tokens, cfg.n_kv_heads, cfg.resolved_head_dim,
             cfg.dtype, device=dev)
     return caches
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    """Logical-axis tree matching ``init_caches``'s: each leaf's axes with
+    ``layers`` prepended, as the reference's (whose cross ``lengths``, one
+    (B,) leaf, takes the two-axis tuple too and resolves by its first)."""
+    _check_family(cfg)
+
+    def add_layer(tree: dict) -> dict:
+        return {k: ("layers", *axes) for k, axes in tree.items()}
+
+    if _is_ssm(cfg):
+        out = {"layers": add_layer(kvcache.ssm_state_axes())}
+        if cfg.family == "hybrid":
+            out["shared"] = add_layer(kvcache.kv_cache_axes(quant=cfg.kv_quant))
+        return out
+    if cfg.attn == "mla":
+        return {"layers": add_layer(kvcache.mla_cache_axes())}
+    if cfg.family == "encdec":
+        return {"layers": add_layer(kvcache.kv_cache_axes(quant=cfg.kv_quant)),
+                "cross": add_layer(kvcache.kv_cache_axes())}
+    return {"layers": add_layer(kvcache.kv_cache_axes(quant=cfg.kv_quant))}
 
 
 def _embed(cfg, params, tokens, frames=None):
@@ -340,6 +354,7 @@ def _head(cfg, params, x: torch.Tensor) -> torch.Tensor:
     """Final norm + unembed of (B, 1, d) -> masked f32 logits (B, V)."""
     x = ops.rmsnorm(x, params["final_norm"], eps=cfg.norm_eps)
     logits = layers.unembed(params["embed"], x, cfg)[:, 0]
+    logits = sh.shard(logits, "batch", None)  # sampling reads whole vocab rows
     return layers.vocab_mask_logits(layers.wide(logits), cfg)
 
 
@@ -418,16 +433,23 @@ def lm_loss(cfg: ModelConfig, params: dict, tokens: torch.Tensor, labels: torch.
             frames: torch.Tensor | None = None) -> torch.Tensor:
     """Mean next-token cross-entropy over the labels that are not -100, plus
     the MoE aux loss (the reference's ``lm_loss``): vocab-masked logits, an
-    f32 log-sum-exp and the gold logit.  The reference's sharding
-    annotations (the vocab-sharded logits) have no counterpart on one
-    device."""
+    f32 log-sum-exp and the gold logit.  Under sharding rules the logits
+    stay vocab-sharded, as the reference keeps them: the gold logit is then
+    the reference's iota-compare sum (a gather along a sharded vocab would
+    gather the logits), the same value as the gather, since every other term
+    of the sum is zero."""
     logits, aux = train_forward(cfg, params, tokens, frames)
+    logits = sh.shard(logits, "batch", "seq", "act_vocab")
     lf = layers.wide(layers.vocab_mask_logits(logits, cfg))
     valid = labels != -100
     safe = torch.where(valid, labels, 0).long()
     m = lf.amax(dim=-1)
     lse = torch.log(torch.exp(lf - m[..., None]).sum(dim=-1)) + m
-    gold = lf.gather(-1, safe[..., None])[..., 0]
+    if sh.is_dtensor(lf):
+        vocab = torch.arange(lf.shape[-1], device=lf.device)
+        gold = torch.where(vocab == safe[..., None], lf, 0.0).sum(dim=-1)
+    else:
+        gold = lf.gather(-1, safe[..., None])[..., 0]
     nll = lse - gold
     loss = (nll * valid).sum() / valid.sum().clamp_min(1)
     return loss + aux

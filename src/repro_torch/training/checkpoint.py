@@ -15,8 +15,11 @@ package restores in the other, bit for bit.
     and the trainer resumes from it; older checkpoints are pruned to
     ``keep``.
 
-The reference's resharding on restore (``shardings``) has no counterpart on
-one device: each leaf goes to the device of its target leaf.
+Sharded state (DTensor leaves) is gathered leaf by leaf to the same format
+(rank 0 writes, every rank waits for it), and a restore distributes each
+leaf to its target leaf's placements: a sharded run's checkpoint restores
+into an unsharded run and the other way round.  A plain target leaf goes to
+its device.
 """
 
 from __future__ import annotations
@@ -29,8 +32,15 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding as sh
 from repro_torch.models.bridge import tensor_from_numpy
-from repro_torch.training.optimizer import tree_paths
+from repro_torch.training.optimizer import full_value, tree_paths
+
+
+def _barrier() -> None:
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
 
 
 def _to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
@@ -45,16 +55,22 @@ def _to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
 
 
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3) -> str:
-    """Atomically write ``tree`` as checkpoint ``step``; prune old ones."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Atomically write ``tree`` as checkpoint ``step``; prune old ones.
+    Every rank of a sharded run calls it (the leaves are gathered)."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
+    writer = sh.is_rank0()
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
 
     manifest = {"step": step, "leaves": {}}
     for key, leaf in tree_paths(tree):
+        leaf = full_value(leaf)
+        if not writer:
+            continue
         store, dtype_name = _to_numpy(leaf)
         fname = key.replace("/", "__") + ".npy"
         with open(os.path.join(tmp, fname), "wb") as f:
@@ -62,16 +78,17 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3) -> st
             f.flush()
             os.fsync(f.fileno())
         manifest["leaves"][key] = {"file": fname, "shape": list(store.shape), "dtype": dtype_name}
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
-        f.flush()
-        os.fsync(f.fileno())
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)  # atomic publish
-
-    for s in all_steps(ckpt_dir)[:-keep]:
-        shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:08d}"), ignore_errors=True)
+    if writer:
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+            f.flush()
+            os.fsync(f.fileno())
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)  # atomic publish
+        for s in all_steps(ckpt_dir)[:-keep]:
+            shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:08d}"), ignore_errors=True)
+    _barrier()
     return final
 
 
@@ -93,8 +110,9 @@ def latest_step(ckpt_dir: str) -> int | None:
 
 def restore_checkpoint(ckpt_dir: str, target: Any, *, step: int | None = None) -> tuple[Any, int]:
     """Restore into the structure of ``target`` (a nested dict of tensors):
-    each leaf with its stored dtype, on its target leaf's device.  Raises if
-    a leaf's shape or dtype differs from the target's."""
+    each leaf with its stored dtype, on its target leaf's device, and a
+    DTensor target's leaf distributed to its placements.  Raises if a leaf's
+    shape or dtype differs from the target's."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -109,6 +127,8 @@ def restore_checkpoint(ckpt_dir: str, target: Any, *, step: int | None = None) -
         if tuple(t.shape) != tuple(tgt.shape) or t.dtype != tgt.dtype:
             raise ValueError(f"checkpoint leaf {key}: stored {tuple(t.shape)} {t.dtype}, "
                              f"target {tuple(tgt.shape)} {tgt.dtype}")
+        if sh.is_dtensor(tgt):
+            return sh.distribute_as(t, tgt.device_mesh, tuple(tgt.placements))
         return t
 
     def build(t: Any, prefix: str) -> Any:

@@ -67,9 +67,10 @@ def lr_at(cfg: AdamWConfig, step: torch.Tensor | int) -> torch.Tensor:
 
 
 def adamw_init(params: Any, cfg: AdamWConfig) -> dict:
-    """Moments mirror the parameter tree, on each leaf's device."""
+    """Moments mirror the parameter tree, on each leaf's device (a sharded
+    leaf's moments are DTensors with its placements)."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
+        return torch.zeros_like(p, dtype=cfg.moment_dtype)
 
     device = tree_leaves(params)[0].device
     return {
@@ -79,9 +80,30 @@ def adamw_init(params: Any, cfg: AdamWConfig) -> dict:
     }
 
 
+def adamw_abstract(params_abstract: Any, cfg: AdamWConfig) -> dict:
+    """Meta-tensor mirror of the state for the dry-run (never allocated)."""
+    def meta(p):
+        return torch.empty(p.shape, dtype=cfg.moment_dtype, device="meta")
+
+    return {
+        "m": _tree_map(meta, params_abstract),
+        "v": _tree_map(meta, params_abstract),
+        "step": torch.empty((), dtype=torch.int32, device="meta"),
+    }
+
+
 def global_norm(tree: Any) -> torch.Tensor:
+    """sqrt of the sum of squares over every leaf; a sharded leaf's sum is
+    reduced over the mesh (one all-reduce per sharded leaf)."""
     leaves = [x.float().square().sum() for x in tree_leaves(tree)]
+    leaves = [full_value(x) for x in leaves]
     return torch.stack(leaves).sum().sqrt()
+
+
+def full_value(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value as a plain tensor (reduced or gathered over
+    the mesh); a plain tensor as it is."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
 
 
 @torch.no_grad()

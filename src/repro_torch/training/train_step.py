@@ -12,9 +12,15 @@ tensors, so the caller's tensors never acquire ``requires_grad``.  With
 ``n`` microbatches the batch is split along its first axis and the
 gradients accumulate in f32, as the reference's ``lax.scan`` does: activation
 memory is one microbatch.  Remat happens inside the model (``cfg.remat``).
-The reference's ``TrainState``, ``batch_axes`` and abstract batch
-(``make_batch_abstract``) serve its sharded steps and dry-run and wait for
-the port's (A14).
+
+Sharded: with DTensor parameters, moments and batch (call the step under
+:func:`repro_torch.distributed.sharding.use_sharding_rules`), the same step
+runs over the mesh.  Plain tensors that the step and the model make count
+as replicated (``implicit_replication``); each gradient is redistributed to
+its parameter's placements (the data-parallel all-reduce, or a
+reduce-scatter under the FSDP overlay); microbatch ``i`` is the same global
+rows as in the unsharded step (the token batch is gathered and each slice
+sharded again); the metrics are plain 0-d tensors of the full values.
 """
 
 from __future__ import annotations
@@ -23,18 +29,60 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import transformer as TF
 from repro_torch.models.config import ModelConfig
-from repro_torch.training.optimizer import AdamWConfig, adamw_update, tree_leaves
+from repro_torch.training.optimizer import AdamWConfig, adamw_update, full_value, tree_leaves
 
 
-def _split_microbatches(batch: dict, n: int) -> list[dict]:
-    """(B, ...) -> n dicts of (B // n, ...) slices."""
+def make_batch_abstract(cfg: ModelConfig, batch: int, seq: int) -> dict:
+    """Meta-tensor batch for the dry-run (never allocated)."""
+    out = {
+        "tokens": torch.empty((batch, seq), dtype=torch.int32, device="meta"),
+        "labels": torch.empty((batch, seq), dtype=torch.int32, device="meta"),
+    }
+    if cfg.family in ("vlm", "encdec"):
+        nf = cfg.n_frontend_tokens or 64
+        out["frames"] = torch.empty((batch, nf, cfg.d_model), dtype=cfg.dtype, device="meta")
+    return out
+
+
+def batch_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of the batch's leaves."""
+    out = {"tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+    if cfg.family in ("vlm", "encdec"):
+        out["frames"] = ("batch", "seq", "act_d_model")
+    return out
+
+
+def _split_microbatches(batch: dict, n: int, axes: dict) -> list[dict]:
+    """(B, ...) -> n dicts of (B // n, ...) slices; a sharded leaf is
+    gathered and each slice sharded again by its logical axes."""
     for x in batch.values():
         if x.shape[0] % n:
             raise ValueError(f"batch of {x.shape[0]} does not split into {n} microbatches")
-    return [{k: x.reshape(n, x.shape[0] // n, *x.shape[1:])[i] for k, x in batch.items()}
-            for i in range(n)]
+
+    def whole(x):
+        if not sh.is_dtensor(x):
+            return x
+        from torch.distributed.tensor import Replicate
+
+        return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+    full = {k: whole(x) for k, x in batch.items()}
+    return [{k: sh.shard(x.reshape(n, x.shape[0] // n, *x.shape[1:])[i], *axes[k])
+             for k, x in full.items()} for i in range(n)]
+
+
+def _sharded(tree: Any) -> bool:
+    return any(sh.is_dtensor(x) for x in tree_leaves(tree))
+
+
+def _as_placed(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A gradient in its parameter's placements."""
+    if sh.is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def _aliases(tree: Any) -> Any:
@@ -65,7 +113,7 @@ def build_train_step(
         with torch.enable_grad():
             loss = TF.lm_loss(cfg, alias, mb["tokens"], mb["labels"], mb.get("frames"))
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        return loss.detach(), [torch.zeros_like(p) if g is None else g
+        return loss.detach(), [torch.zeros_like(p) if g is None else _as_placed(g, p)
                                for p, g in zip(leaves, grads)]
 
     def unflatten(like: Any, flat: list) -> Any:
@@ -79,12 +127,21 @@ def build_train_step(
         return build(like)
 
     def train_step(params: Any, opt_state: dict, batch: dict):
+        if not _sharded(params):
+            return step(params, opt_state, batch)
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        with implicit_replication():
+            params, opt_state, metrics = step(params, opt_state, batch)
+        return params, opt_state, {k: full_value(v) for k, v in metrics.items()}
+
+    def step(params: Any, opt_state: dict, batch: dict):
         if n_micro == 1:
             loss, flat = value_and_grad(params, batch)
         else:
             loss_sum = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
             flat = None
-            for mb in _split_microbatches(batch, n_micro):
+            for mb in _split_microbatches(batch, n_micro, batch_axes(cfg)):
                 l, g = value_and_grad(params, mb)
                 if flat is None:
                     flat = [x.float() for x in g]

@@ -61,6 +61,13 @@ def test_isolation_covers_the_training_modules():
         assert f"src/repro_torch/{mod}" in names, mod
 
 
+def test_isolation_covers_the_sharding_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("distributed/__init__.py", "distributed/sharding.py", "launch/mesh.py",
+                "launch/steps.py", "launch/dryrun.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax_and_nothing_of_repro(path):
     bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "flax", "optax"}

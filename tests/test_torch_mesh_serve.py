@@ -1,0 +1,299 @@
+"""The port's sharded prefill and decode (DTensor over a ``torch.distributed``
+device mesh) against the JAX package's unsharded ones.
+
+One spawn of 4 gloo CPU processes runs a prefill of 4 prompts and 3 decode
+steps of each case below, the caches and parameters placed by the full
+configs' sharding rules, through the constraint points and the ops' DTensor
+paths (the plain versions on this CPU):
+
+- granite-8b on a (1, 4) ("data", "model") mesh: q's 4 heads over "model"
+  beside its 2 whole KV heads (the divisibility fallback), so rank r reads
+  KV head r // 2 (production granite's layout: 32 q heads over 16, 8 KV
+  heads whole); ``cache_seq`` over "model", the prompt spanning two shards
+  and the decode writes a third;
+- granite-8b with ``kv_quant`` on (2, 2): the batch over "data", the int8
+  cache and its f32 scales sequence-sharded over "model";
+- qwen1.5-4b on (2, 2): sequence parallel ("seq" over "model"), k and v
+  gathered once a layer;
+- olmoe-1b-7b on (2, 2): experts over "model", the cache's KV heads over
+  "model" and its lockstep (``uniform_decode``) append.
+
+The weights are JAX's init carried over through ``models.bridge``.  Each
+worker also runs the case unsharded (plain tensors, no rules).  The parent
+holds each pass's logits and every cache leaf after the prefill and after
+the last step to the unsharded run within the f32 tolerance 3e-5
+(tests/test_kernels.py:16-17), and to JAX's prefill and decode steps within
+1e-4, the tolerance of the port's unsharded f32 model against JAX
+(tests/test_torch_model.py, tests/test_torch_kvquant.py): the port sums in
+another order than XLA, and on olmoe a logit of the unsharded port is 1.2x
+3e-5 from JAX's.  Token ids are equal; f32 cache leaves are held relative to
+their largest magnitude, lengths exactly, int8 entries apart by at most 1
+(each side quantizes K/V that agree only to the last bits of f32) and few.
+"""
+
+import contextlib
+import json
+import os
+import socket
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.models import layers as JL  # noqa: E402
+from repro.models import transformer as JTF  # noqa: E402
+
+SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
+WORLD = 4
+TOL = dict(rtol=3e-5, atol=3e-5)  # tests/test_kernels.py's f32 tolerance
+MODEL_TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_torch_model.py's f32 model tolerance
+# name -> (arch, mesh "model" size, kv_quant)
+CASES = {
+    "granite-8b": ("granite-8b", 4, False),
+    "granite-8b-int8": ("granite-8b", 2, True),
+    "qwen1.5-4b": ("qwen1.5-4b", 2, False),
+    "olmoe-1b-7b": ("olmoe-1b-7b", 2, False),
+}
+BATCH, PROMPT, MAX_SEQ, STEPS = 4, 6, 16, 3
+
+WORKER = textwrap.dedent("""
+    import json, sys
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import _with_rules, make_rules
+    from repro_torch.models import bridge
+    from repro_torch.models import transformer as TF
+
+    rank, port, tmp = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+    cases, batch, prompt, max_seq, steps = json.loads(sys.argv[4])
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=4)
+    meshes = {m: make_host_mesh(model=m) for m in (2, 4)}
+
+    def full(t):
+        return t.full_tensor() if sh.is_dtensor(t) else t
+
+    def gathered(tree, path=""):
+        if isinstance(tree, dict):
+            out = {}
+            for k, v in tree.items():
+                out.update(gathered(v, f"{path}{k}/"))
+            return out
+        return {path[:-1]: full(tree).numpy().copy()}  # the plain run writes in place
+
+    def placed(tree):
+        return {k: [str(p) for p in v.placements] for k, v in tree_items(tree)}
+
+    def tree_items(tree, path=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from tree_items(v, f"{path}{k}/")
+            else:
+                yield f"{path}{k}", v
+
+    out = {}
+    for name, (arch, model, quant) in cases.items():
+        mesh = meshes[model]
+        cfg = get_config(arch, reduced=True).replace(
+            dtype=torch.float32, kv_quant=quant,
+            sharding_overrides=get_config(arch).sharding_overrides)
+        rules = make_rules(cfg, mesh)
+        flat = np.load(f"{tmp}/{arch}.npz")
+        tree = {}
+        for key in flat.files:
+            node = tree
+            *path, leaf = key.split("/")
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = flat[key]
+        plain = bridge.params_from_numpy(tree, device="cpu")
+        toks = torch.from_numpy(np.load(f"{tmp}/tokens.npy"))
+
+        def run(params, caches, toks, rules):
+            step = (lambda fn: fn) if rules is None else (lambda fn: _with_rules(rules, fn))
+            logits, caches = step(TF.prefill_logits)(cfg, params, toks, caches)
+            out, snaps = [full(logits).tolist()], [gathered(caches)]
+            for _ in range(steps):
+                nxt = logits.argmax(-1).to(torch.int32)
+                logits, caches = step(TF.decode_logits)(cfg, params, nxt, caches)
+                out.append(full(logits).tolist())
+            snaps.append(gathered(caches))
+            return out, snaps
+
+        caches = TF.init_caches(cfg, batch, max_seq, device="cpu")
+        rec = {}
+        rec["plain"], plain_snaps = run(plain, caches, toks, None)
+        caches = TF.init_caches(cfg, batch, max_seq, device="cpu")
+        specs = sh.specs_for_axes(caches, TF.cache_axes(cfg), rules)
+        caches = sh.map_pair(lambda t, s: sh.distribute(t, s, mesh), caches, specs)
+        with sh.use_sharding_rules(rules):
+            rec.update(seq_sharded=sh.seq_sharded(), caches=placed(caches))
+        params = sh.distribute_tree(plain, TF.param_template(cfg), rules)
+        rec["attn"] = placed(params["layers"]["attn"])
+        rec["logits"], snaps = run(
+            params, caches,
+            sh.distribute(toks, rules.spec_for_shape(tuple(toks.shape), ("batch", "seq")), mesh),
+            rules)
+        if rank == 0:
+            for i, (snap, plain_snap) in enumerate(zip(snaps, plain_snaps)):
+                np.savez(f"{tmp}/{name}_cache{i}.npz", **snap)
+                np.savez(f"{tmp}/{name}_plain_cache{i}.npz", **plain_snap)
+        out[name] = rec
+    if rank == 0:
+        with open(f"{tmp}/out.json", "w") as f:
+            json.dump(out, f)
+    dist.destroy_process_group()
+""")
+
+
+@contextlib.contextmanager
+def _jax_logits_recorded(monkeypatch):
+    """Record every logits array the JAX model masks (its prefill's and each
+    decode step's), op by op (tests/test_torch_kvquant.py)."""
+    seen = []
+    mask = JL.vocab_mask_logits
+
+    def recording(logits, cfg):
+        out = mask(logits, cfg)
+        seen.append(np.asarray(out.astype(jnp.float32)))
+        return out
+
+    monkeypatch.setattr(JL, "vocab_mask_logits", recording)
+    with jax.disable_jit():
+        yield seen
+
+
+def _flat(tree, path=""):
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, f"{path}{k}/") if isinstance(v, dict) else {f"{path}{k}": np.asarray(v)})
+    return out
+
+
+def _jax_run(arch, quant, params, toks):
+    """JAX's prefill and decode steps: (masked logits of every pass, token
+    ids of every pass, cache leaves after the prefill and after the last
+    step)."""
+    jcfg = jax_get_config(arch, reduced=True).replace(dtype=jnp.float32, kv_quant=quant)
+    with pytest.MonkeyPatch.context() as mp, _jax_logits_recorded(mp) as logits:
+        nxt, jc = JTF.prefill(jcfg, params, jnp.asarray(toks), JTF.init_caches(jcfg, BATCH, MAX_SEQ))
+        ids, snaps = [np.asarray(nxt)], [_flat(jc)]
+        for _ in range(STEPS):
+            nxt, jc = JTF.decode_step(jcfg, params, nxt, jc)
+            ids.append(np.asarray(nxt))
+        snaps.append(_flat(jc))
+    return logits, ids, snaps
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The workers' logits, cache placements and cache snapshots beside
+    JAX's run of each case, which the parent makes while the workers run."""
+    tmp = tmp_path_factory.mktemp("mesh_serve")
+    jparams = {}
+    for arch in {a for a, _, _ in CASES.values()}:
+        jcfg = jax_get_config(arch, reduced=True).replace(dtype=jnp.float32)
+        jparams[arch] = JTF.init_params(jax.random.PRNGKey(0), jcfg)
+        np.savez(tmp / f"{arch}.npz", **_flat(jparams[arch]))
+    vocab = jax_get_config("granite-8b", reduced=True).vocab_size
+    toks = np.random.default_rng(3).integers(0, vocab, (BATCH, PROMPT)).astype(np.int32)
+    np.save(tmp / "tokens.npy", toks)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    env = {**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "1"}
+    spec = json.dumps([CASES, BATCH, PROMPT, MAX_SEQ, STEPS])
+    procs = [subprocess.Popen([sys.executable, "-c", WORKER, str(r), port, str(tmp), spec],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(WORLD)]
+    want = {name: _jax_run(arch, quant, jparams[arch], toks)
+            for name, (arch, _, quant) in CASES.items()}
+    logs = [p.communicate(timeout=240)[0].decode() for p in procs]
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} failed:\n{log[-3000:]}"
+    with open(tmp / "out.json") as f:
+        got = json.load(f)
+    return tmp, got, want
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_sharded_prefill_and_decode_logits_match(runs, name):
+    """Every pass's logits: within 3e-5 of the port's unsharded run, within
+    1e-4 of JAX's (tests/test_torch_model.py's tolerance for the port's f32
+    model, whose sums run in another order than XLA's), the same token."""
+    _, got, want = runs
+    jlogits, jids, _ = want[name]
+    logits = [np.asarray(x, np.float32) for x in got[name]["logits"]]
+    plain = [np.asarray(x, np.float32) for x in got[name]["plain"]]
+    assert len(logits) == len(plain) == len(jlogits) == STEPS + 1
+    for t, (g, p, w, ids) in enumerate(zip(logits, plain, jlogits, jids)):
+        np.testing.assert_allclose(g, p, **TOL, err_msg=f"pass {t}")
+        np.testing.assert_allclose(g, w, **MODEL_TOL, err_msg=f"pass {t}")
+        np.testing.assert_array_equal(g.argmax(-1), ids, err_msg=f"pass {t}")
+
+
+def _assert_cache_close(got, want, tol, where) -> int:
+    """Every leaf of ``want``: f32 within ``tol`` of its largest magnitude,
+    integers equal, int8 apart by at most 1.  Returns how many int8 entries
+    differ."""
+    assert set(got.files) == set(want), (sorted(got.files), sorted(want))
+    near_half = 0
+    for key, w in want.items():
+        g = got[key]
+        assert g.dtype == w.dtype, key
+        if w.dtype == np.int8:
+            diff = np.abs(g.astype(np.int32) - w.astype(np.int32))
+            assert diff.max(initial=0) <= 1, f"{key} {where}"
+            near_half += int((diff > 0).sum())
+        elif w.dtype.kind in "iu":
+            np.testing.assert_array_equal(g, w, err_msg=f"{key} {where}")
+        else:
+            scale = max(1.0, float(np.abs(w).max()))
+            np.testing.assert_allclose(g, w, atol=tol["atol"] * scale, rtol=tol["rtol"],
+                                       err_msg=f"{key} {where}")
+    return near_half
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_sharded_caches_match(runs, name):
+    """Every cache leaf after the prefill and after the last step, gathered:
+    against the port's unsharded run at 3e-5 and JAX's at 1e-4
+    (tests/test_torch_kvquant.py's rule for the f32 leaves)."""
+    tmp, _, want = runs
+    near_half = 0
+    for i, jsnap in enumerate(want[name][2]):
+        snap = np.load(tmp / f"{name}_cache{i}.npz")
+        plain = np.load(tmp / f"{name}_plain_cache{i}.npz")
+        near_half += _assert_cache_close(snap, {k: plain[k] for k in plain.files}, TOL,
+                                         f"after pass {i}, against the unsharded port")
+        near_half += _assert_cache_close(snap, jsnap, MODEL_TOL, f"after pass {i}, against JAX")
+    assert near_half <= 8, near_half
+
+
+def test_each_case_is_really_sharded(runs):
+    """The layouts the cases are meant to exercise are the ones that ran."""
+    rec = runs[1]
+    cache = {n: rec[n]["caches"]["layers/k"] for n in CASES}
+    # q's heads over the 4-way "model" axis, the 2 KV heads whole
+    assert rec["granite-8b"]["attn"]["wq"][1] == "S(2)"
+    assert rec["granite-8b"]["attn"]["wk"][1] == "R"
+    assert cache["granite-8b"] == ["S(1)", "S(3)"]  # cache_seq over "model" ("data" is 1)
+    assert cache["granite-8b-int8"] == ["S(1)", "S(3)"]  # + the batch over "data"
+    assert rec["granite-8b-int8"]["caches"]["layers/k_scale"] == ["S(1)", "S(3)"]
+    assert cache["olmoe-1b-7b"] == ["S(1)", "S(2)"]  # KV heads over "model"
+    assert [rec[n]["seq_sharded"] for n in CASES] == [False, False, True, False]

@@ -1,0 +1,308 @@
+"""The port's logical-axis sharding substrate (``repro_torch.distributed.sharding``)
+against the JAX package's (``repro.distributed.sharding``).
+
+For all 13 archs on the production meshes, (16, 16) ("data", "model") and
+(2, 16, 16) ("pod", "data", "model"), the port's resolved spec equals the
+reference's ``PartitionSpec`` for every parameter leaf, every cache leaf
+(the int8 scales included) and every batch leaf of every cell; the mesh is
+the stand-in of tests/test_sharding.py (axis names and sizes only), on both
+sides.  Each rank's block under the port's placements is the block the
+reference's ``NamedSharding`` gives that device (JAX over 8 host devices in
+a subprocess).  Also: the template axes leaf by leaf, the divisibility
+property, ``shard`` without rules, and attention on a rank whose q heads are
+sharded while the KV heads stay whole (the GQA head offset).
+"""
+
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+pytest.importorskip("hypothesis")
+torch = pytest.importorskip("torch")
+
+import hypothesis.strategies as st  # noqa: E402
+import jax  # noqa: E402
+from hypothesis import given, settings  # noqa: E402
+
+from repro import configs as JC  # noqa: E402
+from repro.distributed import sharding as JSH  # noqa: E402
+from repro.models import transformer as JTF  # noqa: E402
+from repro.training import train_step as JTS  # noqa: E402
+from repro_torch import configs as C  # noqa: E402
+from repro_torch.distributed import sharding as sh  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch.mesh import fake_process_group  # noqa: E402
+from repro_torch.models import transformer as TF  # noqa: E402
+from repro_torch.training import train_step as TS  # noqa: E402
+
+SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
+ALL_ARCHS = C.ARCH_IDS + C.PAPER_IDS
+
+
+class _FakeMesh:
+    """Mesh stand-in (tests/test_sharding.py:14-27): spec resolution only
+    needs axis names and sizes."""
+
+    def __init__(self, sizes):
+        self.axis_names = tuple(sizes)
+        self._shape = tuple(sizes.values())
+
+    @property
+    def devices(self):
+        return np.zeros(self._shape)
+
+
+MESHES = {"single": _FakeMesh({"data": 16, "model": 16}),
+          "multi": _FakeMesh({"pod": 2, "data": 16, "model": 16})}
+
+
+def _flat(tree, path=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, path + (k,)))
+        return out
+    return {path: tree}
+
+
+def _jax_specs(tree) -> dict:
+    """A reference spec tree -> {path: spec as a tuple}."""
+    flat = jax.tree_util.tree_flatten_with_path(
+        tree, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0]
+    return {tuple(k.key for k in path): tuple(spec) for path, spec in flat}
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_param_specs_equal_the_reference(arch, mesh):
+    rules = sh.ShardingRules(MESHES[mesh]).with_overrides(C.get_config(arch).sharding_overrides)
+    jrules = JSH.ShardingRules(MESHES[mesh]).with_overrides(JC.get_config(arch).sharding_overrides)
+    got = _flat(sh.specs_from_template(TF.param_template(C.get_config(arch)), rules))
+    want = _jax_specs(JSH.specs_from_template(JTF.param_template(JC.get_config(arch)), jrules))
+    assert got == want
+
+
+def _cells(arch):
+    cfg = C.get_config(arch)
+    return [sp for sp in C.SHAPES.values() if C.shape_applicable(cfg, sp)]
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_cache_and_batch_specs_equal_the_reference(arch, mesh):
+    """Every cache leaf (the int8 scales included) and every batch leaf of
+    each of the arch's cells.  The int8 cache of the enc-dec model is left
+    out: the reference's ``cache_axes`` gives its self caches the axes of a
+    cache without scales, so its spec tree does not match its cache tree."""
+    quants = [False] if C.get_config(arch).family == "encdec" else [False, True]
+    for quant in quants:
+        cfg = C.get_config(arch).replace(kv_quant=quant)
+        jcfg = JC.get_config(arch).replace(kv_quant=quant)
+        rules = sh.ShardingRules(MESHES[mesh]).with_overrides(cfg.sharding_overrides)
+        jrules = JSH.ShardingRules(MESHES[mesh]).with_overrides(jcfg.sharding_overrides)
+        for sp in _cells(arch):
+            if sp.kind == "train":
+                got = sh.specs_for_axes(TS.make_batch_abstract(cfg, sp.global_batch, sp.seq_len),
+                                        TS.batch_axes(cfg), rules)
+                want = JSH.specs_for_axes(
+                    JTS.make_batch_abstract(jcfg, sp.global_batch, sp.seq_len),
+                    JTS.batch_axes(jcfg), jrules)
+            else:
+                caches = TF.init_caches(cfg, sp.global_batch, sp.seq_len, abstract=True)
+                assert all(t.device.type == "meta" for t in _flat(caches).values())
+                got = sh.specs_for_axes(caches, TF.cache_axes(cfg), rules)
+                want = JSH.specs_for_axes(
+                    JTF.init_caches(jcfg, sp.global_batch, sp.seq_len, abstract=True),
+                    JTF.cache_axes(jcfg), jrules)
+            assert _flat(got) == _jax_specs(want), (sp.name, quant)
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_template_axes_equal_the_reference(arch):
+    got = _flat(TF.param_template(C.get_config(arch)))
+    want = {tuple(k.key for k in path): s for path, s in jax.tree_util.tree_flatten_with_path(
+        JTF.param_template(JC.get_config(arch)), is_leaf=lambda x: isinstance(x, JSH.TensorSpec))[0]}
+    assert got.keys() == want.keys()
+    for key, spec in got.items():
+        assert (spec.shape, spec.axes, spec.init) == (want[key].shape, want[key].axes,
+                                                       want[key].init), key
+    assert sh.param_count(TF.param_template(C.get_config(arch))) == \
+        JSH.param_count(JTF.param_template(JC.get_config(arch)))
+
+
+def test_template_spec_checks_its_rank():
+    with pytest.raises(ValueError, match="rank"):
+        sh.TensorSpec((4, 4), ("d_model",))
+    stacked = sh.stack_template({"w": sh.TensorSpec((4, 8), ("d_model", "d_ff"))}, 3)
+    assert stacked["w"].shape == (3, 4, 8) and stacked["w"].axes == ("layers", "d_model", "d_ff")
+
+
+def _axis_prod(entry):
+    sizes = {"pod": 2, "data": 16, "model": 16}
+    if entry is None:
+        return 1
+    names = (entry,) if isinstance(entry, str) else entry
+    return int(np.prod([sizes[a] for a in names]))
+
+
+RULES = sh.ShardingRules(MESHES["multi"])
+JRULES = JSH.ShardingRules(MESHES["multi"])
+
+
+@settings(max_examples=60, deadline=None)
+@given(
+    dims=st.lists(st.integers(1, 4096), min_size=1, max_size=4),
+    axes=st.lists(st.sampled_from(["batch", "heads", "d_ff", "vocab", "seq", None]),
+                  min_size=1, max_size=4),
+)
+def test_spec_for_shape_always_divides(dims, axes):
+    """Every resolved mesh-axis product divides its dim, no mesh axis is used
+    twice, and the spec is the reference's."""
+    n = min(len(dims), len(axes))
+    dims, axes = dims[:n], axes[:n]
+    spec = RULES.spec_for_shape(tuple(dims), axes)
+    assert spec == tuple(JRULES.spec_for_shape(tuple(dims), axes))
+    used = set()
+    for d, e in zip(dims, list(spec) + [None] * (n - len(spec))):
+        assert d % _axis_prod(e) == 0
+        if e is not None:
+            names = (e,) if isinstance(e, str) else tuple(e)
+            assert not (set(names) & used)
+            used.update(names)
+
+
+def test_no_mesh_and_overrides():
+    assert sh.ShardingRules(None).spec_for(("batch", "d_ff")) == ()
+    assert sh.resolve_spec(("batch",)) == ()
+    r2 = RULES.with_overrides({"d_model": ("data",)})
+    assert r2.spec_for_shape((4096, 14336), ("d_model", "d_ff")) == ("data", "model")
+    assert RULES.spec_for_shape((4096, 14336), ("d_model", "d_ff")) == (None, "model")
+
+
+class _CoordMesh:
+    """A mesh seen from one coordinate: what ``local_block`` reads."""
+
+    def __init__(self, sizes: dict, coord: tuple):
+        self.mesh_dim_names, self.shape, self._coord = tuple(sizes), tuple(sizes.values()), coord
+
+    def get_coordinate(self):
+        return list(self._coord)
+
+    def size(self, i):
+        return self.shape[i]
+
+
+BLOCK_CASES = [((8, 4, 6), ("batch", "heads", None)), ((4, 6, 8), ("batch", "seq", "d_ff")),
+               ((6, 16), ("d_model", "vocab")), ((2, 8, 4), ("batch", None, "heads"))]
+NAMED_BLOCKS = textwrap.dedent("""
+    import json, sys
+    import numpy as np
+    import jax
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 2, 2), ("pod", "data", "model"))
+    out = []
+    for shape, spec in json.loads(sys.argv[1]):
+        spec = P(*[tuple(e) if isinstance(e, list) else e for e in spec])
+        idx = NamedSharding(mesh, spec).devices_indices_map(tuple(shape))
+        out.append([[[s.start or 0, s.stop if s.stop is not None else n]
+                     for s, n in zip(idx[d], shape)] for d in mesh.devices.flat])
+    print(json.dumps(out))
+""")
+
+
+def test_rank_blocks_are_named_sharding_blocks():
+    """On a (2, 2, 2) mesh each rank's block under the port's placements is
+    the block JAX's ``NamedSharding`` gives the device at that coordinate,
+    including ("pod", "data") on one dim (two ``Shard`` in mesh order)."""
+    sizes = {"pod": 2, "data": 2, "model": 2}
+    rules = sh.ShardingRules(_FakeMesh(sizes)).with_overrides({"d_model": ("data",)})
+    cases = [(shape, rules.spec_for_shape(shape, axes)) for shape, axes in BLOCK_CASES]
+    assert ("pod", "data") in [spec[0] for _, spec in cases]
+    env = {**os.environ, "PYTHONPATH": SRC, "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=8"}
+    out = subprocess.run([sys.executable, "-c", NAMED_BLOCKS, json.dumps(cases)], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    want = json.loads(out.stdout)
+    for (shape, spec), blocks in zip(cases, want):
+        for rank, block in enumerate(blocks):
+            mesh = _CoordMesh(sizes, tuple(np.unravel_index(rank, (2, 2, 2))))
+            got = sh.local_block(shape, mesh, sh.placements_for(spec, mesh))
+            assert [[s.start, s.stop] for s in got] == block, (shape, spec, rank)
+
+
+def test_shard_is_the_identity_without_rules():
+    x = torch.randn(4, 8)
+    with sh.use_sharding_rules(sh.ShardingRules(MESHES["single"])):
+        assert sh.shard(x, "batch", "d_ff") is x  # a plain tensor
+    with fake_process_group(4):
+        from torch.distributed.device_mesh import init_device_mesh
+
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+        d = sh.distribute(x, ("data",), mesh)
+        assert sh.current_rules() is None and sh.shard(d, "batch", "d_ff") is d  # no rules
+
+
+@pytest.mark.parametrize("heads,kv,model", [(8, 2, 4), (8, 4, 2), (6, 2, 3)])
+def test_gqa_q_head_shard_reads_its_kv_heads(heads, kv, model):
+    """q's heads sharded over "model" while the KV heads stay whole (the
+    rules replicate KV heads a 16-way axis does not divide): rank r holds
+    global q heads r*H/m + h, which read KV heads (r*H/m + h) // n_rep.
+    Each rank's block of the output is the unsharded attention's; the op
+    run on the local q against the whole K/V (the kernel's h // n_rep on
+    local heads, the fault) gives another answer on some rank."""
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 6, heads, 16, generator=gen)
+    k = torch.randn(2, 6, kv, 16, generator=gen)
+    v = torch.randn(2, 6, kv, 16, generator=gen)
+    want = ops.flash_attention(q, k, v, causal=True, impl="ref")
+    hl = heads // model
+    faulty = False
+    for rank in range(model):
+        with fake_process_group(model, rank=rank):
+            from torch.distributed.device_mesh import init_device_mesh
+            from torch.distributed.tensor import DTensor, Replicate, Shard
+
+            mesh = init_device_mesh("cpu", (model,), mesh_dim_names=("model",))
+            q_local = q[:, :, rank * hl:(rank + 1) * hl]
+            qd = DTensor.from_local(q_local, mesh, [Shard(2)], run_check=False)
+            kd, vd = (DTensor.from_local(t, mesh, [Replicate()], run_check=False) for t in (k, v))
+            out = ops.flash_attention(qd, kd, vd, causal=True, impl="ref")
+        block = want[:, :, rank * hl:(rank + 1) * hl]
+        assert out.placements == (Shard(2),) and out.shape == want.shape
+        torch.testing.assert_close(out.to_local(), block, rtol=1e-6, atol=1e-6)
+        naive = ops.flash_attention(q_local, k, v, causal=True, impl="ref")
+        faulty |= not torch.allclose(naive, block, rtol=1e-4, atol=1e-4)
+    assert faulty
+
+
+def test_rmsnorm_blocks_give_w_a_partial_gradient():
+    """rmsnorm of a batch-sharded x: the rank's block of the output is the
+    unsharded one's, and w's gradient on the rank is its rows' share, marked
+    partial over the batch axis (the fake group's all-reduce moves nothing,
+    so the rank's share is what arrives)."""
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(4, 3, 8, generator=gen)
+    w = torch.randn(8, generator=gen)
+    want = ops.rmsnorm(x, w, impl="ref")
+    w_rows = w.clone().requires_grad_(True)
+    ops.rmsnorm(x[2:], w_rows, impl="ref").sum().backward()
+    with fake_process_group(2, rank=1):
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+        mesh = init_device_mesh("cpu", (2,), mesh_dim_names=("data",))
+        xd = DTensor.from_local(x[2:], mesh, [Shard(0)], run_check=False)
+        wd = DTensor.from_local(w.clone(), mesh, [Replicate()], run_check=False).requires_grad_(True)
+        out = ops.rmsnorm(xd, wd, impl="ref")
+        assert out.placements == (Shard(0),)
+        torch.testing.assert_close(out.to_local(), want[2:], rtol=0, atol=0)
+        out.sum().backward()
+        assert wd.grad.placements == (Partial(),)
+        torch.testing.assert_close(wd.grad.to_local(), w_rows.grad, rtol=1e-6, atol=1e-6)

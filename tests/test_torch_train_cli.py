@@ -1,6 +1,7 @@
 """The port's training CLI (``python -m repro_torch.launch.train``) on the
 CPU at REDUCED size: the reference CLI's printed lines, a falling loss,
-resuming from ``--ckpt-dir``, and the sharded meshes refused until A14."""
+resuming from ``--ckpt-dir``, and the sharded meshes (A14): ``host`` on a
+one-rank gloo group, ``production`` refused off a 256-rank world."""
 
 import re
 
@@ -40,6 +41,23 @@ def test_cli_resumes_from_its_checkpoint(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("mesh", ["host", "production"])
-def test_cli_sharded_meshes_wait_for_a14(mesh):
-    with pytest.raises(NotImplementedError, match="A14"):
-        train_cli.main(["--device", "cpu", "--reduced", "--mesh", mesh])
+def test_cli_sharded_meshes_wait_for_a14(mesh, capsys, tmp_path):
+    """(The name is the refusal's this test once checked; A14 is now
+    ported.)  ``--mesh host`` trains sharded on a one-rank group, from the
+    unsharded run's weights and batches, and resumes from its checkpoint;
+    ``--mesh production`` off a world of 256 ranks raises the ValueError
+    that names them, and leaves no process group behind."""
+    if mesh == "production":
+        with pytest.raises(ValueError, match="256 ranks"):
+            train_cli.main(["--device", "cpu", "--reduced", "--mesh", mesh])
+        assert not torch.distributed.is_initialized()
+        return
+    argv = ("--batch", "4", "--seq", "16", "--log-every", "1", "--ckpt-dir", str(tmp_path),
+            "--ckpt-every", "3")
+    _, plain = _run(capsys, "--steps", "3", "--batch", "4", "--seq", "16", "--log-every", "1")
+    out, sharded = _run(capsys, "--mesh", "host", "--steps", "3", *argv)
+    assert out[-1] == "done" and sorted(sharded) == [0, 1, 2]
+    assert sharded == plain  # one rank: the same weights, batches and arithmetic
+    assert not torch.distributed.is_initialized()
+    out, resumed = _run(capsys, "--mesh", "host", "--steps", "5", *argv)
+    assert "resumed from step 3" in out and sorted(resumed) == [3, 4]
