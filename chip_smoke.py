@@ -75,8 +75,20 @@ Run from the root of a checkout.  Phases, each of which must pass:
               request is dropped or gapped, migrated bytes equal the payloads';
               (c) the disagg runtime on a simulated clock against a lone
               engine: first tokens bit-equal, a later divergence only at a
-              bf16 near tie.  The modelled cluster's 8 devices all compute on
-              this one card; the network between them is the flow model.
+              bf16 near tie; (d) run_disagg's runtime built as the CLI
+              builds it, with a span tracer and a flight recorder on its
+              FlowSim, serving (b)'s 24 requests on the wall clock: every
+              request done, launches the path's, at least one closed
+              scale_op, each op's makespan split exactly (Fractions) into
+              plan / queue / transfer / stall / cutover, the same report
+              after a round trip through the Chrome trace, and one incident
+              bundle dumped at the end that parses as a Chrome trace and
+              lists the ops; and the host tools' CLIs (repro_torch.obs.report
+              --sim, with --scale-ops, and repro_torch.obs.perfdiff on the
+              smoke baselines), subprocesses started before the build and
+              awaited after it, each exiting 0.  The modelled cluster's 8
+              devices all compute on this one card; the network between
+              them is the flow model.
  7b. long     granite-8b whole (phase 4's weights), its caches filled to
               32768 tokens a slot by write_prompt_kv from seeded random K/V
               (no prefill): the captured decode step at 8 slots with the
@@ -170,8 +182,9 @@ kernel over the int8 cache with its launches in phase 7b, and the two
 backward kernels) and the card's name and power limit before its last
 line, which is ``{"ok": true, "device": {...}}``.  It exits non-zero,
 printing no result, without a CUDA device or outside a checkout.  With
-``--log-dir`` it also writes the nvcc logs, every measurement and the
-decode-step and prefill traces there.
+``--log-dir`` it also writes the nvcc logs, every measurement, the
+decode-step and prefill traces, phase 7(d)'s Chrome trace and incident
+bundle and the host tools' output there.
 """
 
 from __future__ import annotations
@@ -1341,7 +1354,112 @@ def _checked_disagg(torch, np, ops, TF, cfg, params, serve, disagg, args, what: 
     return row
 
 
-def phase_cluster(torch, np, ops, TF, cfg, params, serve, disagg, engine_mod) -> dict:
+def _traced_disagg(torch, np, ops, cfg, params, disagg, args, log_dir: Path | None) -> dict:
+    """7(d): ``run_disagg``'s runtime (launch/serve.py) built as the CLI builds
+    it, with a span tracer and a flight recorder on its FlowSim, driven on the
+    wall clock: every closed scale_op's makespan split exactly, the split
+    unchanged by a round trip through the Chrome trace, and one incident
+    bundle dumped at the end.  The trace and the bundle go to ``log_dir``, or
+    to a temporary directory that is deleted."""
+    from fractions import Fraction
+
+    from repro_torch.core import topology as topo_mod
+    from repro_torch.core.autoscaler import PolicyConfig
+    from repro_torch.obs import (SCALE_SEGMENTS, FlightRecorder, Tracer, analyze_scale_ops,
+                                 chrome_trace, format_scale_report, load_chrome)
+
+    what = "cluster traced"
+    n, new_tokens = args.requests, args.gen_len
+    out_dir = log_dir if log_dir is not None else Path(tempfile.mkdtemp(prefix="chip_smoke_trace_"))
+    try:
+        rng = np.random.default_rng(args.seed)
+        tracer = Tracer()
+        rt = disagg.ClusterRuntime(
+            cfg, params, topo=topo_mod.add_host_sources(topo_mod.make_cluster(2, 4, bw_gbps=100.0)),
+            policy=PolicyConfig(max_instances=4, kv_upper=0.5, scale_down_timeout_s=0.5),
+            n_prefill=args.n_prefill, n_decode=args.n_decode, n_slots=args.n_slots,
+            max_seq=args.prompt_len + new_tokens + 8, model_bytes=cfg.approx_params() * 2,
+            prefill_capacity_tps=2000.0, decode_capacity_tps=200.0, tracer=tracer)
+        # the window holds the whole run, so the final bundle covers every op
+        rec = FlightRecorder(tracer, window_s=3600.0, out_dir=str(out_dir)).attach(rt.net)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        clock = lambda: time.perf_counter() - t0  # noqa: E731
+        for _ in range(n):
+            prompt = rng.integers(0, cfg.vocab_size, size=args.prompt_len).astype(np.int32)
+            rt.submit(prompt, new_tokens, clock())
+        done = rt.run_until_done(clock)
+        torch.cuda.synchronize()
+        wall = clock()
+        launches = _path_launches(ops.launch_counts(), cfg, n, what)
+        check(done and rt.n_outstanding == 0 and len(rt.completed) == n,
+              f"{what}: {len(rt.completed)} of {n} requests done, {rt.n_outstanding} outstanding")
+        check(all(len(r.out_tokens) == new_tokens for r in rt.completed.values()),
+              f"{what}: a request ended short of {new_tokens} tokens")
+        spans = list(tracer.spans)
+        reports = analyze_scale_ops(spans)
+        check(len(reports) >= 1, f"{what}: no scale_op span closed ({rt.stats.live_scaled_prefill} "
+              f"prefill and {rt.stats.direct_decode_scales} decode live scales)")
+        for r in reports:
+            check(tuple(r.segments_exact) == SCALE_SEGMENTS,
+                  f"{what}: op {r.sid} segments {list(r.segments_exact)}")
+            check(sum(r.segments_exact.values(), Fraction(0)) == Fraction(r.t1) - Fraction(r.t0),
+                  f"{what}: op {r.sid}'s segments do not sum to its window {r.t0}..{r.t1}")
+        text = format_scale_report(reports)
+        exported = chrome_trace(spans)
+        again = analyze_scale_ops(load_chrome(exported))
+        check([r.sid for r in again] == [r.sid for r in reports] and format_scale_report(again) == text,
+              f"{what}: the report changed through the Chrome trace:\n{text}\n---\n"
+              f"{format_scale_report(again)}")
+        path = rec.trigger("smoke:end", clock())
+        check(path is not None and len(rec.dumps) == 1, f"{what}: {len(rec.dumps)} bundles dumped")
+        doc = json.loads(Path(path).read_text())
+        check(doc.get("displayTimeUnit") == "ms" and doc.get("traceEvents"),
+              f"{what}: the bundle is not a Chrome trace")
+        inc = doc.get("incident", {})
+        cp_sids = [op["sid"] for op in inc.get("critical_path", {}).get("ops", [])]
+        check(inc.get("trigger") == "smoke:end" and cp_sids == [r.sid for r in reports],
+              f"{what}: the bundle's critical path lists ops {cp_sids}, the trace {[r.sid for r in reports]}")
+        if log_dir is not None:
+            (log_dir / "cluster_trace.json").write_text(exported)
+            (log_dir / "cluster_scale_ops.txt").write_text(text + "\n")
+        ops_ms = [{"sid": r.sid, "phase": r.phase, "t0_s": r.t0, "makespan_ms": r.makespan * 1e3,
+                   "n_flows": r.n_flows, "aborted": r.aborted,
+                   **{f"{k}_ms": v * 1e3 for k, v in r.breakdown().items()},
+                   "bottleneck": r.bottleneck.cause if r.bottleneck else None} for r in reports]
+        row = {"requests": n, "wall_s": wall, "tokens_per_s": n * new_tokens / wall,
+               **_router_times(np, rt.router), "spans": len(spans), "scale_ops": ops_ms,
+               "live_scaled_prefill": rt.stats.live_scaled_prefill,
+               "direct_decode_scales": rt.stats.direct_decode_scales,
+               "ring_events": len(inc["ring"]["events"]), "bundle_bytes": len(Path(path).read_bytes()),
+               "launches": launches["counts"]}
+        log("[cluster] scale ops (wall-clock ms on this card) " + json.dumps(ops_ms))
+    finally:
+        if log_dir is None:
+            shutil.rmtree(out_dir, ignore_errors=True)
+    del rt, rec, tracer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_host_tools(tools: dict, log_dir: Path | None) -> dict:
+    """7, the host tools' CLIs: each subprocess (started before the build,
+    ended after it) exited 0."""
+    rows = {}
+    for name, (rc, out) in tools.items():
+        if log_dir is not None:
+            (log_dir / f"tool_{name}.log").write_text(out)
+        check(rc == 0, f"tool {name}: exit {rc}:\n{out[-3000:]}")
+        last = [line for line in out.splitlines() if line.strip()][-1:]
+        rows[name] = {"exit": rc, "last_line": last[0] if last else ""}
+        log(f"[tools] {name}: exit 0, {rows[name]['last_line']}")
+    return rows
+
+
+def phase_cluster(torch, np, ops, TF, cfg, params, serve, disagg, engine_mod, tools: dict,
+                  log_dir: Path | None) -> dict:
     L, prompt_len, new_tokens, n_slots = cfg.n_layers, 512, 32, 4
     max_seq = prompt_len + new_tokens + 8
     t_phase = time.perf_counter()
@@ -1429,6 +1547,13 @@ def phase_cluster(torch, np, ops, TF, cfg, params, serve, disagg, engine_mod) ->
     log("[cluster] tokens " + json.dumps(rows["tokens"]))
     del rt, lone
     torch.cuda.empty_cache()
+
+    # (d) (b)'s runtime traced, with a flight recorder; then the host tools
+    args = serve.build_parser().parse_args(
+        base + ["--disagg", "--requests", "24", "--n-prefill", "2", "--n-decode", "1"])
+    rows["traced"] = _traced_disagg(torch, np, ops, cfg, params, disagg, args, log_dir)
+    log("[cluster] traced " + json.dumps({k: v for k, v in rows["traced"].items() if k != "scale_ops"}))
+    rows["tools"] = phase_host_tools(tools, log_dir)
     rows["wall_s"] = time.perf_counter() - t_phase
     log(f"[cluster] phase passed in {rows['wall_s']:.1f} s")
     return rows
@@ -2516,6 +2641,29 @@ def start_dryrun(out_dir: Path):
                             stderr=subprocess.STDOUT, text=True)
 
 
+# phase 7's host tools: each CLI as a user runs it, on the CPU, no JAX
+HOST_TOOLS = {
+    "report": ["-m", "repro_torch.obs.report", "--sim", "--duration", "20", "--min-attribution", "0.95"],
+    "report_scale_ops": ["-m", "repro_torch.obs.report", "--sim", "--duration", "20", "--scale-ops",
+                         "--min-makespan-attribution", "0.95"],
+    "perfdiff": ["-m", "repro_torch.obs.perfdiff", "benchmarks/baselines/smoke",
+                 "benchmarks/baselines/smoke"],
+}
+
+
+def start_host_tools() -> dict:
+    """Phase 7's host CLIs in subprocesses, started before the kernels' build
+    beside the dry-run, so that they end before any phase is timed; one
+    thread each, no CUDA device."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1",
+           "CUDA_VISIBLE_DEVICES": ""}
+    return {name: subprocess.Popen([sys.executable, *argv], cwd=ROOT, env=env,
+                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name, argv in HOST_TOOLS.items()}
+
+
 def phase_mesh_train(torch, ops, TF, base_cfg, train_cli, opt_mod, mesh_mod, sh, steps_mod,
                      train_row: dict) -> dict:
     """12a: 3 sharded steps of phase 11c's run on a one-rank NCCL group, held
@@ -2658,6 +2806,7 @@ def main(argv: list[str] | None = None) -> int:
 
     dryrun_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
     proc = start_dryrun(dryrun_dir)
+    tool_procs = start_host_tools()
     try:
         build_s = _build.build()
         log(f"[build] {len(_build.SOURCES)} kernel libraries built in {build_s:.1f} s")
@@ -2672,15 +2821,22 @@ def main(argv: list[str] | None = None) -> int:
         log(f"[dryrun] subprocess ended {time.perf_counter() - t0:.1f} s after the build "
             f"(exit {proc.returncode}); no phase ran beside it")
         dryrun = (proc.returncode, out, dryrun_dir)
-        return _phases(args, torch, np, t_all, card, kind, build_s, fwd_build, dryrun)
+        tools = {}
+        for name, p in tool_procs.items():
+            out, _ = p.communicate(timeout=300)
+            tools[name] = (p.returncode, out)
+        log(f"[tools] {len(tools)} host CLI subprocesses ended "
+            f"{time.perf_counter() - t0:.1f} s after the build")
+        return _phases(args, torch, np, t_all, card, kind, build_s, fwd_build, dryrun, tools)
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        for p in (proc, *tool_procs.values()):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
         shutil.rmtree(dryrun_dir, ignore_errors=True)
 
 
-def _phases(args, torch, np, t_all, card, kind, build_s, fwd_build, dryrun) -> int:
+def _phases(args, torch, np, t_all, card, kind, build_s, fwd_build, dryrun, tools) -> int:
     from repro_torch.configs import get_config
     from repro_torch.core import live_scaling as live
     from repro_torch.kernels import ops, ref
@@ -2713,7 +2869,8 @@ def _phases(args, torch, np, t_all, card, kind, build_s, fwd_build, dryrun) -> i
     live_mla = phase_live(torch, np, ops, TF, live, mcfg, mparams)
     prof = phase_profile(torch, np, cfg, engine_mod, params, serve["decode_step_ms_median"],
                          serve["ttft_idle_ms"], args.log_dir)
-    cluster = phase_cluster(torch, np, ops, TF, cfg, params, serve_cli, disagg, engine_mod)
+    cluster = phase_cluster(torch, np, ops, TF, cfg, params, serve_cli, disagg, engine_mod, tools,
+                            args.log_dir)
     long_ctx = phase_long_context(torch, np, ops, TF, kvcache, cfg, params, engine_mod, args.log_dir)
     t0 = time.perf_counter()
     qparams = TF.init_params(qcfg, SEED + 2, device="cuda")

@@ -24,6 +24,7 @@ runs eagerly.  Prefill runs eagerly on both.
 from __future__ import annotations
 
 import dataclasses
+import gc
 from collections import deque
 from typing import Any
 
@@ -102,8 +103,18 @@ class InstanceEngine:
                 self._decode_all()
             torch.cuda.current_stream().wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            with ops.uncounted() as per_step, torch.cuda.graph(graph):
-                self._decode_all()
+            # a collection during the capture could free the graph of an
+            # engine dropped in a reference cycle, and destroying a graph
+            # while a stream captures invalidates the capture: garbage waits
+            # until the capture ends
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with ops.uncounted() as per_step, torch.cuda.graph(graph):
+                    self._decode_all()
+            finally:
+                if collecting:
+                    gc.enable()
         self._graph, self._graph_launches = graph, per_step
 
     def _decode(self) -> None:

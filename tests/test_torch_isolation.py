@@ -68,6 +68,13 @@ def test_isolation_covers_the_sharding_modules():
         assert f"src/repro_torch/{mod}" in names, mod
 
 
+def test_isolation_covers_the_tools_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("core/zigzag.py", "core/simulator.py", "obs/export.py", "obs/critical_path.py",
+                "obs/flightrec.py", "obs/report.py", "obs/perfdiff.py", "obs/__init__.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax_and_nothing_of_repro(path):
     bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "flax", "optax"}

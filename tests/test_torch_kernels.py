@@ -594,6 +594,52 @@ def test_engine_captures_at_its_first_admission_only(cuda):
 
 
 @pytest.mark.cuda
+def test_capture_survives_a_collection_of_a_dropped_graph(cuda):
+    """A dropped engine's captured graph held in a reference cycle lives
+    until the cyclic collector runs; if that happens while another engine
+    captures, destroying the graph invalidates the capture.  The graph
+    becomes cyclic garbage inside the capture, with the collector on and
+    its threshold at 1: the capture must still succeed and the engine
+    decode as the dropped one did (bf16 REDUCED)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TF
+    from repro_torch.serving.engine import InstanceEngine, ServeRequest
+
+    cfg = get_config("granite-8b", reduced=True)
+    params = TF.init_params(cfg, 0, device=cuda)
+    prompt = np.arange(3, 12, dtype=np.int32)
+    old = InstanceEngine(cfg, params, n_slots=2, max_seq=32)
+    old.submit(ServeRequest(0, prompt, 4))
+    want = old.run_until_done()[0].out_tokens
+    assert old._graph is not None
+    holder = [old]
+    del old
+    eng = InstanceEngine(cfg, params, n_slots=2, max_seq=32)
+    decode_all, calls = eng._decode_all, []
+
+    def drop_then_decode():
+        calls.append(1)
+        if len(calls) == 2:  # the capture (the first call is its warm-up)
+            cycle = {"graph": holder.pop()._graph}  # the engine itself is freed here
+            cycle["self"] = cycle
+            del cycle  # young cyclic garbage holding the only reference to the graph
+        return decode_all()
+
+    eng._decode_all = drop_then_decode
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        eng.submit(ServeRequest(0, prompt, 4))
+        got = eng.run_until_done()[0].out_tokens
+    finally:
+        gc.set_threshold(*threshold)
+    assert len(calls) == 2 and not holder and eng._graph is not None
+    assert got == want
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["granite-8b", "whisper-large-v3"])
 def test_batched_prefill_and_decode_run_on_the_kernels(cuda, arch):
     """A prefill of 3 sequences (the last position of each is a strided

@@ -65,3 +65,19 @@ def test_check_launched_passes_a_full_or_lossy_window(trace, units, want_lost):
 def test_check_launched_fails_a_real_shortfall(trace, units):
     with pytest.raises(cs.SmokeFailure):
         cs.check_launched(cs._launch_record(trace), "attn_kernel", 2, units, "window")
+
+
+def test_host_tools_are_the_cli_gates():
+    """Phase 7's subprocesses: both report gates and the perfdiff self-diff."""
+    assert set(cs.HOST_TOOLS) == {"report", "report_scale_ops", "perfdiff"}
+    assert "--min-attribution" in cs.HOST_TOOLS["report"]
+    assert "--min-makespan-attribution" in cs.HOST_TOOLS["report_scale_ops"]
+    assert cs.HOST_TOOLS["perfdiff"][-2:] == ["benchmarks/baselines/smoke"] * 2
+
+
+def test_host_tools_fail_on_a_non_zero_exit(tmp_path):
+    ok = {"report": (0, "table\nattribution gate OK: all 9 requests >= 95%\n")}
+    assert cs.phase_host_tools(ok, tmp_path)["report"]["last_line"].startswith("attribution gate OK")
+    assert (tmp_path / "tool_report.log").read_text() == ok["report"][1]
+    with pytest.raises(cs.SmokeFailure):
+        cs.phase_host_tools({**ok, "perfdiff": (1, "PERF GATE: FAIL\n")}, None)
