@@ -176,6 +176,28 @@ Run from the root of a checkout.  Phases, each of which must pass:
               awaited after it, so that no timed phase runs beside it:
               every cell ok; its per-device GB, roofline terms and
               bottleneck logged
+ 13. examples the static checker and the six examples: (a) beside the build,
+              as subprocesses without a CUDA device on this machine without
+              JAX, the checker over src/repro_torch under
+              analysis_baseline_torch.json ("simcheck: clean"), the import
+              smoke over src/repro_torch and examples_torch (every module
+              imported), examples_torch/quickstart.py and net_scenarios.py
+              ("all five scenarios behaved as modelled"), each exiting 0;
+              (b) after phase 12's models are freed, each tensor example's
+              main() in this process on the card, launches counted from 0:
+              serve_autoscale (both runs serve all 16 requests),
+              serve_disagg (all 32 arrivals served, every handoff done, none
+              gapped) and serve_maas (its fleet summary, on a simulated
+              clock, the CPU run's: 6 grants, 1 cold start from the O(1)
+              host copy, 3 scale-to-zero events, 4.86 GPU-seconds), each
+              launching the three forward kernels and no backward one;
+              train_100m (8 layers, d 768) for 120 steps over its step-100
+              checkpoint, launches exactly 120 steps' (flash 2L, rmsnorm
+              4L+1, flash_attention_bwd L, rmsnorm_bwd 2L+1 a step), the
+              loss at step 119 below step 0's, then a run to 140 resumed
+              from step 100 whose step-100 loss is the unbroken run's; each
+              example's wall seconds and train_100m's tokens/s logged beside
+              the card's name and power limit
 
 It prints one JSON ``kernels`` line (the three forward kernels, the decode
 kernel over the int8 cache with its launches in phase 7b, and the two
@@ -184,15 +206,19 @@ line, which is ``{"ok": true, "device": {...}}``.  It exits non-zero,
 printing no result, without a CUDA device or outside a checkout.  With
 ``--log-dir`` it also writes the nvcc logs, every measurement, the
 decode-step and prefill traces, phase 7(d)'s Chrome trace and incident
-bundle and the host tools' output there.
+bundle, the host tools' output and each example's stdout there.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
+import importlib.util
+import io
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -2651,17 +2677,18 @@ HOST_TOOLS = {
 }
 
 
-def start_host_tools() -> dict:
-    """Phase 7's host CLIs in subprocesses, started before the kernels' build
-    beside the dry-run, so that they end before any phase is timed; one
-    thread each, no CUDA device."""
+def start_host_tools(tools: dict) -> dict:
+    """Host CLIs (phase 7's ``HOST_TOOLS``, phase 13's ``EXAMPLE_HOST``) in
+    subprocesses, started before the kernels' build beside the dry-run, so
+    that they end before any phase is timed; one thread each, no CUDA
+    device."""
     import os
 
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1",
            "CUDA_VISIBLE_DEVICES": ""}
     return {name: subprocess.Popen([sys.executable, *argv], cwd=ROOT, env=env,
                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for name, argv in HOST_TOOLS.items()}
+            for name, argv in tools.items()}
 
 
 def phase_mesh_train(torch, ops, TF, base_cfg, train_cli, opt_mod, mesh_mod, sh, steps_mod,
@@ -2782,6 +2809,218 @@ def phase_mesh(torch, ops, TF, get_config, train_cli, opt_mod, train_row, dryrun
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: the static checker, the import smoke and the six examples
+# ---------------------------------------------------------------------------
+
+# 13(a): host work beside the build, each as a user runs it, on a machine
+# without JAX: the checker over the port, the import smoke over the port and
+# its examples, and the two examples that hold no tensor
+EXAMPLE_HOST = {
+    "simcheck": ["-m", "repro_torch.analysis.check", "src/repro_torch", "--baseline",
+                 "analysis_baseline_torch.json"],
+    "import_smoke": ["-m", "repro_torch.analysis.import_smoke", "src/repro_torch", "examples_torch"],
+    "quickstart": ["examples_torch/quickstart.py"],
+    "net_scenarios": ["examples_torch/net_scenarios.py"],
+}
+# 13(b): the examples that hold tensors, on the card (their default device)
+SERVE_EXAMPLES = ("serve_autoscale", "serve_disagg", "serve_maas")
+# serve_maas runs on a simulated clock: its summary is the CPU run's, which
+# is what the JAX example prints
+MAAS_SUMMARY = {"grants": 6, "cold_starts": 1, "scale_to_zero": 3, "gpu_seconds": "4.86",
+                "source": "O(1) host copy"}
+N_AUTOSCALE, N_DISAGG = 16, 32  # the examples' requests and trace arrivals
+# train_100m: its granite cut to 8 layers; a run over the step-100
+# checkpoint, then one resumed from it
+EXAMPLE_TRAIN = dict(layers=8, batch=16, seq=256, steps=120, ckpt_step=100, resume_steps=140)
+
+
+def parse_maas_summary(text: str) -> dict:
+    """serve_maas's fleet totals and its cold start's multicast source."""
+    m = re.search(r"^fleet totals: (\d+) grants, (\d+) cold starts, (\d+) scale-to-zero events, "
+                  r"(\d+\.\d+) GPU-seconds occupied$", text, re.M)
+    src = re.search(r"multicast source: (.+)$", text, re.M)
+    check(m is not None and src is not None, "serve_maas: no fleet summary in its output")
+    return {"grants": int(m[1]), "cold_starts": int(m[2]), "scale_to_zero": int(m[3]),
+            "gpu_seconds": m[4], "source": src[1].strip()}
+
+
+def parse_autoscale(text: str) -> dict:
+    """serve_autoscale's two runs: requests served and wall seconds each."""
+    out = {}
+    for key, label in (("live", "live scaling"), ("stop_the_world", "stop-the-world")):
+        m = re.search(rf"^{label}: +all (\d+) requests in (\d+\.\d+)s$", text, re.M)
+        check(m is not None, f"serve_autoscale: no {label!r} line in its output")
+        out[key] = {"served": int(m[1]), "wall_s": float(m[2])}
+    return out
+
+
+def parse_disagg(text: str) -> dict:
+    """serve_disagg's summary: served, handoffs, gapped and the scale events."""
+    s = re.search(r"^served (\d+) requests in (\d+\.\d+)s", text, re.M)
+    h = re.search(r"^migrations (\d+)  mutations (\d+) .*replacement live-scales (\d+)  "
+                  r"scale-downs (\d+)  handoffs (\d+) gapped (\d+)$", text, re.M)
+    check(s is not None and h is not None, "serve_disagg: no summary in its output")
+    return {"served": int(s[1]), "wall_s": float(s[2]), "migrations": int(h[1]),
+            "mutations": int(h[2]), "live_scales": int(h[3]), "scale_downs": int(h[4]),
+            "handoffs": int(h[5]), "gapped": int(h[6])}
+
+
+def parse_train(text: str) -> dict:
+    """train_100m's logged steps (loss, tok/s), checkpoints and resume."""
+    steps = {int(m[1]): {"loss": float(m[2]), "tok_s": float(m[3].replace(",", ""))}
+             for m in re.finditer(r"^step +(\d+)  loss (\S+)  lr \S+  tok/s ([\d,]+)$", text, re.M)}
+    resumed = re.search(r"^resumed from step (\d+)$", text, re.M)
+    return {"steps": steps, "resumed": int(resumed[1]) if resumed else None,
+            "checkpoints": len(re.findall(r"^  checkpoint -> ", text, re.M))}
+
+
+def example_train_launches(steps: int) -> dict:
+    """Kernel launches of ``steps`` steps of train_100m (one microbatch,
+    remat): ``steps`` x phase 11c's per-step arithmetic at its 8 layers."""
+    from types import SimpleNamespace
+
+    one = train_launches(SimpleNamespace(n_layers=EXAMPLE_TRAIN["layers"]), 1)
+    return {k: v * steps for k, v in one.items()}
+
+
+def run_example(torch, name: str, argv: list[str]):
+    """examples_torch/<name>.py's ``main(argv)`` in this process, its stdout
+    captured (printed whole if it raises) -> (main's result, stdout, wall s)."""
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}",
+                                                  ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            result = mod.main(argv)
+        torch.cuda.synchronize()
+    except BaseException:
+        print(buf.getvalue()[-6000:], flush=True)
+        raise
+    return result, buf.getvalue(), time.perf_counter() - t0
+
+
+def phase_example_host(host: dict, log_dir: Path | None) -> dict:
+    """13(a): the subprocesses exited 0 with the lines each must end in."""
+    from repro_torch.analysis.import_smoke import iter_modules
+
+    n = (len(iter_modules(str(ROOT / "src" / "repro_torch")))
+         + len(iter_modules(str(ROOT / "examples_torch"))))
+    rows = phase_host_tools(host, log_dir)
+    want = {"simcheck": "simcheck: clean",
+            "import_smoke": f"import-smoke: {n} compiled, {n} imported, 0 failure(s)",
+            "net_scenarios": "all five scenarios behaved as modelled"}
+    for name, line in want.items():
+        check(rows[name]["last_line"] == line,
+              f"{name}: last line {rows[name]['last_line']!r}, not {line!r}")
+    check(rows["quickstart"]["last_line"].strip().startswith("exact ILP"),
+          f"quickstart: last line {rows['quickstart']['last_line']!r}")
+    rows["modules_imported"] = n
+    rows["jax_installed"] = importlib.util.find_spec("jax") is not None
+    return rows
+
+
+def _example_log(log_dir: Path | None, name: str, out: str) -> None:
+    if log_dir is not None:
+        (log_dir / f"example_{name}.log").write_text(out)
+
+
+def phase_example_serve(torch, ops, name: str, card: str, log_dir: Path | None) -> dict:
+    """13(b), one serving example on the card: its facts, the three forward
+    kernels launched, no backward kernel."""
+    ops.reset_launch_counts()
+    _, out, wall = run_example(torch, name, [])
+    counts = ops.launch_counts()
+    _example_log(log_dir, name, out)
+    check(all(counts[k] > 0 for k in FWD_KERNELS), f"{name}: a forward kernel never launched: {counts}")
+    check(all(counts[k] == 0 for k in BWD_KERNELS), f"{name}: a backward kernel launched: {counts}")
+    if name == "serve_autoscale":
+        facts = parse_autoscale(out)
+        check(all(r["served"] == N_AUTOSCALE for r in facts.values()),
+              f"serve_autoscale: served {facts}, not all {N_AUTOSCALE} in both runs")
+    elif name == "serve_disagg":
+        facts = parse_disagg(out)
+        check(facts["served"] == N_DISAGG and facts["handoffs"] == facts["served"]
+              and facts["gapped"] == 0, f"serve_disagg: {facts}")
+    else:
+        facts = parse_maas_summary(out)
+        check(facts == MAAS_SUMMARY, f"serve_maas: {facts}, not the CPU run's {MAAS_SUMMARY}")
+    row = {"wall_s": wall, "launches": counts, **facts}
+    log(f"[examples] {name}: {wall:.3f} s wall, launches {counts}, {facts} | {card}")
+    return row
+
+
+def phase_example_train(torch, ops, card: str, log_dir: Path | None) -> dict:
+    """13(b), train_100m on the card: 120 steps over the step-100 checkpoint,
+    launches exactly 120 steps' worth, a falling loss; then a run resumed
+    from step 100 whose step-100 loss is the unbroken run's."""
+    from repro_torch.training.checkpoint import latest_step
+
+    t = EXAMPLE_TRAIN
+    shape = ["--batch", str(t["batch"]), "--seq", str(t["seq"])]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_100m_") as ckpt:
+        ops.reset_launch_counts()
+        _, out, wall = run_example(torch, "train_100m",
+                                   ["--steps", str(t["steps"]), *shape, "--ckpt", ckpt])
+        counts = ops.launch_counts()
+        _example_log(log_dir, "train_100m", out)
+        want = example_train_launches(t["steps"])
+        check(counts == want, f"train_100m: launches {counts} != {t['steps']} steps of {want}")
+        run = parse_train(out)
+        last = t["steps"] - 1
+        check(run["checkpoints"] == 1 and latest_step(ckpt) == t["ckpt_step"],
+              f"train_100m: checkpoints {run['checkpoints']}, latest {latest_step(ckpt)}")
+        check(0 in run["steps"] and last in run["steps"], f"train_100m: logged steps {sorted(run['steps'])}")
+        loss0, loss_last = run["steps"][0]["loss"], run["steps"][last]["loss"]
+        check(loss_last < loss0, f"train_100m: loss {loss0} at step 0, {loss_last} at step {last}")
+
+        ops.reset_launch_counts()
+        _, out2, wall2 = run_example(torch, "train_100m",
+                                     ["--steps", str(t["resume_steps"]), *shape, "--ckpt", ckpt])
+        counts2 = ops.launch_counts()
+        _example_log(log_dir, "train_100m_resumed", out2)
+        resumed = parse_train(out2)
+        check(resumed["resumed"] == t["ckpt_step"], f"train_100m: resumed from {resumed['resumed']}")
+        want2 = example_train_launches(t["resume_steps"] - t["ckpt_step"])
+        check(counts2 == want2, f"train_100m resumed: launches {counts2} != {want2}")
+        at = t["ckpt_step"]
+        check(resumed["steps"][at]["loss"] == run["steps"][at]["loss"],
+              f"train_100m: step {at} loss {resumed['steps'][at]['loss']} resumed, "
+              f"{run['steps'][at]['loss']} unbroken")
+    tokens = t["steps"] * t["batch"] * t["seq"]
+    row = {"wall_s": wall, "launches": counts, "loss_step0": loss0, f"loss_step{last}": loss_last,
+           "tok_s_logged": run["steps"][last]["tok_s"], "tok_s_wall": tokens / wall,
+           "resumed_wall_s": wall2, "resumed_launches": counts2,
+           "resumed_step_loss": resumed["steps"][t["ckpt_step"]]["loss"]}
+    log(f"[examples] train_100m: {t['steps']} steps in {wall:.3f} s wall ({tokens / wall:,.0f} tok/s "
+        f"with the checkpoint write; the example logs {row['tok_s_logged']:,.0f}), loss {loss0} -> "
+        f"{loss_last}, launches {counts}; resumed from step {t['ckpt_step']} to {t['resume_steps']} "
+        f"in {wall2:.3f} s | {card}")
+    return row
+
+
+def phase_examples(torch, ops, card: str, host: dict, log_dir: Path | None) -> dict:
+    """Phase 13: 13(a) the host subprocesses' results, 13(b) the examples
+    that hold tensors, in this process on the card, after phase 12's models
+    are freed."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = {"host": phase_example_host(host, log_dir)}
+    for name in SERVE_EXAMPLES:
+        rows[name] = phase_example_serve(torch, ops, name, card, log_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+    rows["train_100m"] = phase_example_train(torch, ops, card, log_dir)
+    rows["wall_s"] = time.perf_counter() - t_phase
+    log(f"[examples] phase passed in {rows['wall_s']:.1f} s | {card}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -2806,7 +3045,8 @@ def main(argv: list[str] | None = None) -> int:
 
     dryrun_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
     proc = start_dryrun(dryrun_dir)
-    tool_procs = start_host_tools()
+    tool_procs = start_host_tools(HOST_TOOLS)
+    example_procs = start_host_tools(EXAMPLE_HOST)
     try:
         build_s = _build.build()
         log(f"[build] {len(_build.SOURCES)} kernel libraries built in {build_s:.1f} s")
@@ -2825,18 +3065,24 @@ def main(argv: list[str] | None = None) -> int:
         for name, p in tool_procs.items():
             out, _ = p.communicate(timeout=300)
             tools[name] = (p.returncode, out)
-        log(f"[tools] {len(tools)} host CLI subprocesses ended "
+        host13 = {}
+        for name, p in example_procs.items():
+            out, _ = p.communicate(timeout=300)
+            host13[name] = (p.returncode, out)
+        log(f"[tools] {len(tools) + len(host13)} host subprocesses ended "
             f"{time.perf_counter() - t0:.1f} s after the build")
-        return _phases(args, torch, np, t_all, card, kind, build_s, fwd_build, dryrun, tools)
+        return _phases(args, torch, np, t_all, card, kind, build_s, fwd_build, dryrun, tools,
+                       host13)
     finally:
-        for p in (proc, *tool_procs.values()):
+        for p in (proc, *tool_procs.values(), *example_procs.values()):
             if p.poll() is None:
                 p.kill()
                 p.wait()
         shutil.rmtree(dryrun_dir, ignore_errors=True)
 
 
-def _phases(args, torch, np, t_all, card, kind, build_s, fwd_build, dryrun, tools) -> int:
+def _phases(args, torch, np, t_all, card, kind, build_s, fwd_build, dryrun, tools,
+            host13) -> int:
     from repro_torch.configs import get_config
     from repro_torch.core import live_scaling as live
     from repro_torch.kernels import ops, ref
@@ -2892,6 +3138,7 @@ def _phases(args, torch, np, t_all, card, kind, build_s, fwd_build, dryrun, tool
                         args.log_dir)
     mesh = phase_mesh(torch, ops, TF, get_config, train_cli, opt_mod, train["loop"], dryrun,
                       args.log_dir)
+    examples = phase_examples(torch, ops, card, host13, args.log_dir)
 
     line = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
@@ -2925,7 +3172,7 @@ def _phases(args, torch, np, t_all, card, kind, build_s, fwd_build, dryrun, tool
                   "long_context": long_ctx,
                   "maas": fleet_row, "families": families, "last_configs": last,
                   "train": {**train, "kernels": [train["kernels"][k] for k in sorted(train["kernels"])]},
-                  "mesh": mesh,
+                  "mesh": mesh, "examples": examples,
                   "wall_s": time.perf_counter() - t_all}
         (args.log_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")

@@ -19,7 +19,8 @@ from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.training.optimizer import AdamWConfig  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+              + sorted((ROOT / "examples_torch").glob("*.py")) + [ROOT / "chip_smoke.py"])
 CFG = get_config("granite-8b", reduced=True)
 MLA_CFG = get_config("minicpm3-4b", reduced=True)
 HYBRID_CFG = get_config("zamba2-2.7b", reduced=True)
@@ -73,6 +74,21 @@ def test_isolation_covers_the_tools_modules():
     for mod in ("core/zigzag.py", "core/simulator.py", "obs/export.py", "obs/critical_path.py",
                 "obs/flightrec.py", "obs/report.py", "obs/perfdiff.py", "obs/__init__.py"):
         assert f"src/repro_torch/{mod}" in names, mod
+
+
+def test_isolation_covers_the_analysis_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("__init__", "core", "config", "baseline", "check", "import_smoke",
+                "rules/__init__", "rules/determinism", "rules/iteration", "rules/exactfloat",
+                "rules/layering", "rules/reentrancy"):
+        assert f"src/repro_torch/analysis/{mod}.py" in names, mod
+
+
+def test_isolation_covers_the_examples():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for ex in ("quickstart", "net_scenarios", "serve_maas", "serve_autoscale", "serve_disagg",
+               "train_100m"):
+        assert f"examples_torch/{ex}.py" in names, ex
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -81,3 +81,102 @@ def test_host_tools_fail_on_a_non_zero_exit(tmp_path):
     assert (tmp_path / "tool_report.log").read_text() == ok["report"][1]
     with pytest.raises(cs.SmokeFailure):
         cs.phase_host_tools({**ok, "perfdiff": (1, "PERF GATE: FAIL\n")}, None)
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the checker, the import smoke and the examples
+# ---------------------------------------------------------------------------
+
+MAAS_TAIL = """   served at t=0.72s: cold-start TTFT 30ms (submitted t=0.64s), multicast source: O(1) host copy
+
+fleet totals: 6 grants, 1 cold starts, 3 scale-to-zero events, 4.86 GPU-seconds occupied
+"""
+
+
+def test_maas_summary_parser_reads_the_cpu_runs_line():
+    assert cs.parse_maas_summary(MAAS_TAIL) == cs.MAAS_SUMMARY
+    assert cs.parse_maas_summary(MAAS_TAIL.replace("O(1) host copy", "GPU copy")) != cs.MAAS_SUMMARY
+    assert cs.parse_maas_summary(MAAS_TAIL.replace("4.86", "4.87"))["gpu_seconds"] == "4.87"
+    with pytest.raises(cs.SmokeFailure):
+        cs.parse_maas_summary(MAAS_TAIL.splitlines()[0])
+
+
+def test_serving_example_parsers():
+    auto = ("live scaling:      all 16 requests in 4.83s\n"
+            "stop-the-world:    all 16 requests in 0.08s\n\nZigZag vs best-effort ...\n")
+    assert cs.parse_autoscale(auto) == {"live": {"served": 16, "wall_s": 4.83},
+                                        "stop_the_world": {"served": 16, "wall_s": 0.08}}
+    with pytest.raises(cs.SmokeFailure):
+        cs.parse_autoscale(auto.splitlines()[0])
+    disagg = ("[scale] retired decode dev 4\n\n"
+              "served 32 requests in 12.03s  mean_ttft 29ms attainment 84%\n"
+              "migrations 32  mutations 1 (param bytes moved: 0)  replacement live-scales 1  "
+              "scale-downs 4  handoffs 31 gapped 1\n")
+    assert cs.parse_disagg(disagg) == {"served": 32, "wall_s": 12.03, "migrations": 32,
+                                       "mutations": 1, "live_scales": 1, "scale_downs": 4,
+                                       "handoffs": 31, "gapped": 1}
+    with pytest.raises(cs.SmokeFailure):
+        cs.parse_disagg(disagg.splitlines()[2])
+
+
+def test_train_example_parser():
+    text = ("granite-100m: 99.9M params, batch 16 x seq 256\n"
+            "resumed from step 100\n"
+            "step  100  loss 7.0312  lr 1.04e-04  tok/s 878\n"
+            "step  119  loss 6.9710  lr 6.00e-05  tok/s 34,534\n"
+            "  checkpoint -> /tmp/x/step_00000100\n"
+            "\nloss 7.031 -> 6.971 over 40 steps\n")
+    got = cs.parse_train(text)
+    assert got == {"steps": {100: {"loss": 7.0312, "tok_s": 878.0},
+                             119: {"loss": 6.971, "tok_s": 34534.0}},
+                   "resumed": 100, "checkpoints": 1}
+    assert cs.parse_train(text.replace("resumed from step 100\n", ""))["resumed"] is None
+
+
+@pytest.mark.parametrize("steps,want", [
+    (120, {"rmsnorm": 3960, "flash_attention": 1920, "decode_attention": 0,
+           "rmsnorm_bwd": 2040, "flash_attention_bwd": 960}),
+    (40, {"rmsnorm": 1320, "flash_attention": 640, "decode_attention": 0,
+          "rmsnorm_bwd": 680, "flash_attention_bwd": 320}),
+])
+def test_train_example_launch_arithmetic(steps, want):
+    """train_100m's 8 layers, one microbatch, remat: per step flash 2L,
+    rmsnorm 4L+1, flash_attention_bwd L, rmsnorm_bwd 2L+1."""
+    assert cs.EXAMPLE_TRAIN["layers"] == 8
+    assert cs.example_train_launches(steps) == want
+
+
+def test_example_host_work_is_the_checker_the_smoke_and_two_examples():
+    assert cs.EXAMPLE_HOST == {
+        "simcheck": ["-m", "repro_torch.analysis.check", "src/repro_torch", "--baseline",
+                     "analysis_baseline_torch.json"],
+        "import_smoke": ["-m", "repro_torch.analysis.import_smoke", "src/repro_torch",
+                         "examples_torch"],
+        "quickstart": ["examples_torch/quickstart.py"],
+        "net_scenarios": ["examples_torch/net_scenarios.py"],
+    }
+    assert set(cs.SERVE_EXAMPLES) | {"train_100m"} | {"quickstart", "net_scenarios"} == {
+        p.stem for p in (Path(cs.ROOT) / "examples_torch").glob("*.py")}
+
+
+def _host_outputs(n: int) -> dict:
+    return {"simcheck": (0, "simcheck: clean\n"),
+            "import_smoke": (0, f"import-smoke: {n} compiled, {n} imported, 0 failure(s)\n"),
+            "quickstart": (0, "plan: 1 chain(s) in 0.10 ms\n  exact ILP   avg latency 15.7 (solved in 0.5 ms)\n"),
+            "net_scenarios": (0, "...\n\nall five scenarios behaved as modelled\n")}
+
+
+def test_example_host_checks_each_last_line(tmp_path):
+    from repro_torch.analysis.import_smoke import iter_modules
+
+    n = len(iter_modules(str(cs.ROOT / "src" / "repro_torch"))) + len(
+        iter_modules(str(cs.ROOT / "examples_torch")))
+    rows = cs.phase_example_host(_host_outputs(n), tmp_path)
+    assert rows["modules_imported"] == n
+    assert (tmp_path / "tool_simcheck.log").read_text() == "simcheck: clean\n"
+    for name, bad in (("simcheck", (0, "simcheck: 1 finding(s) across 1 rule(s), 0 stale\n")),
+                      ("import_smoke", (0, f"import-smoke: {n} compiled, {n - 1} imported, 1 failure(s)\n")),
+                      ("net_scenarios", (1, "Traceback ...\n")),
+                      ("quickstart", (0, "plan: 1 chain(s) in 0.10 ms\n"))):
+        with pytest.raises(cs.SmokeFailure):
+            cs.phase_example_host({**_host_outputs(n), name: bad}, None)
