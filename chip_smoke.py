@@ -198,10 +198,34 @@ Run from the root of a checkout.  Phases, each of which must pass:
               from step 100 whose step-100 loss is the unbroken run's; each
               example's wall seconds and train_100m's tokens/s logged beside
               the card's name and power limit
+ 14. shards   whole problems cut by hand into the blocks a mesh gives, the
+              variants' launch counts set to 0 before and read after: (a)
+              granite-8b's decode at 8 x 32k in bf16 and int8, the cache cut
+              into 4 and 16 sequence blocks, the kernel with its lse over
+              each (lengths cut to the block: one ends inside the first
+              16-way block, one is 0), merged by ops.merge_partials, held to
+              the whole call and to the plain version (bf16 2e-2; lse -inf
+              at length 0); whisper's 1500-frame cross cache over 16 uneven
+              blocks; timed: the block with the most valid rows (cold), the
+              merge and the whole call; (b) the flash forward cut into 4 q
+              row blocks at their q_offset, with and without lse (bit-equal),
+              at granite's 1 x 512, the train shape 4 x 2048 (causal) and
+              whisper's non-causal cross-attention, in bf16 and f32, out
+              and lse held to the whole call and to the plain version
+              (bf16 2e-2, f32 3e-5); timed: the last block at its offset
+              beside its plain version, SDPA with the offset as a mask and
+              the whole call; (c) granite-8b (2 layers, full width) served
+              through a one-rank NCCL mesh whose rules put the cache's
+              sequence over "model", so each decode runs ops'
+              flash-decoding path: logits within 2e-2 and token ids equal
+              to the unsharded run, n_layers x steps decode launches with
+              lse; every time logged beside the card's name and power limit
 
 It prints one JSON ``kernels`` line (the three forward kernels, the decode
-kernel over the int8 cache with its launches in phase 7b, and the two
-backward kernels) and the card's name and power limit before its last
+kernel over the int8 cache with its launches in phase 7b, the two backward
+kernels, and phase 14's variants: the decode kernel with its lse at one of
+4 blocks of the bf16 8 x 32k cache, and the flash forward at the train
+shape's last q block) and the card's name and power limit before its last
 line, which is ``{"ok": true, "device": {...}}``.  It exits non-zero,
 printing no result, without a CUDA device or outside a checkout.  With
 ``--log-dir`` it also writes the nvcc logs, every measurement, the
@@ -622,7 +646,8 @@ def work(name: str, inputs, kw, dt: str) -> tuple[float, float]:
         q, k, _ = inputs
         b, sq, h, d = q.shape
         sk, kv = k.shape[1], k.shape[2]
-        pairs = sum(min(i + 1, sk) for i in range(sq)) if kw.get("causal", True) else sq * sk
+        off = kw.get("q_offset", 0)  # row i is position off + i
+        pairs = sum(min(off + i + 1, sk) for i in range(sq)) if kw.get("causal", True) else sq * sk
         return (2 * b * sq * h * d + 2 * b * sk * kv * d) * es, 4 * b * h * d * pairs
     q, k, _, lengths = inputs[:4]
     b, h, d = q.shape
@@ -644,9 +669,15 @@ def library_call(torch, name: str, inputs, kw):
     if name == "rmsnorm":
         return lambda x, w: F.rms_norm(x, (x.shape[-1],), w, 1e-5)
     if name == "flash_attention":
+        causal, off = kw.get("causal", True), kw.get("q_offset", 0)
+        mask = None
+        if causal and off:  # SDPA's is_causal keeps the diagonal at 0: the offset's as a mask
+            sq, sk = inputs[0].shape[1], inputs[1].shape[1]
+            mask = (torch.arange(sq, device="cuda")[:, None] + off
+                    >= torch.arange(sk, device="cuda")[None, :])
         return lambda q, k, v: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=kw.get("causal", True), scale=kw.get("softmax_scale"), enable_gqa=True)
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+            is_causal=causal and not off, scale=kw.get("softmax_scale"), enable_gqa=True)
     _, k, _, lengths = inputs
     mask = (torch.arange(k.shape[2], device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
     return lambda q, k, v, _lengths: F.scaled_dot_product_attention(
@@ -3021,6 +3052,302 @@ def phase_examples(torch, ops, card: str, host: dict, log_dir: Path | None) -> d
 
 
 # ---------------------------------------------------------------------------
+# Phase 14: sequence shards on one card
+# ---------------------------------------------------------------------------
+
+SHARD_CUTS = (4, 16)  # sequence blocks: a 4-way "model" axis and production's 16-way one
+# granite-8b's decode at 8 x 32k: lengths at the blocks' boundaries, one that
+# ends inside the first 16-way block (the later blocks hold none of its keys)
+# and one of 0
+SHARD_DECODE = dict(b=8, h=32, kv=8, s=32768, d=128,
+                    lengths=(32768, 32731, 20000, 8192, 2048, 1000, 1, 0))
+# whisper's cross cache of 1500 frames, cut 16 ways into uneven blocks (94 x 15, 90)
+SHARD_CROSS = dict(b=4, h=20, kv=20, s=1500, d=64, lengths=(1500,) * 4)
+# the flash forward cut into 4 row blocks, each at its q_offset:
+# case -> (b, sq, sk, h, kv, d, causal)
+SHARD_FLASH = {
+    "main B=1 S=512 H=32 KV=8 D=128 causal": (1, 512, 512, 32, 8, 128, True),
+    "train B=4 S=2048 H=32 KV=8 D=128 causal": (4, 2048, 2048, 32, 8, 128, True),
+    "whisper-cross B=4 Sq=512 Sk=1500 H=20 KV=20 D=64 non-causal": (4, 512, 1500, 20, 20, 64, False),
+}
+SHARD_Q_BLOCKS = 4
+# 14(c): granite-8b at full width through a one-rank mesh, its cache's
+# sequence over the (1-way) "model" axis: the decode of ops' DTensor path
+SHARD_SERVE = dict(layers=2, batch=4, prompt=128, steps=4)
+# the kernel line's rows of the variants: (name, source, replaces, the case timed)
+SHARD_VARIANTS = (
+    ("decode_attention_lse", "src/repro_torch/kernels/csrc/decode_attention.cu",
+     "src/repro/kernels/decode_attention.py:36", ("decode", "bf16", 4)),
+    ("flash_attention_q_offset", "src/repro_torch/kernels/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:39", ("flash", "bf16", "train")),
+)
+
+
+def block_starts(rows: int, n: int) -> list[int]:
+    """The first row of each of n blocks of ``rows`` and the end, as a mesh's
+    ceil chunking (``sharding.local_block``) cuts them."""
+    c = -(-rows // n)
+    return [min(i * c, rows) for i in range(n + 1)]
+
+
+def _shard_decode_inputs(torch, spec: dict, quant: bool, seed: int):
+    """(q, k, v, lengths[, k_scale, v_scale]) in bf16, the cache int8 with
+    its scales under ``quant``."""
+    from repro_torch.models.kvcache import quantize_kv
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    b, h, kv, s, d = (spec[x] for x in ("b", "h", "kv", "s", "d"))
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    lens = torch.tensor(spec["lengths"], dtype=torch.int32, device="cuda")
+    if not quant:
+        return randn(b, h, d), randn(b, kv, s, d), randn(b, kv, s, d), lens
+    (kq, ks), (vq, vs) = (quantize_kv(randn(b, kv, s, d)) for _ in range(2))
+    return randn(b, h, d), kq, vq, lens, ks, vs
+
+
+def _slice_fns(ops, ref):
+    """One cache block's decode with lse, kernel and plain: what a rank runs."""
+    def scales(sc):
+        return dict(k_scale=sc[0], v_scale=sc[1]) if sc else {}
+
+    def kernel(q, k, v, lengths, *sc):
+        return ops.decode_attention(q, k, v, lengths, return_lse=True, impl="kernel", **scales(sc))
+
+    def plain(q, k, v, lengths, *sc):
+        return ref.decode_attention_ref(q, k, v, lengths, return_lse=True, **scales(sc))
+
+    return kernel, plain
+
+
+def shard_decode(torch, ops, ref, name: str, inputs, n: int, timed: bool) -> dict:
+    """The cache cut into n sequence blocks, the kernel with lse over each
+    (its lengths cut to the block), merged by ``ops.merge_partials``: held
+    to the whole call and to the plain version (out within bf16's 2e-2 of
+    the output's largest magnitude, lse within 2e-2, -inf for the row of
+    length 0).  Timed: the block with the most valid rows, cold (a rank's
+    call), and the merge of the n partials."""
+    q, k, v, lens, *sc = inputs
+    scales = dict(k_scale=sc[0], v_scale=sc[1]) if sc else {}
+    kernel, plain = _slice_fns(ops, ref)
+    starts = block_starts(k.shape[2], n)
+    blocks = [(q, *(t[:, :, a:e].contiguous() for t in (k, v)), (lens - a).clamp(0, e - a).int(),
+               *(t[:, :, a:e].contiguous() for t in sc)) for a, e in zip(starts, starts[1:])]
+    parts = [kernel(*blk) for blk in blocks]  # the path: counted
+    outs, lses = torch.stack([o for o, _ in parts]), torch.stack([x for _, x in parts])
+    out, lse = ops.merge_partials(outs, lses)
+    out = out.to(q.dtype)
+    with ops.uncounted():
+        whole = ops.decode_attention(q, k, v, lens, impl="kernel", **scales)
+    want, want_lse = ref.decode_attention_ref(q, k, v, lens, return_lse=True, **scales)
+    torch.cuda.synchronize()
+    live = lens > 0
+    check(bool((lse[~live] == float("-inf")).all()), f"shards {name}/{n}: a row of length 0 has a finite lse")
+    row = {"case": name, "blocks": n, "rows_per_block": [e - a for a, e in zip(starts, starts[1:])],
+           "max_abs_err_whole": max_err(torch, out, whole, "bf16", scaled=True),
+           "max_abs_err": max_err(torch, out, want, "bf16", scaled=True),
+           "lse_max_abs_err": max_err(torch, lse[live], want_lse[live], "bf16"),
+           "launches": n}
+    if timed:
+        big = max(range(n), key=lambda i: int(blocks[i][3].sum()))
+        blk = blocks[big]
+        with ops.uncounted():
+            t = time_ms(torch, {"kernel": kernel, "plain": plain}, cold_sets(blk))
+            merge = time_ms(torch, {"merge": ops.merge_partials}, [(outs, lses)])["merge"]
+        quant = bool(sc)
+        nbytes, flops = work("decode_attention_int8" if quant else "decode_attention", blk, {}, "bf16")
+        nbytes += 4 * q.shape[0] * q.shape[1]  # the lse, written once
+        row.update(block=big, block_valid_rows=int(blk[3].sum()), ms=t["kernel"], plain_ms=t["plain"],
+                   merge_ms=merge, library_ms=None, bytes=nbytes, flops=flops, timed="cold")
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops, "bf16")
+    del blocks, parts
+    return row
+
+
+def shard_flash(torch, ops, ref, case: str, dt: str, shape) -> dict:
+    """q cut into 4 row blocks, each through the flash forward at its
+    q_offset with and without lse (the serving call; the two outputs
+    bit-equal), concatenated: held to the whole call and to the plain
+    version, out and lse, at dt's tolerance.  Timed warm (or cold past half
+    the L2, as phase 2): the heaviest block (the last) at its offset, its
+    plain version and SDPA with the offset as a mask, and the whole call."""
+    from repro_torch.kernels import flash_attention as fk
+
+    b, sq, sk, h, kv, d, causal = shape
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 14)
+    q, k, v = (torch.randn(s_, generator=gen, device="cuda").to(dtype)
+               for s_ in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)))
+    starts = block_starts(sq, SHARD_Q_BLOCKS)
+    outs, lses = [], []
+    for a, e in zip(starts, starts[1:]):  # the path: counted
+        qb = q[:, a:e].contiguous()
+        o, x = fk.flash_attention(qb, k, v, causal=causal, return_lse=True, q_offset=a)
+        check(torch.equal(o, fk.flash_attention(qb, k, v, causal=causal, q_offset=a)),
+              f"shards {case} {dt}: a block's output with lse differs from the one without")
+        outs.append(o)
+        lses.append(x)
+    got, got_lse = torch.cat(outs, dim=1), torch.cat(lses, dim=2)
+    with ops.uncounted():
+        whole, whole_lse = fk.flash_attention(q, k, v, causal=causal, return_lse=True)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    want_lse = ref.flash_attention_lse_ref(q, k, causal=causal)
+    row = {"case": case, "dtype": dt, "blocks": SHARD_Q_BLOCKS, "q_offsets": starts[:-1],
+           "max_abs_err_whole": max_err(torch, got, whole, dt),
+           "max_abs_err": max_err(torch, got, want, dt),
+           "lse_max_abs_err_whole": max_err(torch, got_lse, whole_lse, dt),
+           "lse_max_abs_err": max_err(torch, got_lse, want_lse, dt),
+           "launches": 2 * sum(1 for a in starts[:-1] if a)}
+    del want, want_lse
+    a, e = starts[-2], starts[-1]
+    kw = {"causal": causal, "q_offset": a}
+    blk = (q[:, a:e].contiguous(), k, v)
+    nbytes, flops = work("flash_attention", blk, kw, dt)
+    sets = cold_sets(blk) if nbytes > L2_BYTES / 2 else [blk]
+    fns = {"kernel": lambda *x: fk.flash_attention(*x, **kw),
+           "plain": lambda *x: ref.flash_attention_ref(*x, **kw),
+           "library": library_call(torch, "flash_attention", blk, kw)}
+    with ops.uncounted():
+        t = time_ms(torch, fns, sets)
+        whole_ms = time_ms(torch, {"whole": lambda *x: fk.flash_attention(*x, causal=causal)},
+                           cold_sets((q, k, v)) if len(sets) > 1 else [(q, k, v)])["whole"]
+    row.update(block_q_offset=a, ms=t["kernel"], plain_ms=t["plain"], library_ms=t["library"],
+               whole_ms=whole_ms, bytes=nbytes, flops=flops,
+               timed="cold" if len(sets) > 1 else "warm")
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dt)
+    return row
+
+
+def shard_serve(torch, np, ops, TF, get_config) -> dict:
+    """14(c): granite-8b cut to 2 layers at full width, a prefill of 4 x 128
+    and 4 decode steps, once unsharded and once through a one-rank NCCL
+    mesh whose rules put the cache's sequence over "model": each sharded
+    decode runs ops' flash-decoding path (the kernel with lse on the rank's
+    block, the all-gather and the merge).  Logits within bf16's 2e-2, token
+    ids equal."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps as steps_mod
+
+    t = SHARD_SERVE
+    cfg = get_config("granite-8b").replace(n_layers=t["layers"])
+    params = TF.init_params(cfg, SEED, device="cuda")
+    tokens = torch.as_tensor(np.random.default_rng(SEED + 14).integers(
+        0, cfg.vocab_size, size=(t["batch"], t["prompt"])).astype(np.int32), device="cuda")
+    max_seq = t["prompt"] + t["steps"]
+
+    def full(x):
+        return x.full_tensor() if sh.is_dtensor(x) else x
+
+    def run(params, caches, toks, rules):
+        step = (lambda fn: fn) if rules is None else (lambda fn: steps_mod._with_rules(rules, fn))
+        logits, caches = step(TF.prefill_logits)(cfg, params, toks, caches)
+        out = [full(logits)]
+        for _ in range(t["steps"]):
+            nxt = full(logits).argmax(-1).to(torch.int32)
+            logits, caches = step(TF.decode_logits)(cfg, params, nxt, caches)
+            out.append(full(logits))
+        torch.cuda.synchronize()
+        return out
+
+    with ops.uncounted():
+        plain = run(params, TF.init_caches(cfg, t["batch"], max_seq, device="cuda"), tokens, None)
+    started = mesh_mod.init_process_group("cuda")
+    try:
+        mesh = mesh_mod.make_host_mesh()
+        rules = steps_mod.make_rules(cfg, mesh)
+        caches = TF.init_caches(cfg, t["batch"], max_seq, device="cuda")
+        specs = sh.specs_for_axes(caches, TF.cache_axes(cfg), rules)
+        caches = sh.map_pair(lambda x, spec: sh.distribute(x, spec, mesh), caches, specs)
+        placed = [str(p) for p in caches["layers"]["k"].placements]
+        check(caches["layers"]["k"].placements[1].is_shard(3),
+              f"shards serve: the cache's sequence is not over 'model': {placed}")
+        sparams = sh.distribute_tree(params, TF.param_template(cfg), rules)
+        before = ops.variant_counts()["decode_attention_lse"]
+        got = run(sparams, caches, sh.distribute(tokens, rules.spec_for_shape(
+            tuple(tokens.shape), ("batch", "seq")), mesh), rules)
+        launched = ops.variant_counts()["decode_attention_lse"] - before
+        del sparams, caches
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
+    want = cfg.n_layers * t["steps"]
+    check(launched == want, f"shards serve: {launched} decode launches with lse, not {want}")
+    errs = []
+    for i, (g, p) in enumerate(zip(got, plain)):
+        diff = (g.float() - p.float()).abs()
+        errs.append(float(diff.max()))
+        check(bool((diff <= TOL["bf16"] + TOL["bf16"] * p.float().abs()).all()),
+              f"shards serve: pass {i} logits {errs[-1]} from the unsharded run")
+        check(torch.equal(g.argmax(-1), p.argmax(-1)), f"shards serve: pass {i} tokens differ")
+    row = {"model": cfg.name, "layers": cfg.n_layers, "mesh": list(mesh.shape), "cache": placed,
+           "decode_lse_launches": launched, "max_abs_diff": errs,
+           "bit_equal": all(torch.equal(g, p) for g, p in zip(got, plain))}
+    log("[shards] serve " + json.dumps(row))
+    del params
+    return row
+
+
+def phase_shards(torch, np, ops, ref, TF, get_config, card: str) -> dict:
+    """Phase 14: whole problems cut by hand into the blocks a mesh gives, on
+    one card: (a) decode over 4 and 16 cache blocks merged, in bf16 and
+    int8, and whisper's cross cache over 16 uneven blocks; (b) the flash
+    forward over 4 q blocks at their offsets, in bf16 and f32; (c) the
+    sharded decode of the model through a one-rank mesh.  The variants'
+    launch counts are set to 0 before and read after; comparisons and
+    timings are not counted."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    rows = {"decode": {}, "flash": {}}
+    for quant in (False, True):
+        tag = "int8" if quant else "bf16"
+        inputs = _shard_decode_inputs(torch, SHARD_DECODE, quant, SEED + 14)
+        with ops.uncounted():
+            whole_ms = time_ms(torch, {"whole": lambda q, k, v, lens, *sc: ops.decode_attention(
+                q, k, v, lens, impl="kernel",
+                **(dict(k_scale=sc[0], v_scale=sc[1]) if sc else {}))}, cold_sets(inputs))["whole"]
+        for n in SHARD_CUTS:
+            row = shard_decode(torch, ops, ref, f"granite B=8 S=32768 {tag}", inputs, n, True)
+            row["whole_ms"] = whole_ms
+            rows["decode"][(tag, n)] = row
+            log(f"[shards] decode {tag} over {n} blocks: block {row['ms']:.5f} ms "
+                f"(bound {row['bound_ms']:.5f} ms, plain {row['plain_ms']:.5f} ms), merge "
+                f"{row['merge_ms']:.5f} ms, whole call {whole_ms:.5f} ms | {card} | " + json.dumps(row))
+        del inputs
+    inputs = _shard_decode_inputs(torch, SHARD_CROSS, False, SEED + 15)
+    row = shard_decode(torch, ops, ref, "whisper-cross B=4 S=1500 bf16", inputs, 16, False)
+    rows["decode"][("whisper-cross", 16)] = row
+    log("[shards] decode " + json.dumps(row))
+    del inputs
+    for dt in ("bf16", "f32"):
+        for case, shape in SHARD_FLASH.items():
+            row = shard_flash(torch, ops, ref, case, dt, shape)
+            rows["flash"][(dt, case.split()[0])] = row
+            log(f"[shards] flash {dt} {case}: block at q_offset {row['block_q_offset']} "
+                f"{row['ms']:.5f} ms (bound {row['bound_ms']:.5f} ms, plain {row['plain_ms']:.5f} ms, "
+                f"SDPA {row['library_ms']:.5f} ms), whole call {row['whole_ms']:.5f} ms | {card} | "
+                + json.dumps(row))
+            gc.collect()
+            torch.cuda.empty_cache()
+    rows["serve"] = shard_serve(torch, np, ops, TF, get_config)
+    counts = ops.variant_counts()
+    want = {"decode_attention_lse": sum(r["launches"] for r in rows["decode"].values())
+            + rows["serve"]["decode_lse_launches"],
+            "flash_attention_q_offset": sum(r["launches"] for r in rows["flash"].values())}
+    check(counts == want, f"shards: variant launches {counts} != the phase's {want}")
+    rows["launches"] = counts
+    rows["wall_s"] = time.perf_counter() - t_phase
+    log(f"[shards] phase passed in {rows['wall_s']:.1f} s, launches {counts} | {card}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -3139,6 +3466,7 @@ def _phases(args, torch, np, t_all, card, kind, build_s, fwd_build, dryrun, tool
     mesh = phase_mesh(torch, ops, TF, get_config, train_cli, opt_mod, train["loop"], dryrun,
                       args.log_dir)
     examples = phase_examples(torch, ops, card, host13, args.log_dir)
+    shards = phase_shards(torch, np, ops, ref, TF, get_config, card)
 
     line = {"kernels": []}
     for name, (source, replaces) in KERNELS.items():
@@ -3165,7 +3493,17 @@ def _phases(args, torch, np, t_all, card, kind, build_s, fwd_build, dryrun, tool
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+    for name, source, replaces, (kind_, dt, case) in SHARD_VARIANTS:
+        r = shards[kind_][(dt, case)]
+        line["kernels"].append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": shards["launches"][name], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
     if args.log_dir is not None:
+        shard_rows = {k: [{"key": list(key), **r} for key, r in shards[k].items()]
+                      for k in ("decode", "flash")}
         record = {"card": card, "torch": torch.__version__, "build_s": build_s,
                   "fwd_build": fwd_build, "kernels": [kern[k] for k in sorted(kern)], "parity": parity,
                   "serve": serve, "live": [live_row, live_mla], "profile": prof, "cluster": cluster,
@@ -3173,6 +3511,7 @@ def _phases(args, torch, np, t_all, card, kind, build_s, fwd_build, dryrun, tool
                   "maas": fleet_row, "families": families, "last_configs": last,
                   "train": {**train, "kernels": [train["kernels"][k] for k in sorted(train["kernels"])]},
                   "mesh": mesh, "examples": examples,
+                  "shards": {**shards, **shard_rows},
                   "wall_s": time.perf_counter() - t_all}
         (args.log_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")

@@ -28,8 +28,9 @@ CONFIG = ModelConfig(
     qk_rope_dim=32,
     v_head_dim=64,
     microbatches=16,
-    # 40 heads don't divide the JAX package's 16-way model axis -> sequence
-    # parallelism there; kept for field parity (the port has no mesh yet)
+    # 40 heads don't divide the 16-way model axis -> sequence parallelism,
+    # as in the JAX package (the port's meshes: launch/mesh.py; a serving
+    # prefill keeps q's sequence shard: kernels/ops.py)
     sharding_overrides={"seq": "model"},
 )
 

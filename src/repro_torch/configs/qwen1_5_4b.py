@@ -21,8 +21,9 @@ CONFIG = ModelConfig(
     attn="gqa",
     qkv_bias=True,
     microbatches=16,
-    # 20 heads don't divide the JAX package's 16-way model axis -> sequence
-    # parallelism there; kept for field parity (the port has no mesh yet)
+    # 20 heads don't divide the 16-way model axis -> sequence parallelism,
+    # as in the JAX package (the port's meshes: launch/mesh.py; a serving
+    # prefill keeps q's sequence shard: kernels/ops.py)
     sharding_overrides={"seq": "model"},
 )
 

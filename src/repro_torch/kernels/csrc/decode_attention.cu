@@ -6,6 +6,16 @@
 // lengths (B,) int32, clamped to [0, S]; positions >= the length are masked;
 // the output is acc / max(l, 1e-30), so a row of length 0 gives 0.
 //
+// With `lse` non-null the merge also writes each head's log-sum-exp, f32
+// (B, H): mu + log2(l) from the cluster's combined max mu and sum l, in the
+// log2 domain of the scaled scores (as the flash kernels' lse), and -inf for
+// a row of length 0.  That is the partial of a cache slice that flash-decoding
+// over a sequence-sharded cache merges (kernels/ops.py, merge_partials): a
+// slice holding no key of the row has weight exp2(-inf) = 0 there.  (The
+// flash kernels write +inf for a row with no key, which their backward
+// needs; here it would be an infinite weight.)  With `lse` null nothing
+// else changes.
+//
 // The cache is of q's type, or int8 with f32 scales k_scale/v_scale (B, KV,
 // S), one per token and KV head: the int8 branch of the JAX package's
 // decode_attention_reference (src/repro/models/layers.py, jnp; its Pallas
@@ -199,8 +209,8 @@ __global__ void __launch_bounds__(kThreads)
     decode_attention_kernel(const T* __restrict__ q, const C* __restrict__ kc,
                             const C* __restrict__ vc, const float* __restrict__ ksc,
                             const float* __restrict__ vsc, const int* __restrict__ lengths,
-                            T* __restrict__ out, int KV, int groups, int S, int CH,
-                            float scale_log2) {
+                            T* __restrict__ out, float* __restrict__ lse, int KV, int groups,
+                            int S, int CH, float scale_log2) {
   using SH = Shape<C, D, NREP>;
   constexpr int QV = 16 / sizeof(T);  // q elements per 16-byte load (SH::VE is a multiple)
   using QVec = rt::Vec<T, QV>;
@@ -461,6 +471,9 @@ __global__ void __launch_bounds__(kThreads)
       a = fmaf(pa[c], w, a);
     }
     o[idx] = rt::from_float<T>(a / fmaxf(l, 1e-30f));
+    if (lse != nullptr && idx % D == 0)  // one thread a head: its log-sum-exp
+      lse[(static_cast<size_t>(b) * KV * groups + hg) * NREP + r] =
+          l > 0.f ? mu + log2f(l) : -INFINITY;
   }
   cluster.sync();  // every CTA's shared memory stays alive until its peers have read it
 }
@@ -474,8 +487,8 @@ struct CacheArgs {
 };
 
 template <typename T, typename C, int D, int NREP>
-cudaError_t launch(const void* q, CacheArgs c, const int* lengths, void* out, int B, int KV,
-                   int groups, int S, int cluster, int CH, float scale_log2, int device,
+cudaError_t launch(const void* q, CacheArgs c, const int* lengths, void* out, float* lse, int B,
+                   int KV, int groups, int S, int cluster, int CH, float scale_log2, int device,
                    cudaStream_t stream) {
   using SH = Shape<C, D, NREP>;
   auto kernel = decode_attention_kernel<T, C, D, NREP>;
@@ -497,28 +510,29 @@ cudaError_t launch(const void* q, CacheArgs c, const int* lengths, void* out, in
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q), static_cast<const C*>(c.k),
                            static_cast<const C*>(c.v), c.k_scale, c.v_scale, lengths,
-                           static_cast<T*>(out), KV, groups, S, CH, scale_log2);
+                           static_cast<T*>(out), lse, KV, groups, S, CH, scale_log2);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 // heads: query heads per CTA (n_rep / groups)
 template <typename T, typename C, int D>
-cudaError_t launch_rep(int heads, const void* q, CacheArgs c, const int* len, void* out, int B,
-                       int KV, int g, int S, int cl, int ch, float sl, int dev, cudaStream_t s) {
+cudaError_t launch_rep(int heads, const void* q, CacheArgs c, const int* len, void* out, float* lse,
+                       int B, int KV, int g, int S, int cl, int ch, float sl, int dev,
+                       cudaStream_t s) {
   switch (heads) {
     case 1:
-      return launch<T, C, D, 1>(q, c, len, out, B, KV, g, S, cl, ch, sl, dev, s);
+      return launch<T, C, D, 1>(q, c, len, out, lse, B, KV, g, S, cl, ch, sl, dev, s);
     case 2:
-      return launch<T, C, D, 2>(q, c, len, out, B, KV, g, S, cl, ch, sl, dev, s);
+      return launch<T, C, D, 2>(q, c, len, out, lse, B, KV, g, S, cl, ch, sl, dev, s);
     case 3:
-      return launch<T, C, D, 3>(q, c, len, out, B, KV, g, S, cl, ch, sl, dev, s);
+      return launch<T, C, D, 3>(q, c, len, out, lse, B, KV, g, S, cl, ch, sl, dev, s);
     case 4:
-      return launch<T, C, D, 4>(q, c, len, out, B, KV, g, S, cl, ch, sl, dev, s);
+      return launch<T, C, D, 4>(q, c, len, out, lse, B, KV, g, S, cl, ch, sl, dev, s);
     case 6:
-      return launch<T, C, D, 6>(q, c, len, out, B, KV, g, S, cl, ch, sl, dev, s);
+      return launch<T, C, D, 6>(q, c, len, out, lse, B, KV, g, S, cl, ch, sl, dev, s);
     case 8:
-      return launch<T, C, D, 8>(q, c, len, out, B, KV, g, S, cl, ch, sl, dev, s);
+      return launch<T, C, D, 8>(q, c, len, out, lse, B, KV, g, S, cl, ch, sl, dev, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -526,21 +540,21 @@ cudaError_t launch_rep(int heads, const void* q, CacheArgs c, const int* len, vo
 
 template <typename T, typename C>
 cudaError_t launch_d(int D, int heads, const void* q, CacheArgs c, const int* len, void* out,
-                     int B, int KV, int g, int S, int cl, int ch, float sl, int dev,
+                     float* lse, int B, int KV, int g, int S, int cl, int ch, float sl, int dev,
                      cudaStream_t s) {
   switch (D) {
     case 16:
-      return launch_rep<T, C, 16>(heads, q, c, len, out, B, KV, g, S, cl, ch, sl, dev, s);
+      return launch_rep<T, C, 16>(heads, q, c, len, out, lse, B, KV, g, S, cl, ch, sl, dev, s);
     case 32:
-      return launch_rep<T, C, 32>(heads, q, c, len, out, B, KV, g, S, cl, ch, sl, dev, s);
+      return launch_rep<T, C, 32>(heads, q, c, len, out, lse, B, KV, g, S, cl, ch, sl, dev, s);
     case 64:
-      return launch_rep<T, C, 64>(heads, q, c, len, out, B, KV, g, S, cl, ch, sl, dev, s);
+      return launch_rep<T, C, 64>(heads, q, c, len, out, lse, B, KV, g, S, cl, ch, sl, dev, s);
     case 80:
-      return launch_rep<T, C, 80>(heads, q, c, len, out, B, KV, g, S, cl, ch, sl, dev, s);
+      return launch_rep<T, C, 80>(heads, q, c, len, out, lse, B, KV, g, S, cl, ch, sl, dev, s);
     case 128:
-      return launch_rep<T, C, 128>(heads, q, c, len, out, B, KV, g, S, cl, ch, sl, dev, s);
+      return launch_rep<T, C, 128>(heads, q, c, len, out, lse, B, KV, g, S, cl, ch, sl, dev, s);
     case 192:
-      return launch_rep<T, C, 192>(heads, q, c, len, out, B, KV, g, S, cl, ch, sl, dev, s);
+      return launch_rep<T, C, 192>(heads, q, c, len, out, lse, B, KV, g, S, cl, ch, sl, dev, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -549,10 +563,11 @@ cudaError_t launch_d(int D, int heads, const void* q, CacheArgs c, const int* le
 // q's type T, and the cache's: T, or int8 (quant) with scales
 template <typename T>
 cudaError_t launch_t(bool quant, int D, int heads, const void* q, CacheArgs c, const int* len,
-                     void* out, int B, int KV, int g, int S, int cl, int ch, float sl, int dev,
-                     cudaStream_t s) {
-  if (quant) return launch_d<T, int8_t>(D, heads, q, c, len, out, B, KV, g, S, cl, ch, sl, dev, s);
-  return launch_d<T, T>(D, heads, q, c, len, out, B, KV, g, S, cl, ch, sl, dev, s);
+                     void* out, float* lse, int B, int KV, int g, int S, int cl, int ch, float sl,
+                     int dev, cudaStream_t s) {
+  if (quant)
+    return launch_d<T, int8_t>(D, heads, q, c, len, out, lse, B, KV, g, S, cl, ch, sl, dev, s);
+  return launch_d<T, T>(D, heads, q, c, len, out, lse, B, KV, g, S, cl, ch, sl, dev, s);
 }
 
 }  // namespace
@@ -561,10 +576,12 @@ cudaError_t launch_t(bool quant, int D, int heads, const void* q, CacheArgs c, c
 // heads; cluster: CTAs per (sequence, KV head, group), 1..8; chunk: cache
 // rows per bulk copy.  All three come from the wrapper's decode_plan.  The
 // caches must be 16-byte aligned.  quant: the caches are int8 and k_scale /
-// v_scale their f32 (B, KV, S) scales (nullptr otherwise).
+// v_scale their f32 (B, KV, S) scales (nullptr otherwise).  lse: null, or an
+// f32 (B, H) array for each head's log-sum-exp (see the header).
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* k_scale, const void* v_scale,
-                                       const void* lengths, void* out, int B, int H, int KV,
+                                       const void* lengths, void* out, void* lse, int B, int H,
+                                       int KV,
                                        int S, int D, int groups, int cluster, int chunk,
                                        float softmax_scale, int dtype, int quant, int device,
                                        void* stream) {
@@ -579,16 +596,17 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
   if (quant && (k_scale == nullptr || v_scale == nullptr)) return cudaErrorInvalidValue;
   const float sl = softmax_scale * 1.4426950408889634f;
   const int* len = static_cast<const int*>(lengths);
+  float* lf = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const CacheArgs c{k, v, static_cast<const float*>(k_scale), static_cast<const float*>(v_scale)};
   const int heads = H / (KV * groups);
   switch (dtype) {
     case rt::kF32:
-      return launch_t<float>(quant != 0, D, heads, q, c, len, out, B, KV, groups, S, cluster,
-                             chunk, sl, device, s);
+      return launch_t<float>(quant != 0, D, heads, q, c, len, out, lf, B, KV, groups, S,
+                             cluster, chunk, sl, device, s);
     case rt::kBF16:
-      return launch_t<__nv_bfloat16>(quant != 0, D, heads, q, c, len, out, B, KV, groups, S,
-                                     cluster, chunk, sl, device, s);
+      return launch_t<__nv_bfloat16>(quant != 0, D, heads, q, c, len, out, lf, B, KV, groups,
+                                     S, cluster, chunk, sl, device, s);
     default:
       return cudaErrorInvalidValue;
   }

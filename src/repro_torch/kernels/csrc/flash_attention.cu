@@ -2,7 +2,10 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py (_flash_kernel
 // / flash_attention).  q (B, Sq, H, D), k/v (B, Sk, KV, D); query head h reads
-// KV head h / (H/KV); causal keeps q_pos >= k_pos with the diagonal at 0;
+// KV head h / (H/KV); causal keeps k_pos <= q_offset + q_pos, where
+// q_offset >= 0 is the global position of q's row 0 (0 for a whole
+// sequence; a sequence shard's start where q is one, as sequence-parallel
+// prefill keeps it beside the whole k and v; a non-causal call ignores it);
 // output acc / max(l, 1e-30) with an online softmax in f32.  The softmax
 // scale is folded into the scores in the log2 domain (exp2f).
 //
@@ -28,11 +31,13 @@
 //   in 64-byte mode at D = 96 (MLA's qk dim),
 //   since 192 bytes is no multiple of 128, and five 16-column boxes in
 //   32-byte mode at D = 80 (zamba2), since 32 bytes is the widest span that
-//   divides a 160-byte row.  The kv loop stops at the causal diagonal,
+//   divides a 160-byte row.  The kv loop stops at the causal diagonal
+//   (key q_offset + q0 + BQ - 1 for the q-block at row q0),
 //   a warpgroup skips the tiles wholly above its own rows, and only tiles
 //   that cross the diagonal or the Sk tail are masked (TMA zero-fills rows
 //   past Sk, and a zero key scores 0, so k_pos >= Sk is masked explicitly).
-//   q-blocks run heaviest first.  The output is staged through shared
+//   q-blocks run heaviest first (a q-block's cost grows with q_offset + q0,
+//   so the order is the same for any offset).  The output is staged through shared
 //   memory and stored in 16-byte rows; the Sq tail is masked at the store.
 //   P is rounded to bf16 before the PV product (the TPU kernel keeps it in
 //   f32).
@@ -105,7 +110,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
                    float* __restrict__ lse, int ls, int Sq, int Sk, int H, int KV, float scale_log2,
-                   int causal) {
+                   int causal, int q_offset) {
   using L = Layout<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -123,7 +128,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int wg = tid / 128;
   const int warp = (tid % 128) / 32, lane = tid % 32;
   const int wg_row0 = q0 + wg * 64;  // first query row of this warpgroup
-  const int kv_end = causal ? min(Sk, q0 + BQ) : Sk;
+  const int wg_pos0 = q_offset + wg_row0;  // its global position, which the causal mask reads
+  const int kv_end = causal ? min(Sk, q_offset + q0 + BQ) : Sk;
   const int n_tiles = (kv_end + BK - 1) / BK;
 
   const CUtensorMap* maps[2] = {&tk, &tv};
@@ -175,7 +181,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int s = j % kStages;
     const uint32_t parity = (j / kStages) & 1;
     const int k0 = j * BK;
-    if (!causal || k0 <= wg_row0 + 63) {  // warpgroup-uniform
+    if (!causal || k0 <= wg_pos0 + 63) {  // warpgroup-uniform
       const uint32_t k_base = hp::smem_u32(smem + L::K_OFF + s * L::KV_BYTES);
       const uint32_t v_base = hp::smem_u32(smem + L::V_OFF + s * L::KV_BYTES);
       float sc[32];
@@ -194,10 +200,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       hp::wgmma_wait_all();
       hp::fence_regs(sc);
 
-      const bool masked = k0 + BK > Sk || (causal && k0 + BK - 1 > wg_row0);
+      const bool masked = k0 + BK > Sk || (causal && k0 + BK - 1 > wg_pos0);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const int qpos = wg_row0 + r_lo + 8 * i;
+        const int qpos = wg_pos0 + r_lo + 8 * i;
         float mx = -INFINITY;
 #pragma unroll
         for (int c = 0; c < BK / 8; ++c)
@@ -278,8 +284,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int ls,
-                   int B, int Sq, int Sk, int H, int KV, float scale_log2, int causal, int device,
-                   cudaStream_t stream) {
+                   int B, int Sq, int Sk, int H, int KV, float scale_log2, int causal, int q_offset,
+                   int device, cudaStream_t stream) {
   static rt::SmemOptIn optin;
   cudaError_t err = optin.ensure(flash_fwd_sm90<D>, device, Layout<D>::SMEM);
   if (err != cudaSuccess) return err;
@@ -291,7 +297,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   if ((err = hp::make_map<D>(&tv, v, B, Sk, KV, BK)) != cudaSuccess) return err;
   const dim3 grid(H, (Sq + BQ - 1) / BQ, B);
   flash_fwd_sm90<D><<<grid, kThreads, Layout<D>::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, ls, Sq, Sk, H, KV, scale_log2, causal);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, ls, Sq, Sk, H, KV, scale_log2, causal,
+      q_offset);
   return cudaGetLastError();
 }
 
@@ -346,7 +353,8 @@ template <int D, int BQ>
 __global__ void __launch_bounds__(kThreads, Fwd<D, BQ>::kMinBlocks)
     flash_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-                  int ls, int B, int Sq, int Sk, int H, int KV, float scale_log2, int causal) {
+                  int ls, int B, int Sq, int Sk, int H, int KV, float scale_log2, int causal,
+                  int q_offset) {
   using C = Fwd<D, BQ>;
   using W = typename C::O;
   constexpr int LD = C::LD, BK = C::BK, NS = C::NS, LDP = C::LDP, TM = C::TM, TN = C::TN;
@@ -364,10 +372,11 @@ __global__ void __launch_bounds__(kThreads, Fwd<D, BQ>::kMinBlocks)
   const int qb = (Sq + BQ - 1) / BQ - 1 - idx / H;  // long causal rows first
   const int kvh = h / (H / KV);
   const int q0 = qb * BQ;
+  const int pos0 = q_offset + q0;  // the global position of row q0, which the causal mask reads
   const size_t q_stride = static_cast<size_t>(H) * D, kv_stride = static_cast<size_t>(KV) * D;
   const size_t q_off = (static_cast<size_t>(b) * Sq * H + h) * D;
   const size_t kv_off = (static_cast<size_t>(b) * Sk * KV + kvh) * D;
-  const int kv_end = causal ? min(Sk, q0 + BQ) : Sk;
+  const int kv_end = causal ? min(Sk, pos0 + BQ) : Sk;
   const int n_tiles = (kv_end + BK - 1) / BK;
 
   zero_pad<D, C::DC, LD>(Qs, BQ + 2 * NS * BK);  // Q and the K, V stages
@@ -415,10 +424,10 @@ __global__ void __launch_bounds__(kThreads, Fwd<D, BQ>::kMinBlocks)
     mma_nt<TM, TN, 16, 16, C::DC, LD, LD, C::U_S>(s, Qs, Kt, ps);
 
     const int k0 = j * BK;
-    const bool masked = k0 + BK > Sk || (causal && k0 + BK - 1 > q0);
+    const bool masked = k0 + BK > Sk || (causal && k0 + BK - 1 > pos0);
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
-      const int qpos = q0 + ps.x + 16 * i;
+      const int qpos = pos0 + ps.x + 16 * i;
       float mx = -INFINITY;
 #pragma unroll
       for (int c = 0; c < TN; ++c) {
@@ -508,7 +517,7 @@ __global__ void __launch_bounds__(kThreads, Fwd<D, BQ>::kMinBlocks)
 template <int D, int BQ>
 cudaError_t launch_bq(const float* q, const float* k, const float* v, float* o, float* lse, int ls,
                       int B, int Sq, int Sk, int H, int KV, float scale_log2, int causal,
-                      int device, cudaStream_t stream) {
+                      int q_offset, int device, cudaStream_t stream) {
   using C = Fwd<D, BQ>;
   static rt::SmemOptIn optin;
   const cudaError_t err = optin.ensure(flash_fwd_fma<D, BQ>, device, C::SMEM);
@@ -516,14 +525,14 @@ cudaError_t launch_bq(const float* q, const float* k, const float* v, float* o, 
   const long long ctas = static_cast<long long>((Sq + BQ - 1) / BQ) * H * B;
   if (ctas > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   flash_fwd_fma<D, BQ><<<static_cast<unsigned>(ctas), kThreads, C::SMEM, stream>>>(
-      q, k, v, o, lse, ls, B, Sq, Sk, H, KV, scale_log2, causal);
+      q, k, v, o, lse, ls, B, Sq, Sk, H, KV, scale_log2, causal, q_offset);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int ls,
                    int B, int Sq, int Sk, int H, int KV, float scale_log2, int causal,
-                   int block_q, int device, cudaStream_t stream) {
+                   int q_offset, int block_q, int device, cudaStream_t stream) {
   for (const void* p : {q, k, v, static_cast<const void*>(o)})
     if (!rt::aligned16(p)) return cudaErrorMisalignedAddress;
   const auto* qf = static_cast<const float*>(q);
@@ -532,9 +541,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   auto* of = static_cast<float*>(o);
   switch (block_q) {
     case 64:
-      return launch_bq<D, 64>(qf, kf, vf, of, lse, ls, B, Sq, Sk, H, KV, scale_log2, causal, device, stream);
+      return launch_bq<D, 64>(qf, kf, vf, of, lse, ls, B, Sq, Sk, H, KV, scale_log2, causal,
+                              q_offset, device, stream);
     case 32:
-      return launch_bq<D, 32>(qf, kf, vf, of, lse, ls, B, Sq, Sk, H, KV, scale_log2, causal, device, stream);
+      return launch_bq<D, 32>(qf, kf, vf, of, lse, ls, B, Sq, Sk, H, KV, scale_log2, causal,
+                              q_offset, device, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -550,13 +561,14 @@ int smem(int block_q) {
 template <int D>
 cudaError_t launch_dtype(int dtype, const void* q, const void* k, const void* v, void* o,
                          float* lse, int ls, int B, int Sq, int Sk, int H, int KV, float sl,
-                         int causal, int block_q, int device, cudaStream_t s) {
+                         int causal, int qo, int block_q, int device, cudaStream_t s) {
   switch (dtype) {
     case rt::kF32:
-      return simt::launch<D>(q, k, v, o, lse, ls, B, Sq, Sk, H, KV, sl, causal, block_q, device, s);
+      return simt::launch<D>(q, k, v, o, lse, ls, B, Sq, Sk, H, KV, sl, causal, qo, block_q, device,
+                             s);
     case rt::kBF16:
       if (block_q != sm90::BQ) return cudaErrorInvalidValue;
-      return sm90::launch<D>(q, k, v, o, lse, ls, B, Sq, Sk, H, KV, sl, causal, device, s);
+      return sm90::launch<D>(q, k, v, o, lse, ls, B, Sq, Sk, H, KV, sl, causal, qo, device, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -584,33 +596,42 @@ extern "C" int flash_attention_f32_smem(int D, int block_q) {
 // the log2 domain.  bf16 takes the wgmma kernel, f32 the FMA kernel.  lse:
 // null, or an f32 (B, H, ls) array (ls >= Sq) for each row's log-sum-exp.
 // block_q: the q-block height of flash_attention.fwd_plan (128 for bf16; 64
-// or 32 for f32).
+// or 32 for f32).  q_offset: the global position of q's row 0 (>= 0), which
+// the causal mask reads.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       void* lse, int ls, int B, int Sq, int Sk, int H, int KV,
-                                      int D, float softmax_scale, int causal, int dtype,
-                                      int block_q, int device, void* stream) {
+                                      int D, float softmax_scale, int causal, int q_offset,
+                                      int dtype, int block_q, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B == 0 || Sq == 0 || H == 0) return cudaSuccess;
-  if (Sk == 0 || KV == 0 || H % KV != 0 || (lse != nullptr && ls < Sq)) return cudaErrorInvalidValue;
+  if (Sk == 0 || KV == 0 || H % KV != 0 || (lse != nullptr && ls < Sq) || q_offset < 0)
+    return cudaErrorInvalidValue;
   float* lf = static_cast<float*>(lse);
   const float sl = softmax_scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch_dtype<16>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, block_q, device, s);
+      return launch_dtype<16>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, q_offset,
+                              block_q, device, s);
     case 32:
-      return launch_dtype<32>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, block_q, device, s);
+      return launch_dtype<32>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, q_offset,
+                              block_q, device, s);
     case 64:
-      return launch_dtype<64>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, block_q, device, s);
+      return launch_dtype<64>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, q_offset,
+                              block_q, device, s);
     case 80:
-      return launch_dtype<80>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, block_q, device, s);
+      return launch_dtype<80>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, q_offset,
+                              block_q, device, s);
     case 96:
-      return launch_dtype<96>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, block_q, device, s);
+      return launch_dtype<96>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, q_offset,
+                              block_q, device, s);
     case 128:
-      return launch_dtype<128>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, block_q, device, s);
+      return launch_dtype<128>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, q_offset,
+                              block_q, device, s);
     case 192:
-      return launch_dtype<192>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, block_q, device, s);
+      return launch_dtype<192>(dtype, q, k, v, o, lf, ls, B, Sq, Sk, H, KV, sl, causal, q_offset,
+                              block_q, device, s);
     default:
       return cudaErrorInvalidValue;
   }

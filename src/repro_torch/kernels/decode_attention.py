@@ -25,6 +25,13 @@ the int8 rows and the plan sizes the chunks by their 1-byte elements; the
 valid rows' scales ride beside them in a ring of their own, by 4-byte
 asynchronous copies.  Bound: bytes, the valid int8 K and V rows plus 8
 bytes of scales a row, q and the output.
+
+``return_lse=True`` also returns each head's log-sum-exp, (B, H) f32 in the
+log2 domain of the scaled scores (as flash's ``return_lse``), from the
+kernel's own merge: the partial that flash-decoding over a sequence-sharded
+cache merges (``ops.merge_partials``).  A row of length 0 gives out 0 and
+lse ``-inf``, weight 0 in that merge; the flash kernels' ``+inf`` for a row
+with no key serves their backward and is not this convention.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ N_REPS = (1, 2, 3, 4, 6, 8, 12)
 MAX_HEADS_PER_CTA = 8  # query heads whose q and output slices a thread keeps in registers
 
 launches = 0  # kernel launches since the last reset (see ops.reset_launch_counts)
+lse_launches = 0  # those of them that also wrote the log-sum-exp
 
 N_SM = 132  # streaming multiprocessors of an H100 SXM
 MAX_CLUSTER = 8  # the portable thread-block cluster size
@@ -113,8 +121,10 @@ def decode_attention(
     softmax_scale: float | None = None,
     k_scale: torch.Tensor | None = None,  # (B, KV, S) f32, with an int8 cache
     v_scale: torch.Tensor | None = None,
-) -> torch.Tensor:
-    global launches
+    return_lse: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+    """Attention out (B, H, D); with ``return_lse`` also (out, lse)."""
+    global launches, lse_launches
     dev = q.device
     quant = k_cache.dtype == torch.int8
     scales = (k_scale, v_scale) if quant else ()
@@ -144,19 +154,23 @@ def decode_attention(
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     plan = decode_plan(b, kv, s, d, k_cache.element_size(), h // kv)
     out = torch.empty_like(q)
+    lse = torch.empty(b, h, dtype=torch.float32, device=dev) if return_lse else None
     fn = _build.function(
         "decode_attention",
         "decode_attention_launch",
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float]
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float]
         + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     )
     err = fn(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
-        lengths.data_ptr(), out.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), lse.data_ptr() if return_lse else None,
         b, h, kv, s, d, plan.groups, plan.cluster, plan.chunk, scale, _build.DTYPES[q.dtype],
         int(quant), dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("decode_attention", err)
     launches += 1
+    if return_lse:
+        lse_launches += 1
+        return out, lse
     return out

@@ -23,6 +23,11 @@ REDUCED MLA config) is zero-padded to 32 here and the output sliced back:
 zero columns add nothing to QK^T and give zero output columns.  Any other D
 raises.
 
+``q_offset`` is the global position of q's row 0, which the causal mask
+reads (k_pos <= q_offset + q_pos): a sequence shard of q beside the whole k
+and v, as sequence-parallel prefill keeps it.  A non-causal call ignores
+it.  Only the forward takes it: the backward's mask stays at diagonal 0.
+
 ``return_lse=True`` also returns each row's log-sum-exp, (B, H, Sq) f32 in
 the log2 domain of the scaled scores (``ref.flash_attention_lse_ref``); only
 the training path asks for it.  Its storage rows are ``lse_stride(Sq)`` long
@@ -54,6 +59,7 @@ SMEM_SM = 228 * 1024  # shared memory of an H100 SM (1 KB of it reserved per CTA
 SMEM_CTA = 227 * 1024  # shared memory a CTA can have
 
 launches = 0  # kernel launches since the last reset (see ops.reset_launch_counts)
+offset_launches = 0  # those of them with a query offset above 0
 bwd_launches = 0  # the same, of the backward kernel
 
 
@@ -65,10 +71,13 @@ def flash_attention(
     causal: bool = True,
     softmax_scale: float | None = None,
     return_lse: bool = False,
+    q_offset: int = 0,
 ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Attention out (B, Sq, H, D); with ``return_lse`` also (out, lse)."""
-    global launches
+    global launches, offset_launches
     _check(q, k, v)
+    if q_offset < 0:
+        raise ValueError(f"flash kernel needs q_offset >= 0, got {q_offset}")
     b, sq, h, d = q.shape
     _, sk, kv, _ = k.shape
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
@@ -85,16 +94,19 @@ def flash_attention(
         "flash_attention",
         "flash_attention_launch",
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     )
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if return_lse else None, ls,
-        b, sq, sk, h, kv, q.shape[3], scale, int(causal), _build.DTYPES[q.dtype], plan.block_q,
+        b, sq, sk, h, kv, q.shape[3], scale, int(causal), int(q_offset), _build.DTYPES[q.dtype],
+        plan.block_q,
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check("flash_attention", err)
     launches += 1
+    if q_offset:
+        offset_launches += 1
     out = out[..., :d]  # a padded D's zero columns dropped; else the whole of out
     return (out, lse[..., :sq]) if return_lse else out
 

@@ -25,21 +25,36 @@ kernel or plain version on this rank's block, above that choice: the inputs
 are first redistributed to a layout the op can run block by block, and the
 result is wrapped back as a DTensor.  ``rmsnorm`` keeps x's batch and
 sequence shards (it reduces over the last dimension, which the rules never
-shard) and gathers ``w``.  The attentions keep batch and head shards; a
-sharded sequence (q's, or the cache's) is gathered, because the kernels
-take no query offset and no partial softmax statistics to combine.  Under
-GQA the rules may shard q's heads over an axis that does not divide the KV
-heads, which then stay whole: the local q head ``h`` is global head
-``offset + h``, so each rank slices the KV heads its q heads read.  A
-replicated operand whose block-wise gradient differs per rank (``w`` beside
-a sharded x, the sliced KV heads) receives a partial gradient, summed over
-that mesh axis by autograd.  Plain tensors beside DTensors count as
-replicated.
+shard) and gathers ``w``.  The attentions keep batch and head shards, and
+sequence shards thus:
+
+* decode keeps the cache's sequence shard (flash-decoding): on that mesh
+  dim q, a few KB a layer, is gathered instead; each rank runs the kernel
+  over its own slice of the cache (its int8 scales beside it) with its
+  lengths cut to the slice, then one all-gather of every slice's (out, lse)
+  and an exact merge in f32 (``merge_partials``, one reduction over the
+  slices) give each rank the same bits, and out takes q's placement back.
+  A slice with no key of a row (past its length, or an uneven shard's
+  empty tail) has weight 0.
+* the flash forward keeps q's sequence shard beside the whole k and v
+  (gathered), its block start the query offset, where no gradient is
+  needed (every serving prefill).  Under autograd q is gathered as well,
+  because the backward kernel takes no offset.
+
+Nothing falls back to the gathered layout: a kernel or the merge that
+fails raises.  Under GQA the rules may shard q's heads over an axis that
+does not divide the KV heads, which then stay whole: the local q head ``h``
+is global head ``offset + h``, so each rank slices the KV heads its q heads
+read.  A replicated operand whose block-wise gradient differs per rank
+(``w`` beside a sharded x, the sliced KV heads) receives a partial
+gradient, summed over that mesh axis by autograd.  Plain tensors beside
+DTensors count as replicated.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Iterator
 
 import torch
@@ -138,20 +153,33 @@ def _rmsnorm_blocks(x, w, eps, impl):
     return sh.from_block(out, mesh, x_pl, x.shape)
 
 
-def _attention_layout(q, kvs, q_heads: int, kv_heads: int):
+def _attention_layout(q, kvs, q_heads: int, kv_heads: int, *, q_seq: int | None = None,
+                      kv_seq: int | None = None):
     """Placements that let attention run block by block: per mesh dimension,
-    a batch shard of q is kept (the KV side follows it), a head shard of q
-    is kept with the KV side's head shard where both divide evenly, else the
-    KV side is replicated; anything else (a sequence shard, a partial) is
-    gathered.  Returns (q's, the KV side's, the mesh dims whose KV heads are
-    replicated beside q's head shard)."""
+    a batch shard of q is kept (the KV side follows it); with ``q_seq``, a
+    sequence shard of q (that dim) is kept beside the whole KV side, placed
+    by a query offset; with ``kv_seq``, a sequence shard of the KV side (that
+    dim) is kept beside the whole q, its slices' partials merged; a head
+    shard of q is kept with the KV side's head shard where both divide
+    evenly, else the KV side is replicated; anything else (a sequence shard
+    not kept, a partial) is gathered.  Returns (q's, the KV side's, the mesh
+    dims whose KV heads are replicated beside q's head shard, the mesh dims
+    that keep a sequence shard)."""
     _, Replicate, Shard = sh.placement_types()
     sizes = q.device_mesh.shape
-    q_pl, kv_pl, sliced = [], [], []
+    q_pl, kv_pl, sliced, seq = [], [], [], []
     for i, pq in enumerate(q.placements):
         if pq.is_shard(0):
             q_pl.append(Shard(0))
             kv_pl.append(Shard(0))
+        elif q_seq is not None and pq.is_shard(q_seq):
+            q_pl.append(Shard(q_seq))
+            kv_pl.append(Replicate())
+            seq.append(i)
+        elif kv_seq is not None and all(t.placements[i].is_shard(kv_seq) for t in kvs):
+            q_pl.append(Replicate())
+            kv_pl.append(Shard(kv_seq))
+            seq.append(i)
         elif pq.is_shard(q_heads) and q.shape[q_heads] % sizes[i] == 0:
             q_pl.append(Shard(q_heads))
             even = all(t.placements[i].is_shard(kv_heads) for t in kvs) and \
@@ -162,7 +190,7 @@ def _attention_layout(q, kvs, q_heads: int, kv_heads: int):
         else:
             q_pl.append(Replicate())
             kv_pl.append(Replicate())
-    return q_pl, kv_pl, sliced
+    return q_pl, kv_pl, sliced, seq
 
 
 def _kv_heads_for(q, q_pl, kv, kv_pl, q_heads: int, kv_heads: int) -> slice | list[int]:
@@ -183,38 +211,97 @@ def _kv_heads_for(q, q_pl, kv, kv_pl, q_heads: int, kv_heads: int) -> slice | li
     return heads
 
 
-def _flash_blocks(q, k, v, causal, softmax_scale, impl):
+def _flash_blocks(q, k, v, causal, softmax_scale, q_offset, impl):
+    """A forward that needs no gradient keeps q's sequence shard beside the
+    whole k and v, its block start the query offset; under autograd q is
+    gathered, since the backward kernel takes no offset."""
     Partial, Replicate, _ = sh.placement_types()
     mesh = _mesh_of(q, k, v)
     q, k, v = (sh.as_dtensor(t, mesh) for t in (q, k, v))
-    q_pl, kv_pl, sliced = _attention_layout(q, (k, v), 2, 2)
+    q_pl, kv_pl, sliced, _ = _attention_layout(
+        q, (k, v), 2, 2, q_seq=None if _needs_grad(q, k, v) else 1)
     q, k, v = sh.redistributed(q, q_pl), sh.redistributed(k, kv_pl), sh.redistributed(v, kv_pl)
     grad_pl = [Partial() if i in sliced else p for i, p in enumerate(kv_pl)]
     heads = _kv_heads_for(q, q_pl, k, kv_pl, 2, 2)
     kl, vl = (t.to_local(grad_placements=grad_pl)[:, :, heads] for t in (k, v))
+    start = sh.local_block(tuple(q.shape), mesh, tuple(q_pl))[1].start
     out = flash_attention(q.to_local(), kl.contiguous(), vl.contiguous(), causal=causal,
-                          softmax_scale=softmax_scale, impl=impl)
+                          softmax_scale=softmax_scale, q_offset=q_offset + start, impl=impl)
     return sh.from_block(out, mesh, q_pl, (*q.shape[:3], v.shape[3]))
 
 
+def merge_partials(outs: torch.Tensor, lses: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The exact softmax attention over a whole cache from the partials of
+    its n slices: ``outs`` (n, ..., D) each slice's output, ``lses`` (n, ...)
+    each slice's log-sum-exp in the log2 domain, ``-inf`` where the slice
+    holds no key of the row (``decode_attention(..., return_lse=True)``).
+    In f32, as one reduction over the slices' dim whatever their number, so
+    that every rank holding the same partials holds the same bits (the same
+    kernels on the same data): m = max lse, w_i = 2^(lse_i - m), out = sum
+    w_i out_i / sum w_i, lse = m + log2(sum w_i).  A row with no key in any
+    slice gives out 0 and lse -inf.  Returns (out f32, lse)."""
+    lses = lses.float()
+    m = lses.amax(dim=0)
+    m_use = torch.where(m == float("-inf"), 0.0, m)
+    w = torch.exp2(lses - m_use)  # 0 for a slice with no key of the row
+    den = w.sum(dim=0)
+    num = (w[..., None] * outs.float()).sum(dim=0)
+    lse = torch.where(den > 0, m_use + torch.log2(den), float("-inf"))
+    return num / den.clamp_min(1e-30)[..., None], lse
+
+
+def _decode_slice(q, kc, vc, lengths, impl, **kw):
+    """(out, lse) over one cache slice; a slice of no rows (an uneven
+    sequence shard's tail) holds no key."""
+    if kc.shape[2] == 0:
+        return torch.zeros_like(q), torch.full(q.shape[:2], float("-inf"), device=q.device)
+    return decode_attention(q, kc, vc, lengths, impl=impl, return_lse=True, **kw)
+
+
+def _gathered_partials(out, lse, mesh, q_pl, seq, shape):
+    """Every rank's (out, lse) over its cache slice for this rank's rows
+    and heads, stacked in rank order along the mesh dims ``seq``: one
+    all-gather of (out, lse) in f32, a few KB a layer."""
+    _, Replicate, Shard = sh.placement_types()
+    part = torch.cat([out.float(), lse[..., None]], dim=-1)[None]
+    pl = [Shard(0) if i in seq else Shard(p.dim + 1) if p.is_shard() else Replicate()
+          for i, p in enumerate(q_pl)]
+    n = math.prod(mesh.size(i) for i in seq)
+    full = sh.from_block(part, mesh, pl, (n, *shape[:2], shape[2] + 1))
+    whole = sh.redistributed(full, [Replicate() if i in seq else p for i, p in enumerate(pl)])
+    whole = whole.to_local()
+    return whole[..., :-1], whole[..., -1]
+
+
 def _decode_blocks(q, k_cache, v_cache, lengths, kw, impl):
+    """On a mesh dim that shards the cache's sequence (flash-decoding): q is
+    gathered there instead, each rank runs the kernel over its own cache
+    slice with its lengths cut to it, and the slices' (out, lse) are merged
+    exactly (``merge_partials``); out then takes q's placement back."""
     _, Replicate, Shard = sh.placement_types()
     mesh = _mesh_of(q, k_cache, v_cache)
     q, k_cache, v_cache, lengths = (sh.as_dtensor(t, mesh) for t in (q, k_cache, v_cache, lengths))
     scales = {n: sh.as_dtensor(kw[n], mesh) for n in ("k_scale", "v_scale") if kw.get(n) is not None}
-    q_pl, kv_pl, _ = _attention_layout(q, (k_cache, v_cache), 1, 1)
+    q_own = tuple(q.placements)
+    q_pl, kv_pl, _, seq = _attention_layout(q, (k_cache, v_cache), 1, 1, kv_seq=2)
     b_pl = [Shard(0) if p.is_shard(0) else Replicate() for p in q_pl]
     q, lengths = sh.redistributed(q, q_pl), sh.redistributed(lengths, b_pl)
     k_cache, v_cache = sh.redistributed(k_cache, kv_pl), sh.redistributed(v_cache, kv_pl)
     heads = _kv_heads_for(q, q_pl, k_cache, kv_pl, 1, 1)
     local = {n: sh.redistributed(t, kv_pl).to_local()[:, heads].contiguous()
              for n, t in scales.items()}
-    out = decode_attention(
-        q.to_local(), k_cache.to_local()[:, heads].contiguous(),
-        v_cache.to_local()[:, heads].contiguous(),
-        lengths.to_local(), softmax_scale=kw.get("softmax_scale"), impl=impl,
-        k_scale=local.get("k_scale"), v_scale=local.get("v_scale"))
-    return sh.from_block(out, mesh, q_pl, q.shape)
+    args = (q.to_local(), k_cache.to_local()[:, heads].contiguous(),
+            v_cache.to_local()[:, heads].contiguous(), lengths.to_local())
+    kw = dict(softmax_scale=kw.get("softmax_scale"), k_scale=local.get("k_scale"),
+              v_scale=local.get("v_scale"))
+    if not seq:
+        return sh.from_block(decode_attention(*args, impl=impl, **kw), mesh, q_pl, q.shape)
+    rows = sh.local_block(tuple(k_cache.shape), mesh, tuple(kv_pl))[2]
+    lens = (args[3] - rows.start).clamp(0, rows.stop - rows.start).to(torch.int32)
+    out, lse = _decode_slice(*args[:3], lens, impl, **kw)
+    out, _ = merge_partials(*_gathered_partials(out, lse, mesh, q_pl, seq, q.shape))
+    out_pl = [q_own[i] if i in seq and q_own[i].is_shard() else p for i, p in enumerate(q_pl)]
+    return sh.redistributed(sh.from_block(out.to(q.dtype), mesh, q_pl, q.shape), out_pl)
 
 
 # ---------------------------------------------------------------------------
@@ -239,15 +326,23 @@ def flash_attention(
     *,
     causal: bool = True,
     softmax_scale: float | None = None,
+    q_offset: int = 0,
     impl: str | None = None,
 ):
+    """``q_offset``: the global position of q's row 0, which the causal mask
+    reads (a sequence shard of q beside the whole k and v); the kernel path
+    takes it only where no gradient is needed."""
     if any(sh.is_dtensor(t) for t in (q, k, v)):
-        return _flash_blocks(q, k, v, causal, softmax_scale, impl)
+        return _flash_blocks(q, k, v, causal, softmax_scale, q_offset, impl)
     if _use_kernel(impl, q):
         if _needs_grad(q, k, v):
+            if q_offset and causal:
+                raise ValueError("flash backward kernel takes no query offset")
             return _FlashAttention.apply(q, k, v, causal, softmax_scale)
-        return _flash.flash_attention(q, k, v, causal=causal, softmax_scale=softmax_scale)
-    return ref.flash_attention_ref(q, k, v, causal=causal, softmax_scale=softmax_scale)
+        return _flash.flash_attention(q, k, v, causal=causal, softmax_scale=softmax_scale,
+                                      q_offset=q_offset)
+    return ref.flash_attention_ref(q, k, v, causal=causal, softmax_scale=softmax_scale,
+                                   q_offset=q_offset)
 
 
 def decode_attention(
@@ -259,12 +354,18 @@ def decode_attention(
     softmax_scale: float | None = None,
     k_scale: torch.Tensor | None = None,
     v_scale: torch.Tensor | None = None,
+    return_lse: bool = False,
     impl: str | None = None,
 ):
-    """``k_scale``/``v_scale``: the (B, KV, S) scales of an int8 cache."""
+    """``k_scale``/``v_scale``: the (B, KV, S) scales of an int8 cache.
+    ``return_lse`` (plain tensors): also each head's log-sum-exp, (B, H)
+    f32, ``-inf`` for a row of length 0 (``decode_attention.decode_attention``)."""
     kw = dict(softmax_scale=softmax_scale, k_scale=k_scale, v_scale=v_scale)
     if any(sh.is_dtensor(t) for t in (q, k_cache, v_cache)):
+        if return_lse:
+            raise ValueError("decode_attention: return_lse takes plain tensors, not DTensors")
         return _decode_blocks(q, k_cache, v_cache, lengths, kw, impl)
+    kw["return_lse"] = return_lse
     if _use_kernel(impl, q):
         return _decode.decode_attention(q, k_cache, v_cache, lengths, **kw)
     return ref.decode_attention_ref(q, k_cache, v_cache, lengths, **kw)
@@ -280,13 +381,28 @@ KERNELS = {
 }
 
 
+# variant name -> (wrapper module, its counter): the launches of a kernel
+# above that also take an option of sequence-sharded serving (each also
+# counts under the kernel's own name)
+VARIANTS = {
+    "decode_attention_lse": (_decode, "lse_launches"),
+    "flash_attention_q_offset": (_flash, "offset_launches"),
+}
+_COUNTERS = {**KERNELS, **VARIANTS}
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches per kernel since the last reset."""
     return {name: getattr(mod, attr) for name, (mod, attr) in KERNELS.items()}
 
 
+def variant_counts() -> dict[str, int]:
+    """Launches per variant (``VARIANTS``) since the last reset."""
+    return {name: getattr(mod, attr) for name, (mod, attr) in VARIANTS.items()}
+
+
 def reset_launch_counts() -> None:
-    for mod, attr in KERNELS.values():
+    for mod, attr in _COUNTERS.values():
         setattr(mod, attr, 0)
 
 
@@ -303,12 +419,12 @@ def uncounted() -> Iterator[dict[str, int]]:
     """Launches inside the block leave the counters as they were.  The
     yielded dict receives, at the block's end, the launches made inside it
     (a graph capture's: the kernels each replay will launch)."""
-    before = launch_counts()
+    before = {name: getattr(mod, attr) for name, (mod, attr) in _COUNTERS.items()}
     inside: dict[str, int] = {}
     try:
         yield inside
     finally:
         after = launch_counts()
         inside.update({k: after[k] - before[k] for k in after})
-        for name, (mod, attr) in KERNELS.items():
+        for name, (mod, attr) in _COUNTERS.items():
             setattr(mod, attr, before[name])

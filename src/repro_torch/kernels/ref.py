@@ -22,9 +22,11 @@ from repro_torch.models.layers import rmsnorm as rmsnorm_ref  # noqa: F401  (the
 _LOG2E = 1.4426950408889634
 
 
-def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool, softmax_scale: float | None) -> torch.Tensor:
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool, softmax_scale: float | None,
+            q_offset: int = 0) -> torch.Tensor:
     """scale Q K^T in f32, (B, H, Sq, Sk), -inf where the causal mask drops a
-    key (k_pos > q_pos); GQA's KV heads repeated over their query heads."""
+    key (k_pos > q_offset + q_pos); GQA's KV heads repeated over their query
+    heads."""
     sq, h, d = q.shape[1:]
     sk, kv = k.shape[1:3]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
@@ -32,7 +34,8 @@ def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool, softmax_scale: float
     kr = k.float().transpose(1, 2).repeat_interleave(h // kv, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kr) * scale
     if causal:
-        keep = torch.arange(sq, device=q.device)[:, None] >= torch.arange(sk, device=q.device)[None, :]
+        keep = (torch.arange(sq, device=q.device)[:, None] + q_offset
+                >= torch.arange(sk, device=q.device)[None, :])
         s = s.masked_fill(~keep, float("-inf"))
     return s
 
@@ -44,8 +47,12 @@ def flash_attention_ref(
     *,
     causal: bool = True,
     softmax_scale: float | None = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
-    return attention_reference(q, k, v, causal=causal, softmax_scale=softmax_scale)
+    """``q_offset``: the global position of q's row 0, which the causal mask
+    reads (``flash_attention.flash_attention``'s)."""
+    return attention_reference(q, k, v, causal=causal, softmax_scale=softmax_scale,
+                               q_offset=q_offset)
 
 
 def flash_attention_lse_ref(
@@ -54,12 +61,14 @@ def flash_attention_lse_ref(
     *,
     causal: bool = True,
     softmax_scale: float | None = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
-    """Each row's log-sum-exp in the kernels' convention, (B, H, Sq) f32: the
-    log2 domain of the scaled scores, log2(sum_k 2^(s_k log2(e))) with s =
-    scale Q K^T, the causal mask keeping k_pos <= q_pos; +inf for a row with
-    no valid key (its P is then 0)."""
-    lse = torch.logsumexp(_scores(q, k, causal, softmax_scale), dim=-1) * _LOG2E
+    """Each row's log-sum-exp in the flash kernels' convention, (B, H, Sq)
+    f32: the log2 domain of the scaled scores, log2(sum_k 2^(s_k log2(e)))
+    with s = scale Q K^T, the causal mask keeping k_pos <= q_offset + q_pos;
+    +inf for a row with no valid key (its P is then 0, as the backward
+    rebuilds it)."""
+    lse = torch.logsumexp(_scores(q, k, causal, softmax_scale, q_offset), dim=-1) * _LOG2E
     return lse.masked_fill(lse == float("-inf"), float("inf"))
 
 
@@ -72,9 +81,36 @@ def decode_attention_ref(
     softmax_scale: float | None = None,
     k_scale: torch.Tensor | None = None,  # (B, KV, S) f32, with an int8 cache
     v_scale: torch.Tensor | None = None,
-) -> torch.Tensor:
-    return decode_attention_reference(q, k_cache, v_cache, lengths, softmax_scale=softmax_scale,
-                                      k_scale=k_scale, v_scale=v_scale)
+    return_lse: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+    """The model's decode oracle; with ``return_lse`` the kernel's
+    arithmetic step by step in f32 instead, and (out, lse) as the kernel
+    gives them: s = scale q.k (times k_scale) in the log2 domain, m its max
+    over the valid rows, p = 2^(s - m), l = sum p, out = sum (p v_scale) v /
+    l, lse = m + log2(l) (B, H); a row of length 0 gives out 0 and lse -inf,
+    weight 0 where ``ops.merge_partials`` merges the partials of cache
+    slices.  (Without it, the oracle averages V over a row of length 0.)"""
+    if not return_lse:
+        return decode_attention_reference(q, k_cache, v_cache, lengths,
+                                          softmax_scale=softmax_scale, k_scale=k_scale,
+                                          v_scale=v_scale)
+    b, h, d = q.shape
+    _, kv, s, _ = k_cache.shape
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
+    qf = q.float().reshape(b, kv, h // kv, d)
+    sc = torch.einsum("bgrd,bgsd->bgrs", qf, k_cache.float()) * (scale * _LOG2E)
+    if k_scale is not None:
+        sc = sc * k_scale.float()[:, :, None, :]
+    valid = torch.arange(s, device=q.device)[None, :] < lengths[:, None].long()  # (B, S)
+    sc = sc.masked_fill(~valid[:, None, None, :], float("-inf"))
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.exp2(sc - torch.where(m == float("-inf"), 0.0, m))  # masked: 0
+    l = p.sum(dim=-1)
+    if v_scale is not None:
+        p = p * v_scale.float()[:, :, None, :]
+    out = torch.einsum("bgrs,bgsd->bgrd", p, v_cache.float()) / l.clamp_min(1e-30)[..., None]
+    lse = torch.where(l > 0, m[..., 0] + torch.log2(l), float("-inf"))
+    return out.reshape(b, h, d).to(q.dtype), lse.reshape(b, h)
 
 
 

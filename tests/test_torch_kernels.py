@@ -1071,3 +1071,93 @@ def test_rmsnorm_forward_every_width(cuda, d, n, dt):
     off = flat[2:].view(n, d)  # 4 (bf16) or 8 (f32) bytes past the allocation's alignment
     off.copy_(x)
     _close(ops.rmsnorm(off, w, impl="kernel"), ref.rmsnorm_ref(x, w), dt)
+
+
+# ---------------------------------------------------------------------------
+# Sequence-sharded serving: the decode kernel's lse, the flash forward's
+# query offset (the CPU tests of the merge and the offset are in
+# tests/test_torch_shards.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("b,s,h,kv,d", [(5, 600, 8, 2, 128), (5, 300, 12, 2, 192), (5, 150, 4, 4, 64)])
+def test_decode_kernel_lse(cuda, b, s, h, kv, d, quant, dt):
+    """``return_lse``: the kernel's (out, lse) against the plain version's
+    step-by-step f32 (out, lse), over lengths 0, S, 1, one chunk + 1 and
+    ragged, in bf16 and int8 with an f32 or bf16 q; a row of length 0 gives
+    out 0 and lse -inf; the out is the bits of the call without lse."""
+    chunk = decode_plan(b, kv, s, d, 1 if quant else (2 if dt == "bf16" else 4), h // kv).chunk
+    _, (q, k, v) = _inputs(70, [(b, h, d), (b, kv, s, d), (b, kv, s, d)], dt, cuda)
+    scales = {}
+    if quant:
+        k, v, ks, vs = _int8_cache(71, b, kv, s, d, cuda)
+        scales = {"k_scale": ks, "v_scale": vs}
+    lens = torch.tensor([0, s, 1, chunk + 1, s * 2 // 3], dtype=torch.int32, device=cuda)
+    out, lse = ops.decode_attention(q, k, v, lens, return_lse=True, impl="kernel", **scales)
+    assert torch.equal(out, ops.decode_attention(q, k, v, lens, impl="kernel", **scales))
+    want, want_lse = ref.decode_attention_ref(q, k, v, lens, return_lse=True, **scales)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    assert lse.shape == (b, h) and lse.dtype == torch.float32
+    assert bool((lse[0] == float("-inf")).all()) and bool(lse[1:].isfinite().all())
+    _close(out, want, dt)
+    _close(lse[1:], want_lse[1:], "f32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("n", [4, 16])
+def test_decode_kernel_slices_merged(cuda, n, quant, dt):
+    """The cache cut into n sequence slices, the kernel with lse over each
+    (its lengths cut to it), merged by ``ops.merge_partials``: the whole
+    call's out, within the reference's tolerance; lengths that end inside
+    the first slice leave the later ones empty."""
+    b, s, h, kv, d = 4, 4096, 32, 8, 128
+    _, (q, k, v) = _inputs(72, [(b, h, d), (b, kv, s, d), (b, kv, s, d)], dt, cuda)
+    scales = {}
+    if quant:
+        k, v, ks, vs = _int8_cache(73, b, kv, s, d, cuda)
+        scales = {"k_scale": ks, "v_scale": vs}
+    lens = torch.tensor([s, 3000, s // n - 5, 1], dtype=torch.int32, device=cuda)
+    whole = ops.decode_attention(q, k, v, lens, impl="kernel", **scales)
+    outs, lses = [], []
+    for i in range(n):
+        a, e = i * s // n, (i + 1) * s // n
+        cut = {key: t[:, :, a:e].contiguous() for key, t in scales.items()}
+        o, l = ops.decode_attention(q, k[:, :, a:e].contiguous(), v[:, :, a:e].contiguous(),
+                                    (lens - a).clamp(0, e - a).int(), return_lse=True,
+                                    impl="kernel", **cut)
+        outs.append(o)
+        lses.append(l)
+    out, _ = ops.merge_partials(torch.stack(outs), torch.stack(lses))
+    _close(out, whole, dt)
+    _close(out, ref.decode_attention_ref(q, k, v, lens, **scales), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,s,sk,h,kv,d", [(1, 512, 512, 32, 8, 128), (2, 300, 300, 8, 2, 96),
+                                          (1, 700, 700, 16, 16, 64), (2, 200, 333, 8, 2, 64)])
+def test_flash_kernel_q_offset_blocks(cuda, b, s, sk, h, kv, d, causal, dt):
+    """q cut into 4 row blocks (uneven), each through the kernel at its
+    offset with its lse, concatenated: the whole call's out and lse, and
+    the plain version's at each offset."""
+    from repro_torch.kernels import flash_attention as flash
+
+    _, (q, k, v) = _inputs(74, [(b, s, h, d), (b, sk, kv, d), (b, sk, kv, d)], dt, cuda)
+    cuts = [0, s // 5, s // 2, s - 37, s]
+    whole, whole_lse = flash.flash_attention(q, k, v, causal=causal, return_lse=True)
+    outs, lses = [], []
+    for a, e in zip(cuts, cuts[1:]):
+        qb = q[:, a:e].contiguous()
+        o, l = flash.flash_attention(qb, k, v, causal=causal, return_lse=True, q_offset=a)
+        _close(o, ref.flash_attention_ref(qb, k, v, causal=causal, q_offset=a), dt)
+        _close(l, ref.flash_attention_lse_ref(qb, k, causal=causal, q_offset=a), "f32")
+        outs.append(o)
+        lses.append(l)
+    _close(torch.cat(outs, dim=1), whole, dt)
+    _close(torch.cat(lses, dim=2), whole_lse, "f32")

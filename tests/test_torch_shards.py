@@ -1,0 +1,231 @@
+"""Sequence-sharded attention in the port, piece by piece, against the JAX
+package on the CPU: the plain decode with its log-sum-exp over cache slices
+merged by ``ops.merge_partials`` (flash-decoding), the plain flash forward
+with a query offset row block by row block, and the dry-run's gathers.
+
+Inputs come from numpy seeds and go to both sides.  Tolerances are the
+reference's (tests/test_kernels.py:16-17): f32 3e-5, bf16 2e-2.
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.models import layers as JL  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.models import kvcache  # noqa: E402
+
+SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
+TOL = {"f32": dict(atol=3e-5, rtol=3e-5), "bf16": dict(atol=2e-2, rtol=2e-2)}
+DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
+# cuts of a 40-row cache into slices: even, uneven, with empty slices (a
+# block start past every length, and a zero-row tail as a ceil split of 40
+# over 6 gives no such thing but a hand cut does)
+CUTS = {"even4": [0, 10, 20, 30, 40], "uneven": [0, 7, 19, 20, 33, 40],
+        "empty": [0, 5, 5, 12, 40, 40]}
+LENGTHS = [40, 12, 5, 0, 1, 33]  # the last rows: one of length 0, one ending in the first slice
+
+
+def _decode_inputs(seed, dt, quant, b=6, h=8, kv=2, s=40, d=32):
+    """(torch q, k, v, k_scale, v_scale, lengths) and the same for JAX."""
+    rng = np.random.default_rng(seed)
+    td, jd = DTYPES[dt]
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    kf = rng.standard_normal((b, kv, s, d)).astype(np.float32)
+    vf = rng.standard_normal((b, kv, s, d)).astype(np.float32)
+    lens = np.asarray(LENGTHS[:b], np.int32)
+    tq = torch.from_numpy(q).to(td)
+    if quant:
+        k, ks = kvcache.quantize_kv(torch.from_numpy(kf))
+        v, vs = kvcache.quantize_kv(torch.from_numpy(vf))
+        tk, tv, tks, tvs = k, v, ks, vs
+    else:
+        tk, tv, tks, tvs = torch.from_numpy(kf).to(td), torch.from_numpy(vf).to(td), None, None
+    jx = [jnp.asarray(q, jd)] + [jnp.asarray(t.numpy()) if t.dtype == torch.int8 else
+                                  jnp.asarray(t.float().numpy(), jd) for t in (tk, tv)]
+    jscales = {} if not quant else {"k_scale": jnp.asarray(tks.numpy()), "v_scale": jnp.asarray(tvs.numpy())}
+    return (tq, tk, tv, tks, tvs, torch.from_numpy(lens)), (jx, jscales, jnp.asarray(lens))
+
+
+def _merged_decode(q, k, v, ks, vs, lens, cuts):
+    """The plain decode with lse over each slice [a, b) of the cache, its
+    lengths cut to the slice, merged."""
+    outs, lses = [], []
+    for a, b in zip(cuts, cuts[1:]):
+        sl = (slice(None), slice(None), slice(a, b))
+        scales = {} if ks is None else {"k_scale": ks[sl].contiguous(), "v_scale": vs[sl].contiguous()}
+        part = (lens - a).clamp(0, b - a).to(torch.int32)
+        o, lse = ops._decode_slice(q, k[sl].contiguous(), v[sl].contiguous(), part, "ref", **scales)
+        outs.append(o)
+        lses.append(lse)
+    return ops.merge_partials(torch.stack(outs), torch.stack(lses))
+
+
+def _lse_f64(q, k, ks, lens):
+    """Each head's log2-sum-exp of the scaled scores over its valid rows, in
+    f64 with numpy (-inf for a row of length 0)."""
+    qf, kf = q.double().numpy(), k.double().numpy()
+    b, h, d = qf.shape
+    kv = kf.shape[1]
+    s = np.einsum("bgrd,bgsd->bgrs", qf.reshape(b, kv, h // kv, d), kf) / math.sqrt(d)
+    if ks is not None:
+        s = s * ks.double().numpy()[:, :, None, :]
+    out = np.full((b, h), -np.inf)
+    for i, n in enumerate(lens.tolist()):
+        if n:
+            row = s[i, :, :, :n].reshape(h, n)
+            m = row.max(-1, keepdims=True)
+            out[i] = (m[:, 0] + np.log(np.exp(row - m).sum(-1))) / math.log(2)
+    return out
+
+
+@pytest.mark.parametrize("cut", list(CUTS))
+@pytest.mark.parametrize("dt,quant", [("f32", False), ("bf16", False), ("f32", True), ("bf16", True)])
+def test_decode_slices_merged_match_jax(dt, quant, cut):
+    """Slices merged = JAX's decode_attention_reference over the whole
+    cache (int8 with its scales too); rows of length 0 give out 0 and lse
+    -inf, as the kernel does (the reference averages V there); the merged
+    lse is the whole cache's, against numpy in f64."""
+    (q, k, v, ks, vs, lens), (jx, jscales, jlens) = _decode_inputs(1, dt, quant)
+    out, lse = _merged_decode(q, k, v, ks, vs, lens, CUTS[cut])
+    want = np.asarray(JL.decode_attention_reference(*jx, jlens, **jscales).astype(jnp.float32))
+    live = lens.numpy() > 0
+    np.testing.assert_allclose(out.numpy()[live], want[live], **TOL[dt])
+    assert torch.equal(out[~torch.from_numpy(live)], torch.zeros_like(out[~torch.from_numpy(live)]))
+    want_lse = _lse_f64(q, k, ks, lens)
+    assert np.array_equal(np.isinf(lse.numpy()), ~live[:, None].repeat(q.shape[1], 1))
+    np.testing.assert_allclose(lse.numpy()[live], want_lse[live], **TOL["f32"])
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_lse_of_the_whole_cache(quant):
+    """The plain decode's (out, lse) over the whole cache: out is the
+    model's oracle's (where the length is not 0), lse the f64 one, and one
+    slice merged alone gives both back."""
+    (q, k, v, ks, vs, lens), _ = _decode_inputs(2, "f32", quant)
+    scales = {} if ks is None else {"k_scale": ks, "v_scale": vs}
+    out, lse = ops.decode_attention(q, k, v, lens, return_lse=True, **scales)
+    live = lens > 0
+    torch.testing.assert_close(out[live], ref.decode_attention_ref(q, k, v, lens, **scales)[live],
+                               **TOL["f32"])
+    np.testing.assert_allclose(lse.numpy()[live.numpy()], _lse_f64(q, k, ks, lens)[live.numpy()],
+                               **TOL["f32"])
+    one, one_lse = ops.merge_partials(out[None], lse[None])
+    torch.testing.assert_close(one[live], out[live], atol=1e-6, rtol=1e-6)
+    assert torch.equal(one_lse.isinf(), lse.isinf())
+
+
+def test_decode_lse_is_the_flash_lse():
+    """A decode head's lse is flash_attention_lse_ref's for the same query
+    as one non-causal row over the valid keys: one convention (log2 of the
+    scaled scores) for both kernels where a row has keys."""
+    (q, k, v, _, _, lens), _ = _decode_inputs(3, "f32", False)
+    _, lse = ops.decode_attention(q, k, v, lens, return_lse=True)
+    for i, n in enumerate(lens.tolist()):
+        if n:
+            want = ref.flash_attention_lse_ref(q[i:i + 1, None], k[i:i + 1, :, :n].transpose(1, 2),
+                                               causal=False)
+            torch.testing.assert_close(lse[i], want[0, :, 0], **TOL["f32"])
+
+
+def test_merge_partials_is_exact_and_deterministic():
+    """The merge of two slices' partials equals the softmax over their union
+    in f32, and the same partials give the same bits every time; a row with
+    no key in any slice gives out 0 and lse -inf."""
+    rng = np.random.default_rng(4)
+    outs = torch.from_numpy(rng.standard_normal((3, 2, 4, 8)).astype(np.float32))
+    lses = torch.from_numpy(rng.standard_normal((3, 2, 4)).astype(np.float32) * 5)
+    lses[1, 0, 0] = float("-inf")
+    lses[:, 1, 3] = float("-inf")
+    out, lse = ops.merge_partials(outs, lses)
+    w = torch.exp2(lses.double() - lses.double().amax(0).nan_to_num(neginf=0.0))
+    want = (w[..., None] * outs.double()).sum(0) / w.sum(0).clamp_min(1e-300)[..., None]
+    torch.testing.assert_close(out.double(), want, atol=1e-6, rtol=1e-6)
+    assert torch.equal(out[1, 3], torch.zeros(8)) and lse[1, 3].item() == float("-inf")
+    again = ops.merge_partials(outs.clone(), lses.clone())
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+
+
+FLASH_CASES = {  # name -> (b, s, h, kv, d, v_dim, row cuts)
+    "gqa4": (2, 48, 8, 2, 32, 32, [0, 12, 24, 36, 48]),
+    "gqa4-uneven": (1, 37, 8, 2, 64, 64, [0, 10, 20, 30, 37]),
+    "mla96": (1, 40, 4, 4, 96, 64, [0, 5, 17, 40]),
+}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_q_offset_blocks_match_jax(case, causal):
+    """The plain flash forward over q's row blocks, each at its offset, then
+    concatenated = JAX's chunked_attention over the whole q (GQA n_rep 4;
+    MLA's D = 96 with V zero-padded from 64 and the scale 1/sqrt(96), as
+    mla_prefill calls it), in f32; each block's lse = the whole q's lse rows."""
+    b, s, h, kv, d, vd, cuts = FLASH_CASES[case]
+    rng = np.random.default_rng(5)
+    q, k = (rng.standard_normal(sh).astype(np.float32) for sh in ((b, s, h, d), (b, s, kv, d)))
+    v = np.zeros((b, s, kv, d), np.float32)
+    v[..., :vd] = rng.standard_normal((b, s, kv, vd))
+    scale = 1.0 / math.sqrt(d)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got = torch.cat([ops.flash_attention(tq[:, a:e], tk, tv, causal=causal, softmax_scale=scale,
+                                         q_offset=a) for a, e in zip(cuts, cuts[1:])], dim=1)
+    want = JL.chunked_attention(*(jnp.asarray(a) for a in (q, k, v)), causal=causal,
+                                q_chunk=16, kv_chunk=16, softmax_scale=scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL["f32"])
+    assert not got[..., vd:].any()
+    whole = ref.flash_attention_lse_ref(tq, tk, causal=causal, softmax_scale=scale)
+    for a, e in zip(cuts, cuts[1:]):
+        part = ref.flash_attention_lse_ref(tq[:, a:e], tk, causal=causal, softmax_scale=scale,
+                                           q_offset=a)
+        torch.testing.assert_close(part, whole[..., a:e], **TOL["f32"])
+
+
+def test_flash_q_offset_past_the_keys():
+    """Causal rows whose offset puts them past every key (a cross-length
+    call) see all keys; a non-causal call ignores the offset."""
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               for sh in ((1, 4, 2, 16), (1, 6, 2, 16), (1, 6, 2, 16)))
+    full = ops.flash_attention(q, k, v, causal=False)
+    torch.testing.assert_close(ops.flash_attention(q, k, v, causal=True, q_offset=5), full)
+    torch.testing.assert_close(ops.flash_attention(q, k, v, causal=False, q_offset=3), full)
+
+
+DRYRUN_GATHER_BEFORE = 2_415_968_256  # granite-8b decode_32k, single mesh, per device, gathering the cache
+
+
+def test_dryrun_granite_decode_32k_gathers_no_cache(tmp_path):
+    """The dry-run of granite-8b ``decode_32k`` on the single-pod mesh (256
+    fake ranks, in a subprocess): its all-gathers move under 1% of the
+    2,415,968,256 bytes a device that gathering each layer's cache shard
+    moved; the cell is ok."""
+    env = {**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "1"}
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "granite-8b", "--shape",
+         "decode_32k", "--mesh", "single", "--out", str(tmp_path), "--force"],
+        env=env, capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    rec = json.loads((tmp_path / "granite-8b__decode_32k__single.json").read_text())
+    assert rec["ok"]
+    assert rec["coll_by_op"]["all_gather_into_tensor"] < 0.01 * DRYRUN_GATHER_BEFORE, rec["coll_by_op"]
+
+
+def test_variant_counts_reset_with_the_kernels():
+    """The two variants' counters (decode with lse, flash with a query
+    offset) reset with the kernels' and stay out of ``launch_counts``."""
+    ops.reset_launch_counts()
+    assert ops.variant_counts() == {"decode_attention_lse": 0, "flash_attention_q_offset": 0}
+    assert set(ops.launch_counts()) == set(ops.KERNELS)
+    with ops.uncounted():
+        from repro_torch.kernels import decode_attention as dk
+        dk.lse_launches += 3
+    assert ops.variant_counts()["decode_attention_lse"] == 0

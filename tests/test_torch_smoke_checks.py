@@ -180,3 +180,44 @@ def test_example_host_checks_each_last_line(tmp_path):
                       ("quickstart", (0, "plan: 1 chain(s) in 0.10 ms\n"))):
         with pytest.raises(cs.SmokeFailure):
             cs.phase_example_host({**_host_outputs(n), name: bad}, None)
+
+
+class _Rank:
+    """One rank of a 1-D mesh of ``n``: what ``sharding.local_block`` reads."""
+
+    def __init__(self, n, rank):
+        self.n, self.rank = n, rank
+
+    def get_coordinate(self):
+        return [self.rank]
+
+    def size(self, i):
+        return self.n
+
+
+@pytest.mark.parametrize("rows,n", [(32768, 4), (32768, 16), (1500, 16), (512, 4), (6, 4), (7, 4)])
+def test_shard_blocks_are_the_mesh_blocks(rows, n):
+    """Phase 14 cuts a whole problem where a mesh's ranks would hold it:
+    block r is rank r's ``sharding.local_block`` (ceil chunks, uneven or
+    empty at the tail)."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.distributed import sharding as sh
+
+    starts = cs.block_starts(rows, n)
+    for r in range(n):
+        (blk,) = sh.local_block((rows,), _Rank(n, r), (Shard(0),))
+        assert (blk.start, blk.stop) == (starts[r], starts[r + 1])
+
+
+def test_flash_work_counts_each_blocks_causal_pairs():
+    """The flash bound of a q block at its offset counts the causal pairs
+    its rows see: the 4 blocks' FLOPs add up to the whole call's."""
+    import torch
+
+    q, k = torch.empty(1, 512, 4, 64), torch.empty(1, 512, 2, 64)
+    whole = cs.work("flash_attention", (q, k, k), {"causal": True}, "bf16")[1]
+    starts = cs.block_starts(512, 4)
+    parts = [cs.work("flash_attention", (q[:, a:e], k, k), {"causal": True, "q_offset": a}, "bf16")[1]
+             for a, e in zip(starts, starts[1:])]
+    assert sum(parts) == whole and parts == sorted(parts)

@@ -460,11 +460,13 @@ def fake_kernels(monkeypatch):
             return fn(*a, **kw)
         return wrapper
 
-    def flash(q, k, v, *, causal=True, softmax_scale=None, return_lse=False):
-        o = ref.flash_attention_ref(q, k, v, causal=causal, softmax_scale=softmax_scale)
+    def flash(q, k, v, *, causal=True, softmax_scale=None, return_lse=False, q_offset=0):
+        o = ref.flash_attention_ref(q, k, v, causal=causal, softmax_scale=softmax_scale,
+                                    q_offset=q_offset)
         if not return_lse:
             return o
-        return o, ref.flash_attention_lse_ref(q, k, causal=causal, softmax_scale=softmax_scale)
+        return o, ref.flash_attention_lse_ref(q, k, causal=causal, softmax_scale=softmax_scale,
+                                              q_offset=q_offset)
 
     def flash_bwd(q, k, v, o, do, lse=None, **kw):
         assert lse is not None, "the kernel path's backward takes the forward's log-sum-exp"
