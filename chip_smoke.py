@@ -169,6 +169,12 @@ Run from the root of a checkout.  Phases, each of which must pass:
               within 2e-2 of 11c's first 3 (bit-equal or not, recorded),
               step ms and peak GiB beside 11c's, and the step-3 checkpoint
               restored into an unsharded run that trains step 3 as 11c did;
+              then 2 steps of qwen1.5-4b (2 layers, full width) under its
+              own rules ("seq" over "model"), every flash call through
+              ops' sequence-parallel path (q a local shard, the forward
+              and backward kernels at its offset), launches, losses and
+              grad norms, and every parameter's update within 2e-2 of its
+              unsharded steps from the same seed;
               (b) the dry-run CLI (repro_torch.launch.dryrun, a fake
               process group of 256 / 512 ranks on the CPU) for granite-8b's
               train_4k, prefill_32k and decode_32k on both production
@@ -219,13 +225,22 @@ Run from the root of a checkout.  Phases, each of which must pass:
               sequence over "model", so each decode runs ops'
               flash-decoding path: logits within 2e-2 and token ids equal
               to the unsharded run, n_layers x steps decode launches with
-              lse; every time logged beside the card's name and power limit
+              lse; (d) the flash backward over the same 4 q blocks of the
+              train shape and whisper's cross case, bf16 and f32: each
+              block's forward with lse and backward at its q_offset, dq
+              concatenated and dk, dv summed held to the whole call and to
+              the plain version (each gradient's scale), dk = dv = 0 past
+              each causal block's last row, two runs bit-equal; timed: the
+              last block beside its plain version, SDPA forward + backward
+              with the offset as a mask less its forward, and the whole
+              call; every time logged beside the card's name and power
+              limit
 
 It prints one JSON ``kernels`` line (the three forward kernels, the decode
 kernel over the int8 cache with its launches in phase 7b, the two backward
 kernels, and phase 14's variants: the decode kernel with its lse at one of
-4 blocks of the bf16 8 x 32k cache, and the flash forward at the train
-shape's last q block) and the card's name and power limit before its last
+4 blocks of the bf16 8 x 32k cache, and the flash forward and backward at
+the train shape's last q block) and the card's name and power limit before its last
 line, which is ``{"ok": true, "device": {...}}``.  It exits non-zero,
 printing no result, without a CUDA device or outside a checkout.  With
 ``--log-dir`` it also writes the nvcc logs, every measurement, the
@@ -2234,7 +2249,7 @@ def bwd_work(name: str, inputs, kw, dt: str) -> tuple[float, float]:
     """(bytes, flops) of a backward call on these inputs: each input read and
     each output written once (flash: q, k, v, o, do, the f32 lse; dq, dk,
     dv); flash's operations 2.5x the forward's (4 D per query-key pair, the
-    causal pairs counted as these shapes have them)."""
+    causal pairs counted as these shapes have them at the call's offset)."""
     es = 2 if dt == "bf16" else 4
     if name == "rmsnorm_bwd":
         x, w, _ = inputs
@@ -2243,15 +2258,18 @@ def bwd_work(name: str, inputs, kw, dt: str) -> tuple[float, float]:
     q, k = inputs[0], inputs[1]
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
-    pairs = sum(min(i + 1, sk) for i in range(sq)) if kw.get("causal", True) else sq * sk
+    off = kw.get("q_offset", 0)  # row i is position off + i
+    pairs = sum(min(off + i + 1, sk) for i in range(sq)) if kw.get("causal", True) else sq * sk
     return ((4 * b * sq * h * d + 4 * b * sk * kv * d) * es + 4 * b * h * sq,
             2.5 * 4 * b * h * d * pairs)
 
 
-def bwd_library_call(torch, name: str, kw):
+def bwd_library_call(torch, name: str, kw, inputs=None):
     """One PyTorch autograd call computing the same gradients (forward and
     backward; its forward alone is timed apart and taken off): F.rms_norm
-    and SDPA, timed only, never used by the port."""
+    and SDPA (a causal call at a query offset with the offset as a mask, as
+    ``library_call``; ``inputs`` give its shape), timed only, never used by
+    the port."""
     F = torch.nn.functional
     if name == "rmsnorm_bwd":
         def fwd(x, w):
@@ -2263,10 +2281,17 @@ def bwd_library_call(torch, name: str, kw):
 
         return (lambda x, w, g: fwd(x, w)), fwd_bwd
 
+    causal, off = kw.get("causal", True), kw.get("q_offset", 0)
+    mask = None
+    if causal and off:
+        sq, sk = inputs[0].shape[1], inputs[1].shape[1]
+        mask = (torch.arange(sq, device="cuda")[:, None] + off
+                >= torch.arange(sk, device="cuda")[None, :])
+
     def fwd(q, k, v):
         return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=kw.get("causal", True), enable_gqa=True)
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+            is_causal=causal and not off, enable_gqa=True)
 
     def fwd_bwd(q, k, v, o, do, lse):
         q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
@@ -2377,6 +2402,18 @@ def _bwd_kernel_ms(kernels: list) -> dict:
     return {k: us / (n * 1e3) for k, (us, n) in tot.items()}
 
 
+def grads_err(torch, got, want, dt: str) -> float:
+    """The largest |got - want| over a backward's gradients; raises unless
+    each is within dt's tolerance of its largest magnitude (a summed
+    gradient: dw, dk and dv over the sequence)."""
+    errs = []
+    for g, w in zip(got, want):
+        sc = max(1.0, float(w.float().abs().max()))
+        max_err(torch, g / sc, w / sc, dt)
+        errs.append(float((g.float() - w.float()).abs().max()))
+    return max(errs)
+
+
 def launch_split(torch, fn, iters: int = 10) -> dict:
     """Device ms per launch of each kernel that ``fn()`` launches, from a
     torch.profiler trace of ``iters`` calls (short kernel name -> ms)."""
@@ -2404,14 +2441,7 @@ def phase_bwd_kernels(torch, ops, ref) -> dict:
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"{name} {case} {dt}: two runs differ (not deterministic)")
             want = plain_fn[name](*inputs, **kw)
-            errs = []
-            for g, w in zip(got, want):
-                # a summed gradient (dw; dk and dv over the sequence) is held
-                # at the tolerance of its largest magnitude
-                sc = max(1.0, float(w.float().abs().max()))
-                max_err(torch, g / sc, w / sc, dt)
-                errs.append(float((g.float() - w.float()).abs().max()))
-            err = max(errs)
+            err = grads_err(torch, got, want, dt)
             row = {"kernel": name, "case": case, "dtype": dt, "max_abs_err": err, "deterministic": True}
             tag = case.split()[0]
             if tag in BWD_TIMED:
@@ -2680,6 +2710,9 @@ def phase_train(torch, np, ops, ref, TF, get_config, train_cli, opt_mod, step_mo
 
 MESH_STEPS = 3  # phase 12a: sharded steps, held to 11c's first three
 MESH_TOL = TOL["bf16"]  # relative, on each loss and grad norm
+# 12a's sequence-parallel steps: qwen1.5-4b at full width cut to 2 layers,
+# "seq" over "model" (its own rules), 11c's batch, against its unsharded steps
+MESH_SEQ = dict(arch="qwen1.5-4b", layers=2, steps=2)
 DRYRUN_ARCH = "granite-8b"  # phase 12b: its train_4k, prefill_32k, decode_32k on both meshes
 
 
@@ -2797,6 +2830,84 @@ def phase_mesh_train(torch, ops, TF, base_cfg, train_cli, opt_mod, mesh_mod, sh,
     return row
 
 
+def phase_mesh_seq(torch, ops, TF, base_cfg, train_cli, opt_mod, mesh_mod, sh, steps_mod) -> dict:
+    """12a, sequence parallel: 2 train steps of qwen1.5-4b at full width cut
+    to 2 layers on a one-rank NCCL group, its rules putting "seq" over
+    "model": every attention takes ops' DTensor path (``_flash_blocks``)
+    with q a local sequence shard, its forward and backward through
+    ``_FlashAttention`` (the kernels at offset 0 on one rank).  The loss
+    and grad norm of each step within MESH_TOL of the unsharded steps from
+    the same seed, and every parameter's update over the steps within
+    MESH_TOL of theirs (relative norm, leaf by leaf)."""
+    t = TRAIN
+    cfg = base_cfg.replace(n_layers=MESH_SEQ["layers"])
+    steps = MESH_SEQ["steps"]
+    opt_cfg = opt_mod.AdamWConfig(lr=1e-3, warmup_steps=3, total_steps=t["steps"])
+    kw = dict(batch=t["batch"], seq=t["seq"], microbatches=t["microbatches"], log_every=1,
+              seed=SEED, device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = TF.init_params(cfg, SEED, device="cuda")
+    ops.reset_launch_counts()
+    plain = train_cli.run_train(cfg, opt_cfg, steps=steps, **kw)
+    plain_counts = ops.launch_counts()
+    seen = []
+    blocks = ops._flash_blocks
+
+    def recorded(q, *a):
+        seen.append([str(p) for p in q.placements])
+        return blocks(q, *a)
+
+    started = mesh_mod.init_process_group("cuda")
+    ops._flash_blocks = recorded
+    try:
+        mesh = mesh_mod.make_host_mesh()
+        rules = steps_mod.make_rules(cfg, mesh)
+        check(rules.mesh_axes_for("seq") == ("model",),
+              f"mesh seq: 'seq' is over {rules.mesh_axes_for('seq')}")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        a = train_cli.run_train(cfg, opt_cfg, steps=steps, mesh=mesh, **kw)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        got = {k: v.full_tensor() for k, v in opt_mod.tree_paths(a["params"])}
+    finally:
+        ops._flash_blocks = blocks
+        if started:
+            torch.distributed.destroy_process_group()
+    want_launches = {k: v * steps for k, v in train_launches(cfg, t["microbatches"]).items()}
+    check(counts == want_launches == plain_counts,
+          f"mesh seq: launches {counts} (unsharded {plain_counts}) != {steps} steps of {want_launches}")
+    calls = 2 * cfg.n_layers * t["microbatches"] * steps  # the forward and remat's recompute
+    check(len(seen) == calls and all(p[1] == "S(1)" for p in seen),
+          f"mesh seq: {len(seen)} flash calls through _flash_blocks (want {calls}), q placed {seen[:2]}")
+    rel = [abs(x - y) / abs(y) for x, y in zip(a["losses"] + a["grad_norms"],
+                                               plain["losses"] + plain["grad_norms"])]
+    check(max(rel) <= MESH_TOL, f"mesh seq: losses {a['losses']} / grad norms {a['grad_norms']} "
+          f"against the unsharded {plain['losses']} / {plain['grad_norms']}")
+    apart, equal = {}, True
+    unsharded = dict(opt_mod.tree_paths(plain["params"]))
+    for k, p0 in opt_mod.tree_paths(start):
+        w, g = unsharded[k].float(), got[k].float()
+        moved = float((w - p0.float()).norm())
+        apart[k] = float((g - w).norm()) / moved if moved else float((g - w).norm())
+        equal = equal and torch.equal(g, w)
+    worst = max(apart, key=apart.get)
+    check(apart[worst] <= MESH_TOL, f"mesh seq: {worst}'s update {apart[worst]} from the unsharded one's")
+    row = {"model": cfg.name, "layers": cfg.n_layers, "mesh": list(mesh.shape), "steps": steps,
+           "q_placements": seen[0], "flash_calls": len(seen), "launches": counts,
+           "losses": a["losses"], "unsharded_losses": plain["losses"], "max_rel_diff": max(rel),
+           "worst_update_rel": apart[worst], "worst_leaf": worst,
+           "bit_equal": equal and a["losses"] == plain["losses"],
+           "step_ms": [x * 1e3 for x in a["step_s"]],
+           "unsharded_step_ms": [x * 1e3 for x in plain["step_s"]], "wall_s": wall}
+    log("[mesh] sequence-parallel train " + json.dumps(row))
+    del a, plain, got, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_mesh_dryrun(rc: int, out: str, out_dir: Path, log_dir: Path | None) -> dict:
     """12b: the dry-run subprocess's cells (it ended after the build, before
     phase 1): every cell ok."""
@@ -2823,7 +2934,8 @@ def phase_mesh_dryrun(rc: int, out: str, out_dir: Path, log_dir: Path | None) ->
 
 
 def phase_mesh(torch, ops, TF, get_config, train_cli, opt_mod, train_row, dryrun, log_dir) -> dict:
-    """Phase 12: 12a the sharded train step, 12b the dry-run's cells."""
+    """Phase 12: 12a the sharded train step (and the sequence-parallel one),
+    12b the dry-run's cells."""
     from repro_torch.distributed import sharding as sh
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import steps as steps_mod
@@ -2833,6 +2945,8 @@ def phase_mesh(torch, ops, TF, get_config, train_cli, opt_mod, train_row, dryrun
     torch.cuda.empty_cache()
     rows = {"train": phase_mesh_train(torch, ops, TF, get_config("granite-8b"), train_cli,
                                       opt_mod, mesh_mod, sh, steps_mod, train_row)}
+    rows["seq"] = phase_mesh_seq(torch, ops, TF, get_config(MESH_SEQ["arch"]), train_cli, opt_mod,
+                                 mesh_mod, sh, steps_mod)
     rows["dryrun"] = phase_mesh_dryrun(*dryrun, log_dir)
     rows["wall_s"] = time.perf_counter() - t_phase
     log(f"[mesh] phase passed in {rows['wall_s']:.1f} s")
@@ -3071,6 +3185,9 @@ SHARD_FLASH = {
     "whisper-cross B=4 Sq=512 Sk=1500 H=20 KV=20 D=64 non-causal": (4, 512, 1500, 20, 20, 64, False),
 }
 SHARD_Q_BLOCKS = 4
+# 14(d): the flash backward over the same 4 q blocks at their offsets:
+# case -> (b, sq, sk, h, kv, d, causal)
+SHARD_FLASH_BWD = {k: v for k, v in SHARD_FLASH.items() if k.split()[0] in ("train", "whisper-cross")}
 # 14(c): granite-8b at full width through a one-rank mesh, its cache's
 # sequence over the (1-way) "model" axis: the decode of ops' DTensor path
 SHARD_SERVE = dict(layers=2, batch=4, prompt=128, steps=4)
@@ -3080,6 +3197,8 @@ SHARD_VARIANTS = (
      "src/repro/kernels/decode_attention.py:36", ("decode", "bf16", 4)),
     ("flash_attention_q_offset", "src/repro_torch/kernels/csrc/flash_attention.cu",
      "src/repro/kernels/flash_attention.py:39", ("flash", "bf16", "train")),
+    ("flash_attention_bwd_q_offset", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+     None, ("flash_bwd", "bf16", "train")),  # port-only, as flash_attention_bwd
 )
 
 
@@ -3222,6 +3341,78 @@ def shard_flash(torch, ops, ref, case: str, dt: str, shape) -> dict:
     return row
 
 
+def shard_flash_bwd(torch, ops, ref, case: str, dt: str, shape) -> dict:
+    """14(d): q cut into 4 row blocks, each through the flash forward with
+    lse and the backward at its q_offset with the block's rows of the whole
+    call's dO, as a sequence-parallel rank runs them; the blocks' dq
+    concatenated and their dk and dv summed (in f32, as an exact reduction
+    across the shards gives them) held to the whole backward call and to
+    the plain version at dt's tolerance of each gradient's largest
+    magnitude (phase 11a's rule); under causal, the keys past each block's
+    last row get dk = dv = 0 exactly; each block's backward run twice gives
+    the same bits.  Timed cold: the last block's backward at its offset,
+    its plain version, SDPA forward + backward with the offset as a mask
+    less its forward, and the whole backward call."""
+    from repro_torch.kernels import flash_attention as fk
+
+    b, sq, sk, h, kv, d, causal = shape
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 16)
+    q, do, k, v = (torch.randn(s_, generator=gen, device="cuda").to(dtype)
+                   for s_ in ((b, sq, h, d), (b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)))
+    starts = block_starts(sq, SHARD_Q_BLOCKS)
+    dqs, dk, dv = [], torch.zeros(k.shape, device="cuda"), torch.zeros(v.shape, device="cuda")
+    zero_keys, blocks = 0, []
+    for a, e in zip(starts, starts[1:]):  # the path: counted
+        kw = {"causal": causal, "q_offset": a}
+        qb, dob = q[:, a:e].contiguous(), do[:, a:e].contiguous()
+        o, lse = fk.flash_attention(qb, k, v, return_lse=True, **kw)
+        g = fk.flash_attention_bwd(qb, k, v, o, dob, lse, **kw)
+        with ops.uncounted():
+            again = fk.flash_attention_bwd(qb, k, v, o, dob, lse, **kw)
+        check(all(torch.equal(x, y) for x, y in zip(g, again)),
+              f"shards bwd {case} {dt}: the block at {a} differs between two runs")
+        if causal:
+            check(not g[1][:, e:].any() and not g[2][:, e:].any(),
+                  f"shards bwd {case} {dt}: keys past row {e - 1} of the block at {a} have dk or dv")
+            zero_keys += (sk - min(e, sk)) * b * kv
+        dqs.append(g[0])
+        dk += g[1].float()
+        dv += g[2].float()
+        blocks.append((qb, k, v, o, dob, lse))
+    got = (torch.cat(dqs, dim=1), dk, dv)
+    with ops.uncounted():
+        o, lse = fk.flash_attention(q, k, v, causal=causal, return_lse=True)
+        whole = fk.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    row = {"case": case, "dtype": dt, "blocks": SHARD_Q_BLOCKS, "q_offsets": starts[:-1],
+           "max_abs_err_whole": grads_err(torch, got, whole, dt),
+           "max_abs_err": grads_err(torch, got, want, dt),
+           "zero_key_rows": zero_keys, "deterministic": True,
+           "launches": sum(1 for a in starts[:-1] if a), "fwd_launches": sum(1 for a in starts[:-1] if a)}
+    del want, got, dqs, dk, dv
+    a = starts[-2]
+    kw = {"causal": causal, "q_offset": a}
+    blk = blocks[-1]
+    nbytes, flops = bwd_work("flash_attention_bwd", blk, kw, dt)
+    lib_fwd, lib_fwd_bwd = bwd_library_call(torch, "flash_attention_bwd", kw, blk)
+    iters = 10 if flops > 1e11 else 30
+    with ops.uncounted():
+        t = time_ms(torch, {"plain": lambda *x: ref.flash_attention_bwd_ref(*x, **kw),
+                            "kernel": lambda *x: fk.flash_attention_bwd(*x, **kw),
+                            "library": lib_fwd_bwd, "library_fwd": lib_fwd}, cold_sets(blk), iters=iters)
+        whole_ms = time_ms(torch, {"whole": lambda *x: fk.flash_attention_bwd(*x, causal=causal)},
+                           cold_sets((q, k, v, o, do, lse)), iters=iters)["whole"]
+    row.update(block_q_offset=a, ms=t["kernel"], plain_ms=t["plain"],
+               library_ms=t["library"] - t["library_fwd"], library_fwd_bwd_ms=t["library"],
+               whole_ms=whole_ms, bytes=nbytes, flops=flops, iters=iters, timed="cold")
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dt)
+    del blocks, blk, whole
+    return row
+
+
 def shard_serve(torch, np, ops, TF, get_config) -> dict:
     """14(c): granite-8b cut to 2 layers at full width, a prefill of 4 x 128
     and 4 decode steps, once unsharded and once through a one-rank NCCL
@@ -3297,14 +3488,15 @@ def phase_shards(torch, np, ops, ref, TF, get_config, card: str) -> dict:
     one card: (a) decode over 4 and 16 cache blocks merged, in bf16 and
     int8, and whisper's cross cache over 16 uneven blocks; (b) the flash
     forward over 4 q blocks at their offsets, in bf16 and f32; (c) the
-    sharded decode of the model through a one-rank mesh.  The variants'
-    launch counts are set to 0 before and read after; comparisons and
-    timings are not counted."""
+    sharded decode of the model through a one-rank mesh; (d) the flash
+    backward over 4 q blocks at their offsets, in bf16 and f32.  The
+    variants' launch counts are set to 0 before and read after;
+    comparisons and timings are not counted."""
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
-    rows = {"decode": {}, "flash": {}}
+    rows = {"decode": {}, "flash": {}, "flash_bwd": {}}
     for quant in (False, True):
         tag = "int8" if quant else "bf16"
         inputs = _shard_decode_inputs(torch, SHARD_DECODE, quant, SEED + 14)
@@ -3336,10 +3528,22 @@ def phase_shards(torch, np, ops, ref, TF, get_config, card: str) -> dict:
             gc.collect()
             torch.cuda.empty_cache()
     rows["serve"] = shard_serve(torch, np, ops, TF, get_config)
+    for dt in ("bf16", "f32"):
+        for case, shape in SHARD_FLASH_BWD.items():
+            row = shard_flash_bwd(torch, ops, ref, case, dt, shape)
+            rows["flash_bwd"][(dt, case.split()[0])] = row
+            log(f"[shards] flash backward {dt} {case}: block at q_offset {row['block_q_offset']} "
+                f"{row['ms']:.5f} ms (bound {row['bound_ms']:.5f} ms, plain {row['plain_ms']:.5f} ms, "
+                f"SDPA {row['library_ms']:.5f} ms), whole call {row['whole_ms']:.5f} ms | {card} | "
+                + json.dumps(row))
+            gc.collect()
+            torch.cuda.empty_cache()
     counts = ops.variant_counts()
     want = {"decode_attention_lse": sum(r["launches"] for r in rows["decode"].values())
             + rows["serve"]["decode_lse_launches"],
-            "flash_attention_q_offset": sum(r["launches"] for r in rows["flash"].values())}
+            "flash_attention_q_offset": sum(r["launches"] for r in rows["flash"].values())
+            + sum(r["fwd_launches"] for r in rows["flash_bwd"].values()),
+            "flash_attention_bwd_q_offset": sum(r["launches"] for r in rows["flash_bwd"].values())}
     check(counts == want, f"shards: variant launches {counts} != the phase's {want}")
     rows["launches"] = counts
     rows["wall_s"] = time.perf_counter() - t_phase
@@ -3503,7 +3707,7 @@ def _phases(args, torch, np, t_all, card, kind, build_s, fwd_build, dryrun, tool
         })
     if args.log_dir is not None:
         shard_rows = {k: [{"key": list(key), **r} for key, r in shards[k].items()]
-                      for k in ("decode", "flash")}
+                      for k in ("decode", "flash", "flash_bwd")}
         record = {"card": card, "torch": torch.__version__, "build_s": build_s,
                   "fwd_build": fwd_build, "kernels": [kern[k] for k in sorted(kern)], "parity": parity,
                   "serve": serve, "live": [live_row, live_mla], "profile": prof, "cluster": cluster,

@@ -6,8 +6,11 @@
 // but the port's model calls the forward kernel (csrc/flash_attention.cu),
 // so its gradient needs one too.  Layouts as the forward: q, o, do, dq
 // (B, Sq, H, D); k, v, dk, dv (B, Sk, KV, D); query head h reads KV head
-// h / (H / KV); causal keeps k_pos <= q_pos with the diagonal at 0.  With
-// P = softmax(S), S = scale * Q K^T:
+// h / (H / KV); causal keeps k_pos <= q_offset + q_pos, where q_offset >= 0
+// is the global position of q's row 0 (0 for a whole sequence; a sequence
+// shard's start beside the whole k and v, as the forward takes it).  Keys
+// from q_offset + Sq on are seen by no query: their dK and dV are written as
+// zeros.  With P = softmax(S), S = scale * Q K^T:
 //   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - delta),  delta = rowsum(dO * O),
 //   dQ = scale * dS K,  dK = scale * dS^T Q.
 // P is rebuilt tile by tile as exp2(S * scale * log2(e) - lse) from the
@@ -25,7 +28,8 @@
 //   rows.  Thread 0 loads the K and V block once and keeps a 2-stage TMA
 //   ring of (Q tile, dO tile, lse slice, delta slice) on mbarriers over the
 //   n_rep query heads of the group and the q-tiles that can see the keys
-//   (from the diagonal on when causal).  Per tile: S^T = K Q^T and dP^T =
+//   (when causal, from the first whose last row reaches the block at the
+//   offset on).  Per tile: S^T = K Q^T and dP^T =
 //   V dO^T (wgmma, both operands in shared memory), P^T = exp2(S^T sl -
 //   lse), dS^T = P^T (dP^T - delta), then dV += P^T dO and dK += dS^T Q with
 //   P^T and dS^T rounded to bf16 in registers as the A operand and the same
@@ -120,7 +124,6 @@ struct DkvLayout : hp::RowBoxes<D> {
   static constexpr int STAT_OFF = DO_OFF + kStages * T_BYTES;
   static constexpr int BAR_OFF = STAT_OFF + kStages * STAT_BYTES;
   static constexpr int SMEM = BAR_OFF + 8 * (1 + kStages) + 1024;  // + alignment slack
-  static_assert(BKV % BQ == 0, "a causal key block starts a q-tile");
 };
 
 // dQ pass: [Q | dO | K x kStages | V x kStages | barriers].
@@ -151,7 +154,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                        const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                        const float* __restrict__ lse, const float* __restrict__ delta, int ls,
                        __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq,
-                       int Sk, int H, int KV, float scale, float scale_log2, int causal) {
+                       int Sk, int H, int KV, float scale, float scale_log2, int causal,
+                       int q_offset) {
   using L = DkvLayout<D>;
   constexpr int BQ = L::BQ;
   extern __shared__ uint8_t smem_raw[];
@@ -167,9 +171,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int wg = tid / 128;
   const int warp = (tid % 128) / 32, lane = tid % 32;
   const int wg_k0 = k0 + wg * 64;  // first key row of this warpgroup
-  const int qt0 = causal ? k0 / BQ : 0;  // earlier q-tiles see none of these keys
+  // earlier q-tiles see none of these keys (the offset need not be a multiple of BQ)
+  const int qt0 = causal && k0 > q_offset ? (k0 - q_offset) / BQ : 0;
   const int nqt = max((Sq + BQ - 1) / BQ - qt0, 0);
-  const int n_tiles = n_rep * nqt;  // (query head, q-tile) pairs, head-major
+  // (query head, q-tile) pairs, head-major; none for keys past every query,
+  // whose zero accumulators the epilogue still stores
+  const int n_tiles = n_rep * nqt;
 
   const CUtensorMap* map_q = &tq;  // the kernel parameters themselves, not copies
   const CUtensorMap* map_do = &tdo;
@@ -225,7 +232,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int s = j % kStages;
     const uint32_t parity = (j / kStages) & 1;
     const int q0 = (qt0 + j % nqt) * BQ;
-    if (!causal || q0 + BQ - 1 >= wg_k0) {  // warpgroup-uniform: some query sees some key
+    if (!causal || q_offset + q0 + BQ - 1 >= wg_k0) {  // warpgroup-uniform: some query sees some key
       const uint32_t q_base = hp::smem_u32(smem + L::Q_OFF + s * L::T_BYTES);
       const uint32_t do_base = hp::smem_u32(smem + L::DO_OFF + s * L::T_BYTES);
       const float* Ls = reinterpret_cast<const float*>(smem + L::STAT_OFF + s * L::STAT_BYTES);
@@ -256,7 +263,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
       // P^T = exp2(S^T sl - lse), 0 where masked: the diagonal, the Sq tail
       // (its lse and delta slots are not the row's) and the Sk tail
-      const bool masked = (causal && q0 < wg_k0 + 63) || q0 + BQ > Sq || wg_k0 + 64 > Sk;
+      const bool masked = (causal && q_offset + q0 < wg_k0 + 63) || q0 + BQ > Sq || wg_k0 + 64 > Sk;
 #pragma unroll
       for (int c = 0; c < BQ / 8; ++c) {
         const float2 l2 = *reinterpret_cast<const float2*>(Ls + 8 * c + col2);
@@ -267,7 +274,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int e = 0; e < 2; ++e) {
             const int qpos = q0 + 8 * c + col2 + e;
             float p = exp2f(st[4 * c + 2 * i + e] * scale_log2 - (e ? l2.y : l2.x));
-            if (masked && (qpos >= Sq || kpos >= Sk || (causal && kpos > qpos))) p = 0.f;
+            if (masked && (qpos >= Sq || kpos >= Sk || (causal && kpos > q_offset + qpos))) p = 0.f;
             st[4 * c + 2 * i + e] = p;
           }
         }
@@ -329,7 +336,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                       const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                       const float* __restrict__ lse, const float* __restrict__ delta, int ls,
                       __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int H, int KV, float scale,
-                      float scale_log2, int causal) {
+                      float scale_log2, int causal, int q_offset) {
   using L = DqLayout<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
@@ -347,7 +354,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int wg = tid / 128;
   const int warp = (tid % 128) / 32, lane = tid % 32;
   const int wg_row0 = q0 + wg * 64;  // first query row of this warpgroup
-  const int kv_end = causal ? min(Sk, q0 + BQD) : Sk;
+  const int wg_pos0 = q_offset + wg_row0;  // its global position, which the causal mask reads
+  const int kv_end = causal ? min(Sk, q_offset + q0 + BQD) : Sk;
   const int n_tiles = (kv_end + BK - 1) / BK;
 
   const CUtensorMap* maps[2] = {&tk, &tv};
@@ -406,7 +414,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int s = j % kStages;
     const uint32_t parity = (j / kStages) & 1;
     const int k0 = j * BK;
-    if (!causal || k0 <= wg_row0 + 63) {  // warpgroup-uniform
+    if (!causal || k0 <= wg_pos0 + 63) {  // warpgroup-uniform
       const uint32_t k_base = hp::smem_u32(smem + L::K_OFF + s * L::KV_BYTES);
       const uint32_t v_base = hp::smem_u32(smem + L::V_OFF + s * L::KV_BYTES);
       float sc[BK / 2], dp[BK / 2];
@@ -435,10 +443,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       hp::fence_regs(sc);
 
       // P = exp2(S sl - lse), 0 past Sk and above the diagonal
-      const bool masked = k0 + BK > Sk || (causal && k0 + BK - 1 > wg_row0);
+      const bool masked = k0 + BK > Sk || (causal && k0 + BK - 1 > wg_pos0);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const int qpos = wg_row0 + r_lo + 8 * i;
+        const int qpos = wg_pos0 + r_lo + 8 * i;  // global
 #pragma unroll
         for (int c = 0; c < BK / 8; ++c)
 #pragma unroll
@@ -500,7 +508,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                    const float* delta, int ls, void* dq, void* dk, void* dv, int B, int Sq, int Sk,
-                   int H, int KV, float scale, int causal, int device, cudaStream_t stream) {
+                   int H, int KV, float scale, int causal, int q_offset, int device,
+                   cudaStream_t stream) {
   static rt::SmemOptIn optin_dkv, optin_dq;
   cudaError_t err = optin_dkv.ensure(flash_bwd_dkv_sm90<D>, device, DkvLayout<D>::SMEM);
   if (err != cudaSuccess) return err;
@@ -520,7 +529,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   if ((err = hp::make_map<D>(&tv, v, B, Sk, KV, BKV)) != cudaSuccess) return err;
   flash_bwd_dkv_sm90<D><<<dim3(KV, (Sk + BKV - 1) / BKV, B), kThreads, DkvLayout<D>::SMEM, stream>>>(
       tq, tk, tv, tdo, lse, delta, ls, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), Sq, Sk, H, KV, scale, sl, causal);
+      static_cast<__nv_bfloat16*>(dv), Sq, Sk, H, KV, scale, sl, causal, q_offset);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   // dQ pass: Q, dO in 128-row blocks; K, V in 64-row tiles
   if ((err = hp::make_map<D>(&tq, q, B, Sq, H, BQD)) != cudaSuccess) return err;
@@ -529,7 +538,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   if ((err = hp::make_map<D>(&tv, v, B, Sk, KV, BK)) != cudaSuccess) return err;
   flash_bwd_dq_sm90<D><<<dim3(H, (Sq + BQD - 1) / BQD, B), kThreads, DqLayout<D>::SMEM, stream>>>(
       tq, tk, tv, tdo, lse, delta, ls, static_cast<__nv_bfloat16*>(dq), Sq, Sk, H, KV, scale, sl,
-      causal);
+      causal, q_offset);
   return cudaGetLastError();
 }
 
@@ -616,8 +625,8 @@ template <int D>
 __device__ __forceinline__ void dq_block(const float* q, const float* k, const float* v,
                                          const float* dout, const float* lse, const float* delta,
                                          int ls, float* dq, int B, int Sq, int Sk, int H, int KV,
-                                         float scale, float scale_log2, int causal, int idx,
-                                         float* smem) {
+                                         float scale, float scale_log2, int causal, int q_offset,
+                                         int idx, float* smem) {
   using C = Fma<D>;
   using W = typename C::Q;
   using G = typename C::SQ;
@@ -636,7 +645,7 @@ __device__ __forceinline__ void dq_block(const float* q, const float* k, const f
   const size_t q_stride = static_cast<size_t>(H) * D, kv_stride = static_cast<size_t>(KV) * D;
   const size_t q_off = (static_cast<size_t>(b) * Sq * H + h) * D;
   const size_t kv_off = (static_cast<size_t>(b) * Sk * KV + kvh) * D;
-  const int kv_end = causal ? min(Sk, q0 + BQ) : Sk;
+  const int kv_end = causal ? min(Sk, q_offset + q0 + BQ) : Sk;
   const int n_tiles = (kv_end + BK - 1) / BK;
 
   zero_pad<D, C::DC, LD>(Qs, 2 * BQ + 2 * NS * BK);  // Q, dO and the K, V stages
@@ -689,7 +698,7 @@ __device__ __forceinline__ void dq_block(const float* q, const float* k, const f
 #pragma unroll
         for (int c = 0; c < G::TN; ++c) {
           const int kpos = k0 + ps.y + G::CG * c;
-          const bool ok = kpos < Sk && (!causal || kpos <= qpos);
+          const bool ok = kpos < Sk && (!causal || kpos <= q_offset + qpos);
           Ps[(ps.x + G::RG * i) * C::LDS_ + ps.y + G::CG * c] =
               ok ? exp2f(sp[i][c] * scale_log2 - stat[i]) : 0.f;
         }
@@ -725,8 +734,8 @@ template <int D>
 __device__ __forceinline__ void dkv_block(const float* q, const float* k, const float* v,
                                           const float* dout, const float* lse, const float* delta,
                                           int ls, float* dk, float* dv, int B, int Sq, int Sk, int H,
-                                          int KV, float scale, float scale_log2, int causal, int idx,
-                                          float* smem) {
+                                          int KV, float scale, float scale_log2, int causal,
+                                          int q_offset, int idx, float* smem) {
   using C = Fma<D>;
   using W = typename C::KV;
   using G = typename C::SKV;
@@ -745,7 +754,9 @@ __device__ __forceinline__ void dkv_block(const float* q, const float* k, const 
   const int n_rep = H / KV;
   const size_t q_stride = static_cast<size_t>(H) * D, kv_stride = static_cast<size_t>(KV) * D;
   const size_t kv_off = (static_cast<size_t>(b) * Sk * KV + kvh) * D;
-  const int qt0 = causal ? k0 / BQ2 : 0;  // earlier q-tiles see none of these keys
+  // earlier q-tiles see none of these keys; keys past every query get no
+  // tile and store their zero accumulators
+  const int qt0 = causal && k0 > q_offset ? (k0 - q_offset) / BQ2 : 0;
   const int nqt = max((Sq + BQ2 - 1) / BQ2 - qt0, 0);
   const int n_tiles = n_rep * nqt;
 
@@ -804,7 +815,7 @@ __device__ __forceinline__ void dkv_block(const float* q, const float* k, const 
 #pragma unroll
         for (int c = 0; c < G::TN; ++c) {
           const int qc = ps.y + G::CG * c, qpos = q0 + qc;
-          const bool ok = kpos < Sk && qpos < Sq && (!causal || kpos <= qpos);
+          const bool ok = kpos < Sk && qpos < Sq && (!causal || kpos <= q_offset + qpos);
           Ps[(ps.x + G::RG * i) * LDP + qc] = ok ? exp2f(sp[i][c] * scale_log2 - Lt[qc]) : 0.f;
         }
       }
@@ -843,24 +854,25 @@ __global__ void __launch_bounds__(kThreads, 1)
                   const float* __restrict__ v, const float* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ delta, int ls,
                   float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv, int B,
-                  int Sq, int Sk, int H, int KV, float scale, float scale_log2, int causal, int n_dq,
-                  int dq_first) {
+                  int Sq, int Sk, int H, int KV, float scale, float scale_log2, int causal,
+                  int q_offset, int n_dq, int dq_first) {
   extern __shared__ float4 smem_v4[];
   float* smem = reinterpret_cast<float*>(smem_v4);
   const int n_dkv = gridDim.x - n_dq;
   const int idx = blockIdx.x;
   if (dq_first ? idx < n_dq : idx >= n_dkv)
     dq_block<D>(q, k, v, dout, lse, delta, ls, dq, B, Sq, Sk, H, KV, scale, scale_log2, causal,
-                dq_first ? idx : idx - n_dkv, smem);
+                q_offset, dq_first ? idx : idx - n_dkv, smem);
   else
     dkv_block<D>(q, k, v, dout, lse, delta, ls, dk, dv, B, Sq, Sk, H, KV, scale, scale_log2, causal,
-                 dq_first ? idx - n_dq : idx, smem);
+                 q_offset, dq_first ? idx - n_dq : idx, smem);
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                    const float* delta, int ls, void* dq, void* dk, void* dv, int B, int Sq, int Sk,
-                   int H, int KV, float scale, int causal, int device, cudaStream_t stream) {
+                   int H, int KV, float scale, int causal, int q_offset, int device,
+                   cudaStream_t stream) {
   using C = Fma<D>;
   static rt::SmemOptIn optin;
   cudaError_t err = optin.ensure(flash_bwd_fma<D>, device, C::SMEM);
@@ -874,14 +886,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   const long long n_dkv = static_cast<long long>((Sk + C::BKV - 1) / C::BKV) * KV * B;
   if (n_dq + n_dkv > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   // the heavier CTA kind first: a dQ CTA does 3 products over its keys, a
-  // dK/dV CTA 4 over the group's queries
-  const long long kv_max = causal && Sq < Sk ? Sq : Sk;
+  // dK/dV CTA 4 over the group's queries; a causal dQ CTA sees at most the
+  // keys up to its last row's global position
+  const long long seen = static_cast<long long>(q_offset) + Sq;
+  const long long kv_max = causal && seen < Sk ? seen : Sk;
   const int dq_first = 3 * kv_max >= 4LL * (H / KV) * Sq;
   flash_bwd_fma<D><<<static_cast<unsigned>(n_dq + n_dkv), kThreads, C::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), lse, delta, ls, static_cast<float*>(dq),
       static_cast<float*>(dk), static_cast<float*>(dv), B, Sq, Sk, H, KV, scale,
-      scale * 1.4426950408889634f, causal, static_cast<int>(n_dq), dq_first);
+      scale * 1.4426950408889634f, causal, q_offset, static_cast<int>(n_dq), dq_first);
   return cudaGetLastError();
 }
 
@@ -891,14 +905,14 @@ template <int D>
 cudaError_t launch_dtype(int dtype, const void* q, const void* k, const void* v, const void* dout,
                          const float* lse, const float* delta, int ls, void* dq, void* dk,
                          void* dv, int B, int Sq, int Sk, int H, int KV, float scale, int causal,
-                         int device, cudaStream_t s) {
+                         int q_offset, int device, cudaStream_t s) {
   switch (dtype) {
     case rt::kF32:
       return simt::launch<D>(q, k, v, dout, lse, delta, ls, dq, dk, dv, B, Sq, Sk, H, KV, scale,
-                             causal, device, s);
+                             causal, q_offset, device, s);
     case rt::kBF16:
       return sm90::launch<D>(q, k, v, dout, lse, delta, ls, dq, dk, dv, B, Sq, Sk, H, KV, scale,
-                             causal, device, s);
+                             causal, q_offset, device, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -921,20 +935,23 @@ extern "C" int flash_attention_bwd_f32_smem(int D) {
   }
 }
 
-// softmax_scale is the plain scale (1/sqrt(D) by default).  lse: the
-// forward's f32 (B, H, ls) log-sum-exp; delta: an f32 scratch of the same
-// shape, which the first launch fills.  ls >= Sq, and for bf16 a multiple of
-// 128 (the dK/dV pass reads lse and delta a whole q-tile at a time).
+// softmax_scale is the plain scale (1/sqrt(D) by default).  q_offset: the
+// global position of q's row 0 (>= 0), which the causal mask reads; the
+// forward's must be the same.  lse: the forward's f32 (B, H, ls)
+// log-sum-exp; delta: an f32 scratch of the same shape, which the first
+// launch fills.  ls >= Sq, and for bf16 a multiple of 128 (the dK/dV pass
+// reads lse and delta a whole q-tile at a time).
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* o, const void* dout, const void* lse,
                                           void* dq, void* dk, void* dv, void* delta, int ls,
                                           int B, int Sq, int Sk, int H, int KV, int D,
-                                          float softmax_scale, int causal, int dtype, int device,
-                                          void* stream) {
+                                          float softmax_scale, int causal, int q_offset, int dtype,
+                                          int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B == 0 || H == 0) return cudaSuccess;
-  if (Sq == 0 || Sk == 0 || KV == 0 || H % KV != 0 || ls < Sq) return cudaErrorInvalidValue;
+  if (Sq == 0 || Sk == 0 || KV == 0 || H % KV != 0 || ls < Sq || q_offset < 0)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* lf = static_cast<const float*>(lse);
   float* df = static_cast<float*>(delta);
@@ -956,25 +973,25 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
   switch (D) {
     case 16:
       return launch_dtype<16>(dtype, q, k, v, dout, lf, df, ls, dq, dk, dv, B, Sq, Sk, H, KV,
-                              softmax_scale, causal, device, s);
+                              softmax_scale, causal, q_offset, device, s);
     case 32:
       return launch_dtype<32>(dtype, q, k, v, dout, lf, df, ls, dq, dk, dv, B, Sq, Sk, H, KV,
-                              softmax_scale, causal, device, s);
+                              softmax_scale, causal, q_offset, device, s);
     case 64:
       return launch_dtype<64>(dtype, q, k, v, dout, lf, df, ls, dq, dk, dv, B, Sq, Sk, H, KV,
-                              softmax_scale, causal, device, s);
+                              softmax_scale, causal, q_offset, device, s);
     case 80:
       return launch_dtype<80>(dtype, q, k, v, dout, lf, df, ls, dq, dk, dv, B, Sq, Sk, H, KV,
-                              softmax_scale, causal, device, s);
+                              softmax_scale, causal, q_offset, device, s);
     case 96:
       return launch_dtype<96>(dtype, q, k, v, dout, lf, df, ls, dq, dk, dv, B, Sq, Sk, H, KV,
-                              softmax_scale, causal, device, s);
+                              softmax_scale, causal, q_offset, device, s);
     case 128:
       return launch_dtype<128>(dtype, q, k, v, dout, lf, df, ls, dq, dk, dv, B, Sq, Sk, H, KV,
-                               softmax_scale, causal, device, s);
+                               softmax_scale, causal, q_offset, device, s);
     case 192:
       return launch_dtype<192>(dtype, q, k, v, dout, lf, df, ls, dq, dk, dv, B, Sq, Sk, H, KV,
-                               softmax_scale, causal, device, s);
+                               softmax_scale, causal, q_offset, device, s);
     default:
       return cudaErrorInvalidValue;
   }

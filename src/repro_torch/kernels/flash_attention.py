@@ -25,8 +25,8 @@ raises.
 
 ``q_offset`` is the global position of q's row 0, which the causal mask
 reads (k_pos <= q_offset + q_pos): a sequence shard of q beside the whole k
-and v, as sequence-parallel prefill keeps it.  A non-causal call ignores
-it.  Only the forward takes it: the backward's mask stays at diagonal 0.
+and v, as sequence-parallel prefill and training keep it.  A non-causal
+call ignores it.  The backward takes the same offset as its forward.
 
 ``return_lse=True`` also returns each row's log-sum-exp, (B, H, Sq) f32 in
 the log2 domain of the scaled scores (``ref.flash_attention_lse_ref``); only
@@ -61,6 +61,7 @@ SMEM_CTA = 227 * 1024  # shared memory a CTA can have
 launches = 0  # kernel launches since the last reset (see ops.reset_launch_counts)
 offset_launches = 0  # those of them with a query offset above 0
 bwd_launches = 0  # the same, of the backward kernel
+bwd_offset_launches = 0  # those of them with a query offset above 0
 
 
 def flash_attention(
@@ -214,8 +215,11 @@ def flash_attention_bwd(
     *,
     causal: bool = True,
     softmax_scale: float | None = None,
+    q_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of ``flash_attention(q, k, v)``.  No TPU counterpart.
+    """(dq, dk, dv) of ``flash_attention(q, k, v, q_offset=q_offset)``.  No
+    TPU counterpart.  Under causal, keys from ``q_offset + Sq`` on are seen
+    by no query: their dk and dv are zeros.
 
     Bound on the H100: operations, 2.5x the forward's.  Deterministic (no
     atomics; see the source's header): delta = rowsum(do * o) into an f32
@@ -224,7 +228,9 @@ def flash_attention_bwd(
     head), both on ``wgmma`` with TMA rings, P rebuilt from ``lse``; for f32
     the same two passes as the CTAs of one launch, register-tiled f32 FMAs
     on cp.async rings."""
-    global bwd_launches
+    global bwd_launches, bwd_offset_launches
+    if q_offset < 0:
+        raise ValueError(f"flash backward needs q_offset >= 0, got {q_offset}")
     _check(q, k, v)
     b, sq, h, d = q.shape
     _, sk, kv, _ = k.shape
@@ -255,14 +261,16 @@ def flash_attention_bwd(
         "flash_attention_bwd",
         "flash_attention_bwd_launch",
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float]
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     )
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), ls,
-        b, sq, sk, h, kv, q.shape[3], scale, int(causal), _build.DTYPES[q.dtype], q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        b, sq, sk, h, kv, q.shape[3], scale, int(causal), int(q_offset), _build.DTYPES[q.dtype],
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check("flash_attention_bwd", err)
     bwd_launches += 1
+    if q_offset:
+        bwd_offset_launches += 1
     return dq[..., :d], dk[..., :d], dv[..., :d]

@@ -37,9 +37,12 @@ sequence shards thus:
   A slice with no key of a row (past its length, or an uneven shard's
   empty tail) has weight 0.
 * the flash forward keeps q's sequence shard beside the whole k and v
-  (gathered), its block start the query offset, where no gradient is
-  needed (every serving prefill).  Under autograd q is gathered as well,
-  because the backward kernel takes no offset.
+  (gathered), its block start the query offset, in serving and in
+  training alike; under autograd its backward runs at the same offset.
+  Each rank's dk and dv then sum over its own q rows only: they are marked
+  partial on the sequence's mesh dims, and autograd sums them across the
+  shards (the all-reduce that k's and v's replicated constraint gives their
+  gradient, as in the reference).
 
 Nothing falls back to the gathered layout: a kernel or the merge that
 fails raises.  Under GQA the rules may shard q's heads over an axis that
@@ -115,19 +118,20 @@ class _FlashAttention(torch.autograd.Function):
     """The flash kernel with the backward kernel as its gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, softmax_scale):
+    def forward(ctx, q, k, v, causal, softmax_scale, q_offset):
         o, lse = _flash.flash_attention(q, k, v, causal=causal, softmax_scale=softmax_scale,
-                                        return_lse=True)
+                                        return_lse=True, q_offset=q_offset)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.softmax_scale = causal, softmax_scale
+        ctx.causal, ctx.softmax_scale, ctx.q_offset = causal, softmax_scale, q_offset
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = _flash.flash_attention_bwd(
-            q, k, v, o, do.contiguous(), lse, causal=ctx.causal, softmax_scale=ctx.softmax_scale)
-        return dq, dk, dv, None, None
+            q, k, v, o, do.contiguous(), lse, causal=ctx.causal, softmax_scale=ctx.softmax_scale,
+            q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -212,16 +216,16 @@ def _kv_heads_for(q, q_pl, kv, kv_pl, q_heads: int, kv_heads: int) -> slice | li
 
 
 def _flash_blocks(q, k, v, causal, softmax_scale, q_offset, impl):
-    """A forward that needs no gradient keeps q's sequence shard beside the
-    whole k and v, its block start the query offset; under autograd q is
-    gathered, since the backward kernel takes no offset."""
+    """q's sequence shard beside the whole k and v, its block start the
+    query offset, forward and backward; k's and v's gradients are partial
+    on the mesh dims that shard q's sequence (each rank's sum over its own q
+    rows) and on those whose KV heads are sliced."""
     Partial, Replicate, _ = sh.placement_types()
     mesh = _mesh_of(q, k, v)
     q, k, v = (sh.as_dtensor(t, mesh) for t in (q, k, v))
-    q_pl, kv_pl, sliced, _ = _attention_layout(
-        q, (k, v), 2, 2, q_seq=None if _needs_grad(q, k, v) else 1)
+    q_pl, kv_pl, sliced, seq = _attention_layout(q, (k, v), 2, 2, q_seq=1)
     q, k, v = sh.redistributed(q, q_pl), sh.redistributed(k, kv_pl), sh.redistributed(v, kv_pl)
-    grad_pl = [Partial() if i in sliced else p for i, p in enumerate(kv_pl)]
+    grad_pl = [Partial() if i in sliced or i in seq else p for i, p in enumerate(kv_pl)]
     heads = _kv_heads_for(q, q_pl, k, kv_pl, 2, 2)
     kl, vl = (t.to_local(grad_placements=grad_pl)[:, :, heads] for t in (k, v))
     start = sh.local_block(tuple(q.shape), mesh, tuple(q_pl))[1].start
@@ -330,15 +334,13 @@ def flash_attention(
     impl: str | None = None,
 ):
     """``q_offset``: the global position of q's row 0, which the causal mask
-    reads (a sequence shard of q beside the whole k and v); the kernel path
-    takes it only where no gradient is needed."""
+    reads (a sequence shard of q beside the whole k and v), forward and
+    backward."""
     if any(sh.is_dtensor(t) for t in (q, k, v)):
         return _flash_blocks(q, k, v, causal, softmax_scale, q_offset, impl)
     if _use_kernel(impl, q):
         if _needs_grad(q, k, v):
-            if q_offset and causal:
-                raise ValueError("flash backward kernel takes no query offset")
-            return _FlashAttention.apply(q, k, v, causal, softmax_scale)
+            return _FlashAttention.apply(q, k, v, causal, softmax_scale, q_offset)
         return _flash.flash_attention(q, k, v, causal=causal, softmax_scale=softmax_scale,
                                       q_offset=q_offset)
     return ref.flash_attention_ref(q, k, v, causal=causal, softmax_scale=softmax_scale,
@@ -382,11 +384,12 @@ KERNELS = {
 
 
 # variant name -> (wrapper module, its counter): the launches of a kernel
-# above that also take an option of sequence-sharded serving (each also
-# counts under the kernel's own name)
+# above that also take an option of sequence-sharded serving or training
+# (each also counts under the kernel's own name)
 VARIANTS = {
     "decode_attention_lse": (_decode, "lse_launches"),
     "flash_attention_q_offset": (_flash, "offset_launches"),
+    "flash_attention_bwd_q_offset": (_flash, "bwd_offset_launches"),
 }
 _COUNTERS = {**KERNELS, **VARIANTS}
 

@@ -142,14 +142,16 @@ def flash_attention_bwd_ref(
     *,
     causal: bool = True,
     softmax_scale: float | None = None,
+    q_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``flash_attention_ref`` in f32 with P materialised:
     dV = P^T dO, dP = dO V^T, dS = P * (dP - delta) with delta = rowsum(dO * O),
     dQ = scale dS K, dK = scale dS^T Q.  For GQA, dk and dv sum over each KV
-    head's n_rep query heads.  The causal mask keeps k_pos <= q_pos (the
-    diagonal at 0, as the kernels).  P is softmax(S); given the forward's
-    ``lse`` (as ``flash_attention_lse_ref`` gives it), P = exp2(S log2(e) -
-    lse), as the kernels rebuild it."""
+    head's n_rep query heads.  The causal mask keeps k_pos <= q_offset +
+    q_pos, as the kernels (keys no query sees get dk = dv = 0).  P is
+    softmax(S); given the forward's ``lse`` (as ``flash_attention_lse_ref``
+    gives it, at the same offset), P = exp2(S log2(e) - lse), as the kernels
+    rebuild it."""
     b, sq, h, d = q.shape
     _, sk, kv, _ = k.shape
     n_rep = h // kv
@@ -157,7 +159,7 @@ def flash_attention_bwd_ref(
     qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))  # (B, heads, S, D)
     of, dof = o.float().transpose(1, 2), do.float().transpose(1, 2)
     kr, vr = kf.repeat_interleave(n_rep, dim=1), vf.repeat_interleave(n_rep, dim=1)
-    s = _scores(q, k, causal, softmax_scale)
+    s = _scores(q, k, causal, softmax_scale, q_offset)
     if lse is None:
         p = torch.softmax(s, dim=-1)
     else:

@@ -1161,3 +1161,51 @@ def test_flash_kernel_q_offset_blocks(cuda, b, s, sk, h, kv, d, causal, dt):
         lses.append(l)
     _close(torch.cat(outs, dim=1), whole, dt)
     _close(torch.cat(lses, dim=2), whole_lse, "f32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,s,sk,h,kv,d", [(1, 512, 512, 32, 8, 128), (2, 300, 300, 8, 2, 96),
+                                          (1, 700, 700, 16, 16, 64), (2, 200, 333, 8, 2, 64),
+                                          (1, 333, 333, 12, 1, 192), (1, 129, 129, 4, 4, 24)])
+def test_flash_bwd_kernel_q_offset_blocks(cuda, b, s, sk, h, kv, d, causal, dt):
+    """q cut into 4 row blocks (uneven; offsets not multiples of the
+    kernels' 32- or 64-row q-tiles), each through the forward with its lse
+    and the backward at its offset: each block's (dq, dk, dv) against the
+    plain backward at that offset, within the tolerance of each gradient's
+    scale; under causal the keys past the block's last row get dk = dv = 0
+    exactly; two runs bit-equal; the blocks' dq concatenated and their dk
+    and dv summed are the whole backward call's; the offset launches are
+    counted."""
+    from repro_torch.kernels import flash_attention as flash
+
+    _, (q, do, k, v) = _inputs(75, [(b, s, h, d), (b, s, h, d), (b, sk, kv, d), (b, sk, kv, d)],
+                               dt, cuda)
+    cuts = [0, s // 5, s // 2, s - 37, s]
+
+    def held(got, want):
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == w.dtype
+            scale_w = max(1.0, float(w.float().abs().max()))
+            np.testing.assert_allclose(g.float().cpu().numpy(), w.float().cpu().numpy(),
+                                       atol=TOL[dt]["atol"] * scale_w, rtol=TOL[dt]["rtol"])
+
+    dqs, dk, dv = [], torch.zeros(k.shape, device=cuda), torch.zeros(v.shape, device=cuda)
+    before = ops.variant_counts()["flash_attention_bwd_q_offset"]
+    for a, e in zip(cuts, cuts[1:]):
+        qb, dob = q[:, a:e].contiguous(), do[:, a:e].contiguous()
+        o, lse = flash.flash_attention(qb, k, v, causal=causal, return_lse=True, q_offset=a)
+        got = flash.flash_attention_bwd(qb, k, v, o, dob, lse, causal=causal, q_offset=a)
+        again = flash.flash_attention_bwd(qb, k, v, o, dob, lse, causal=causal, q_offset=a)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        held(got, ref.flash_attention_bwd_ref(qb, k, v, o, dob, lse, causal=causal, q_offset=a))
+        if causal:
+            assert not got[1][:, e:].any() and not got[2][:, e:].any()
+        dqs.append(got[0])
+        dk += got[1].float()
+        dv += got[2].float()
+    assert ops.variant_counts()["flash_attention_bwd_q_offset"] == before + 2 * 3
+    o, lse = flash.flash_attention(q, k, v, causal=causal, return_lse=True)
+    whole = flash.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    held((torch.cat(dqs, dim=1), dk, dv), [t.float() if i else t for i, t in enumerate(whole)])

@@ -2,13 +2,16 @@
 device mesh) against the JAX package's unsharded one.
 
 One spawn of 4 gloo CPU processes on a (2, 2) ("data", "model") mesh runs
-3 sharded train steps of four REDUCED configs under their full configs'
+3 sharded train steps of six REDUCED configs under their full configs'
 sharding overrides: granite-8b (tensor parallel, two microbatches),
 nemotron-4-340b (the FSDP overlay: d_model over "data"), olmoe-1b-7b
-(experts over "model"), qwen1.5-4b (sequence parallel: "seq" over
-"model") and mamba2-370m (the SSD scan on each rank's batch and head
-block).  The weights are JAX's init carried over through
-``models.bridge``; the batches are the shared numpy pipeline's.
+(experts over "model"), qwen1.5-4b and minicpm3-4b (MLA) (sequence
+parallel: "seq" over "model", q a local sequence shard at its query
+offset in the flash forward and backward, only k and v gathered) and
+mamba2-370m (the SSD scan on each rank's batch and head block).  The
+weights are JAX's init carried over through ``models.bridge``; the
+batches are the shared numpy pipeline's.  Each worker records the local
+operand of every all-gather of its sharded steps.
 
 Before each step rank 0 writes the gathered parameters, and the parent runs
 JAX's ``build_train_step`` on those same parameters and that step's batch:
@@ -64,7 +67,8 @@ SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
 WORLD = 4
 TOL = dict(rtol=3e-5, atol=3e-5)  # tests/test_kernels.py's f32 tolerance
 ARCHS = {"granite-8b": 2, "nemotron-4-340b": 1, "olmoe-1b-7b": 1, "qwen1.5-4b": 1,
-         "mamba2-370m": 1}  # microbatches
+         "mamba2-370m": 1, "minicpm3-4b": 1}  # microbatches
+SEQ_ARCHS = ("qwen1.5-4b", "minicpm3-4b")  # "seq" over "model"
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=20)
 BATCH, SEQ, STEPS = 4, 16, 3
 # Sharded against unsharded step, relative norm of the difference per leaf.
@@ -81,10 +85,13 @@ WORKER = textwrap.dedent("""
     import numpy as np
     import torch
     import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
 
     torch.set_num_threads(1)
     from repro_torch.configs import get_config
     from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.train import _device_batch
     from repro_torch.models import bridge
@@ -112,6 +119,30 @@ WORKER = textwrap.dedent("""
         scale = want.norm().item()
         return ((got - want).norm().item() / scale) if scale else got.norm().item()
 
+    class Gathers(TorchDispatchMode):
+        # the local operand shape of each all-gather issued below DTensor
+
+        def __init__(self):
+            super().__init__()
+            self.shapes = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            if func.namespace == "_c10d_functional" and func.__name__.startswith("all_gather"):
+                self.shapes.append(list(args[0].shape))
+            return func(*args, **(kwargs or {}))
+
+    flash_q = []  # q's local block at each sharded flash call (forward and remat's recompute)
+    flash = ops.flash_attention
+
+    def counted_flash(q, *a, **kw):
+        if sh.is_dtensor(q):
+            flash_q.append(list(q.to_local().shape))
+        return flash(q, *a, **kw)
+
+    ops.flash_attention = counted_flash  # the models call it through the module
+
     out = {}
     for arch, micro in archs.items():
         cfg = get_config(arch, reduced=True).replace(
@@ -130,6 +161,8 @@ WORKER = textwrap.dedent("""
         opt_state = adamw_init(params, AdamWConfig(**opt))
         step_fn = build_train_step(cfg, AdamWConfig(**opt), microbatches=micro)
         losses, norms, apart = [], [], []
+        gathers = Gathers()
+        flash_q.clear()
         for step in range(steps):
             before = {k: full(v).numpy() for k, v in tree_paths(params)}
             if rank == 0:
@@ -141,7 +174,7 @@ WORKER = textwrap.dedent("""
             else:
                 tree_map(full, (params, opt_state))  # rank 0's gathers
             b = _device_batch(cfg, batch, seq, step, 1, torch.device("cpu"), rules)
-            with sh.use_sharding_rules(rules):
+            with sh.use_sharding_rules(rules), gathers:
                 params, opt_state, m = step_fn(params, opt_state, b)
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
@@ -162,7 +195,8 @@ WORKER = textwrap.dedent("""
                          "params": placed(params),
                          "m": placed(opt_state["m"]), "v": placed(opt_state["v"]),
                          "batch": placed(b), "seq_sharded": sh.seq_sharded(),
-                         "mesh": list(mesh.shape)}
+                         "mesh": list(mesh.shape), "flash_q": flash_q[:],
+                         "gathers": [g for g in gathers.shapes if len(g) == 4]}
     if rank == 0:
         with open(f"{tmp}/out.json", "w") as f:
             json.dump(out, f)
@@ -285,6 +319,21 @@ def test_sharded_update_matches_the_unsharded_step(runs, arch):
             assert leaves[worst] <= APART[kind], (step, kind, worst, leaves[worst])
 
 
+@pytest.mark.parametrize("arch", SEQ_ARCHS)
+def test_seq_parallel_training_keeps_q_local(runs, arch):
+    """Under sequence parallelism every flash call of the sharded steps (the
+    forward and remat's recompute) takes q as its local sequence block
+    (half the batch over "data", half the sequence over "model"), and the
+    steps gather no q: their all-gathers of operands of that block's shape
+    are k's and v's, two a call (three while q was gathered too)."""
+    rec = runs[1][arch]
+    calls = rec["flash_q"]
+    assert calls, "no flash call took a DTensor"
+    q_block = calls[0]
+    assert q_block[:2] == [BATCH // 2, SEQ // 2] and all(c == q_block for c in calls), calls
+    assert rec["gathers"].count(q_block) == 2 * len(calls), rec["gathers"]
+
+
 def _sharded_on(placements: dict, axis: int, mesh_dim: int) -> list[str]:
     """Leaves whose placement on ``mesh_dim`` is Shard(axis)."""
     return [k for k, pl in placements.items() if pl[mesh_dim] == f"S({axis})"]
@@ -302,7 +351,7 @@ def test_every_kind_of_leaf_is_really_sharded(runs, arch):
         assert "layers/mlp/w_up" in _sharded_on(rec["params"], 1, 0)
     if arch == "olmoe-1b-7b":  # experts over "model"
         assert {"layers/moe/w_up", "layers/moe/w_down"} <= set(_sharded_on(rec["params"], 1, 1))
-    assert rec["seq_sharded"] == (arch == "qwen1.5-4b")
+    assert rec["seq_sharded"] == (arch in SEQ_ARCHS)
     assert "embed/tok" in _sharded_on(rec["params"], 0, 1)  # vocab over "model"
     if arch == "mamba2-370m":  # SSM heads over "model"
         assert "layers/mixer/a_log" in _sharded_on(rec["params"], 1, 1)

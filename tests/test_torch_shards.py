@@ -1,7 +1,8 @@
 """Sequence-sharded attention in the port, piece by piece, against the JAX
 package on the CPU: the plain decode with its log-sum-exp over cache slices
 merged by ``ops.merge_partials`` (flash-decoding), the plain flash forward
-with a query offset row block by row block, and the dry-run's gathers.
+and backward with a query offset row block by row block, the kernel path's
+dispatch at an offset, and the dry-run's gathers and FLOPs.
 
 Inputs come from numpy seeds and go to both sides.  Tolerances are the
 reference's (tests/test_kernels.py:16-17): f32 3e-5, bf16 2e-2.
@@ -18,9 +19,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.models import layers as JL  # noqa: E402
+from repro_torch.kernels import flash_attention as _flash  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import kvcache  # noqa: E402
 
@@ -159,7 +162,22 @@ FLASH_CASES = {  # name -> (b, s, h, kv, d, v_dim, row cuts)
     "gqa4": (2, 48, 8, 2, 32, 32, [0, 12, 24, 36, 48]),
     "gqa4-uneven": (1, 37, 8, 2, 64, 64, [0, 10, 20, 30, 37]),
     "mla96": (1, 40, 4, 4, 96, 64, [0, 5, 17, 40]),
+    "gqa4-long": (1, 200, 8, 2, 16, 16, [0, 70, 131, 200]),  # offsets past 64, not multiples of it
 }
+
+
+def _flash_inputs(case, seed):
+    """numpy q, k, v and dO of a FLASH_CASES case: V zero past v_dim (as
+    mla_prefill pads it), and dO too (the padded columns are sliced off
+    the output, so their gradient is 0)."""
+    b, s, h, kv, d, vd, _ = FLASH_CASES[case]
+    rng = np.random.default_rng(seed)
+    q, k = (rng.standard_normal(sh).astype(np.float32) for sh in ((b, s, h, d), (b, s, kv, d)))
+    v = np.zeros((b, s, kv, d), np.float32)
+    v[..., :vd] = rng.standard_normal((b, s, kv, vd))
+    do = np.zeros((b, s, h, d), np.float32)
+    do[..., :vd] = rng.standard_normal((b, s, h, vd))
+    return q, k, v, do
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -170,10 +188,7 @@ def test_flash_q_offset_blocks_match_jax(case, causal):
     MLA's D = 96 with V zero-padded from 64 and the scale 1/sqrt(96), as
     mla_prefill calls it), in f32; each block's lse = the whole q's lse rows."""
     b, s, h, kv, d, vd, cuts = FLASH_CASES[case]
-    rng = np.random.default_rng(5)
-    q, k = (rng.standard_normal(sh).astype(np.float32) for sh in ((b, s, h, d), (b, s, kv, d)))
-    v = np.zeros((b, s, kv, d), np.float32)
-    v[..., :vd] = rng.standard_normal((b, s, kv, vd))
+    q, k, v, _ = _flash_inputs(case, 5)
     scale = 1.0 / math.sqrt(d)
     tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
     got = torch.cat([ops.flash_attention(tq[:, a:e], tk, tv, causal=causal, softmax_scale=scale,
@@ -187,6 +202,97 @@ def test_flash_q_offset_blocks_match_jax(case, causal):
         part = ref.flash_attention_lse_ref(tq[:, a:e], tk, causal=causal, softmax_scale=scale,
                                            q_offset=a)
         torch.testing.assert_close(part, whole[..., a:e], **TOL["f32"])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_bwd_q_offset_blocks_match_jax(case, causal):
+    """The plain backward (``flash_attention_bwd_ref``, P rebuilt from the
+    block's lse as the kernels do) over q's row blocks, each at its offset,
+    against ``jax.vjp`` of chunked_attention over the whole q with a
+    cotangent that is zero outside the block's rows: the block's dq is that
+    dq's rows, its dk and dv that dk and dv, in f32; under causal the keys
+    past the block's last row get dk = dv = 0 exactly; the blocks' dq
+    concatenated and their dk and dv summed are the whole vjp."""
+    b, s, h, kv, d, vd, cuts = FLASH_CASES[case]
+    q, k, v, do = _flash_inputs(case, 7)
+    scale = 1.0 / math.sqrt(d)
+
+    def attn(q, k, v):
+        return JL.chunked_attention(q, k, v, causal=causal, q_chunk=16, kv_chunk=16,
+                                    softmax_scale=scale)
+
+    _, vjp = jax.vjp(attn, *(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    kw = dict(causal=causal, softmax_scale=scale)
+    dqs, dk_sum, dv_sum = [], torch.zeros_like(tk), torch.zeros_like(tv)
+    for a, e in zip(cuts, cuts[1:]):
+        ct = np.zeros_like(do)
+        ct[:, a:e] = do[:, a:e]
+        jdq, jdk, jdv = (np.asarray(g) for g in vjp(jnp.asarray(ct)))
+        qb = tq[:, a:e]
+        o = ref.flash_attention_ref(qb, tk, tv, q_offset=a, **kw)
+        lse = ref.flash_attention_lse_ref(qb, tk, q_offset=a, **kw)
+        dq, dk, dv = ref.flash_attention_bwd_ref(qb, tk, tv, o, tdo[:, a:e], lse, q_offset=a, **kw)
+        np.testing.assert_allclose(dq.numpy(), jdq[:, a:e], **TOL["f32"], err_msg=f"dq [{a}, {e})")
+        np.testing.assert_allclose(dk.numpy(), jdk, **TOL["f32"], err_msg=f"dk [{a}, {e})")
+        np.testing.assert_allclose(dv.numpy(), jdv, **TOL["f32"], err_msg=f"dv [{a}, {e})")
+        if causal:
+            assert not dk[:, e:].any() and not dv[:, e:].any(), f"keys past row {e - 1} of [{a}, {e})"
+        dqs.append(dq)
+        dk_sum += dk
+        dv_sum += dv
+    jdq, jdk, jdv = (np.asarray(g) for g in vjp(jnp.asarray(do)))
+    np.testing.assert_allclose(torch.cat(dqs, dim=1).numpy(), jdq, **TOL["f32"])
+    np.testing.assert_allclose(dk_sum.numpy(), jdk, **TOL["f32"])
+    np.testing.assert_allclose(dv_sum.numpy(), jdv, **TOL["f32"])
+    assert not dv_sum[..., vd:].any()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_kernel_path_takes_the_offset_forward_and_backward(monkeypatch, causal):
+    """The kernel path's dispatch on the CPU (``_use_kernel`` forced on, each
+    wrapper swapped for its plain version): a call at an offset that needs
+    a gradient goes through ``_FlashAttention``, whose forward asks for the
+    lse at that offset and whose backward is the backward wrapper at the
+    same offset; its gradients are autograd's of the plain version at it."""
+    seen = []
+
+    def fwd(q, k, v, *, causal, softmax_scale, return_lse, q_offset):
+        seen.append(("fwd", return_lse, q_offset))
+        o = ref.flash_attention_ref(q, k, v, causal=causal, softmax_scale=softmax_scale,
+                                    q_offset=q_offset)
+        return o, ref.flash_attention_lse_ref(q, k, causal=causal, softmax_scale=softmax_scale,
+                                              q_offset=q_offset)
+
+    def bwd(q, k, v, o, do, lse, *, causal, softmax_scale, q_offset):
+        seen.append(("bwd", q_offset))
+        return ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
+                                           softmax_scale=softmax_scale, q_offset=q_offset)
+
+    monkeypatch.setattr(ops, "_use_kernel", lambda impl, t: True)
+    monkeypatch.setattr(_flash, "flash_attention", fwd)
+    monkeypatch.setattr(_flash, "flash_attention_bwd", bwd)
+    q, k, v, do = (torch.from_numpy(a) for a in _flash_inputs("gqa4-long", 8))
+    a, e = 70, 131
+    grads = {}
+    for path in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_() for t in (q[:, a:e], k, v)]
+        fn = ops.flash_attention if path == "kernel" else ref.flash_attention_ref
+        out = fn(*leaves, causal=causal, q_offset=a)
+        out.backward(do[:, a:e])
+        grads[path] = [t.grad for t in leaves]
+    assert seen == [("fwd", True, a), ("bwd", a)]
+    for g, w in zip(grads["kernel"], grads["plain"]):
+        torch.testing.assert_close(g, w, **TOL["f32"])
+
+
+def test_flash_bwd_rejects_a_negative_offset():
+    """The backward wrapper refuses q_offset < 0, as the forward does,
+    before it looks at the device."""
+    x = torch.zeros(1, 4, 2, 16)
+    with pytest.raises(ValueError, match="q_offset >= 0"):
+        _flash.flash_attention_bwd(x, x, x, x, x, causal=True, q_offset=-1)
 
 
 def test_flash_q_offset_past_the_keys():
@@ -219,11 +325,33 @@ def test_dryrun_granite_decode_32k_gathers_no_cache(tmp_path):
     assert rec["coll_by_op"]["all_gather_into_tensor"] < 0.01 * DRYRUN_GATHER_BEFORE, rec["coll_by_op"]
 
 
+DRYRUN_FLOPS_BEFORE = 6.764e14  # qwen1.5-4b train_4k, single mesh, dot FLOPs a device, q gathered under autograd
+
+
+def test_dryrun_qwen_train_4k_keeps_q_local(tmp_path):
+    """The dry-run of qwen1.5-4b ``train_4k`` on the single-pod mesh (256
+    fake ranks, in a subprocess; "seq" over the 16-way "model" axis): with q
+    a local sequence shard in the forward and backward, a device's dot
+    FLOPs are at most 1.6e14, not the 6.764e14 of every rank computing the
+    whole sequence's attention; the cell is ok."""
+    env = {**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "1"}
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "qwen1.5-4b", "--shape",
+         "train_4k", "--mesh", "single", "--out", str(tmp_path), "--force"],
+        env=env, capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    rec = json.loads((tmp_path / "qwen1.5-4b__train_4k__single.json").read_text())
+    assert rec["ok"]
+    assert rec["dot_flops_per_dev"] <= 1.6e14 < DRYRUN_FLOPS_BEFORE, rec["dot_flops_per_dev"]
+
+
 def test_variant_counts_reset_with_the_kernels():
-    """The two variants' counters (decode with lse, flash with a query
-    offset) reset with the kernels' and stay out of ``launch_counts``."""
+    """The variants' counters (decode with lse, the flash forward and
+    backward with a query offset) reset with the kernels' and stay out of
+    ``launch_counts``."""
     ops.reset_launch_counts()
-    assert ops.variant_counts() == {"decode_attention_lse": 0, "flash_attention_q_offset": 0}
+    assert ops.variant_counts() == {"decode_attention_lse": 0, "flash_attention_q_offset": 0,
+                                    "flash_attention_bwd_q_offset": 0}
     assert set(ops.launch_counts()) == set(ops.KERNELS)
     with ops.uncounted():
         from repro_torch.kernels import decode_attention as dk

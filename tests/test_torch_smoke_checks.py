@@ -221,3 +221,28 @@ def test_flash_work_counts_each_blocks_causal_pairs():
     parts = [cs.work("flash_attention", (q[:, a:e], k, k), {"causal": True, "q_offset": a}, "bf16")[1]
              for a, e in zip(starts, starts[1:])]
     assert sum(parts) == whole and parts == sorted(parts)
+
+
+def test_flash_bwd_work_counts_each_blocks_causal_pairs():
+    """The backward's bound of a q block at its offset counts the causal
+    pairs its rows see, as the forward's: the 4 blocks' FLOPs add up to the
+    whole call's, the last block the heaviest."""
+    import torch
+
+    q, k = torch.empty(1, 512, 4, 64), torch.empty(1, 512, 2, 64)
+    whole = cs.bwd_work("flash_attention_bwd", (q, k), {"causal": True}, "bf16")[1]
+    starts = cs.block_starts(512, 4)
+    parts = [cs.bwd_work("flash_attention_bwd", (q[:, a:e], k), {"causal": True, "q_offset": a},
+                         "bf16")[1] for a, e in zip(starts, starts[1:])]
+    assert sum(parts) == whole and parts == sorted(parts)
+
+
+def test_kernel_line_lists_every_variant():
+    """Phase 14's rows of the kernel line are the dispatch's variants, each
+    from the source of its kernel."""
+    from repro_torch.kernels import ops
+
+    assert [name for name, *_ in cs.SHARD_VARIANTS] == list(ops.VARIANTS)
+    for name, source, *_ in cs.SHARD_VARIANTS:
+        mod, _ = ops.VARIANTS[name]
+        assert Path(mod.__file__).stem in source

@@ -68,8 +68,10 @@ def worker(root: Path, save: Path | None = None) -> dict:
     return out
 
 
-def main(argv: list[str] | None = None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def main(argv: list[str] | None = None, worker=worker, script: str = __file__) -> int:
+    """The A/B of ``worker``'s cases (``tools/ab_flash_backward.py`` passes
+    its own worker and script)."""
+    ap = argparse.ArgumentParser(description=sys.modules[worker.__module__].__doc__.splitlines()[0])
     ap.add_argument("other", type=Path, help="root of the other checkout")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--bit-equal", choices=("bf16", "f32", "both"), default="both",
@@ -89,7 +91,7 @@ def main(argv: list[str] | None = None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         saved = {}  # side -> the directory of its first run's outputs
         for side in order:
-            cmd = [sys.executable, __file__, "--worker", str(sides[side])]
+            cmd = [sys.executable, script, "--worker", str(sides[side])]
             if side not in saved and len(exact) < 2:
                 saved[side] = Path(tmp) / side
                 saved[side].mkdir()
