@@ -233,8 +233,20 @@ Run from the root of a checkout.  Phases, each of which must pass:
               each causal block's last row, two runs bit-equal; timed: the
               last block beside its plain version, SDPA forward + backward
               with the offset as a mask less its forward, and the whole
-              call; every time logged beside the card's name and power
-              limit
+              call; (e) minicpm3-4b's absorbed decode at full width (40
+              heads, kv_lora 256, rope 32) over 8 slots x 32,768 latent rows,
+              bf16 and f32 caches, cut into 4 and 16 blocks (local_block's
+              cuts) and by hand into uneven blocks with one empty:
+              ops.mla_decode_block over each from its start, merged, held to
+              the whole unsharded core (bf16 2e-2, f32 3e-5; lse too), two
+              runs bit-equal, every block past a row's length weighing 0;
+              timed cold: the block with the most valid rows beside its
+              byte bound, the merge and the whole call; (f) minicpm3-4b (2
+              layers, full width) served through the one-rank mesh with
+              the latent cache's sequence over "model", so each decode
+              runs the block path: logits and tokens bit-equal to the
+              unsharded run, n_layers x steps block calls; every time
+              logged beside the card's name and power limit
 
 It prints one JSON ``kernels`` line (the three forward kernels, the decode
 kernel over the int8 cache with its launches in phase 7b, the two backward
@@ -3191,6 +3203,14 @@ SHARD_FLASH_BWD = {k: v for k, v in SHARD_FLASH.items() if k.split()[0] in ("tra
 # 14(c): granite-8b at full width through a one-rank mesh, its cache's
 # sequence over the (1-way) "model" axis: the decode of ops' DTensor path
 SHARD_SERVE = dict(layers=2, batch=4, prompt=128, steps=4)
+# 14(e): minicpm3-4b's absorbed decode over 8 slots x 32,768 latent rows;
+# lengths of at least 1, as after a step's append: the later blocks hold no
+# key of the short rows
+SHARD_MLA = dict(b=8, s=32768, lengths=(32768, 32731, 20000, 8192, 2048, 1000, 17, 1))
+SHARD_MLA_UNEVEN = (0, 1000, 1000, 9000, 20000, 32768)  # a hand cut: one empty block
+# 14(f): minicpm3-4b at full width through the one-rank mesh, its latent
+# cache's sequence over "model": MLA's decode on the block path
+SHARD_SERVE_MLA = dict(layers=2, batch=4, prompt=128, steps=4)
 # the kernel line's rows of the variants: (name, source, replaces, the case timed)
 SHARD_VARIANTS = (
     ("decode_attention_lse", "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -3413,19 +3433,114 @@ def shard_flash_bwd(torch, ops, ref, case: str, dt: str, shape) -> dict:
     return row
 
 
-def shard_serve(torch, np, ops, TF, get_config) -> dict:
+def mla_cuts(rows: int) -> dict:
+    """14(e)'s cuts of the latent cache: the first row of each block and
+    the end; 4 and 16 blocks as a mesh cuts them, and the hand cut."""
+    return {4: block_starts(rows, 4), 16: block_starts(rows, 16), "uneven": list(SHARD_MLA_UNEVEN)}
+
+
+def mla_block_work(q_abs, q_rope, ckv, krope, lengths, start: int) -> tuple[float, float]:
+    """(bytes, flops) of ``ops.mla_decode_block`` on one block: the ckv and
+    krope rows that hold a key (start + j < length) read once, q_abs and
+    q_rope read, ctx and lse (f32) written; the scores' and p·c's products
+    over those rows."""
+    b, h, r = q_abs.shape
+    rope = q_rope.shape[-1]
+    rows = int((lengths - start).clamp(0, ckv.shape[1]).sum())
+    nbytes = (rows * (r * ckv.element_size() + rope * krope.element_size())
+              + b * h * (r * q_abs.element_size() + rope * q_rope.element_size()) + 4 * b * h * (r + 1))
+    return nbytes, 2 * h * rows * (2 * r + rope)
+
+
+def shard_mla_decode(torch, ops, cfg, dt: str, card: str) -> dict:
+    """14(e): minicpm3-4b's absorbed decode core at full width over 8 x 32k
+    latent rows, cut into ``mla_cuts``' blocks: ``ops.mla_decode_block``
+    over each block from its start (the rank's call; plain products, no
+    kernel, as the reference computes it), merged by ``ops.merge_partials``
+    and held to the whole unsharded core (``ops.mla_decode_attention``)
+    at dt's tolerance of its largest magnitude, lse too; two runs
+    bit-equal; a block past a row's length has lse -inf (weight 0), an
+    empty block ctx 0.  Timed cold: the block with the most valid rows
+    beside its bound, the merge and the whole call."""
+    t = SHARD_MLA
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 17)
+    b, s, h, r, rope = t["b"], t["s"], cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_dim
+    q_abs, q_rope, ckv, krope = (torch.randn(x, generator=gen, device="cuda").to(dtype)
+                                 for x in ((b, h, r), (b, h, rope), (b, s, r), (b, s, rope)))
+    lens = torch.tensor(t["lengths"], dtype=torch.int32, device="cuda")
+    kw = {"softmax_scale": 1.0 / math.sqrt(cfg.mla_qk_head_dim)}
+    whole, whole_lse = ops.mla_decode_block(q_abs, q_rope, ckv, krope, lens, return_lse=True, **kw)
+    check(torch.equal(whole, ops.mla_decode_attention(q_abs, q_rope, ckv, krope, lens, **kw)),
+          f"shards mla {dt}: the whole block's ctx differs from the unsharded core's")
+    whole_ms = None
+    rows = {}
+    for n, starts in mla_cuts(s).items():
+        blocks = [(q_abs, q_rope, ckv[:, a:e].contiguous(), krope[:, a:e].contiguous(), lens, a)
+                  for a, e in zip(starts, starts[1:])]
+
+        def merged():
+            parts = [ops.mla_decode_block(*blk[:5], start=blk[5], return_lse=True, **kw)
+                     for blk in blocks]
+            outs, lses = torch.stack([c for c, _ in parts]), torch.stack([x for _, x in parts])
+            return ops.merge_partials(outs, lses), (outs, lses)
+
+        (ctx, lse), (outs, lses) = merged()
+        (again, again_lse), _ = merged()
+        torch.cuda.synchronize()
+        check(torch.equal(ctx, again) and torch.equal(lse, again_lse),
+              f"shards mla {dt}/{n}: two runs differ")
+        keyless = [(lens <= a)[:, None].expand(b, h) for a in starts[:-1]]
+        check(all(bool(x[k].isinf().all() and (x[k] < 0).all()) for x, k in zip(lses, keyless)),
+              f"shards mla {dt}/{n}: a block past a row's length has a finite lse")
+        check(all(not o.any() for o, (a, e) in zip(outs, zip(starts, starts[1:])) if a == e),
+              f"shards mla {dt}/{n}: an empty block's ctx is not 0")
+        row = {"case": f"minicpm3-4b B={b} S={s} {dt}", "blocks": n,
+               "rows_per_block": [e - a for a, e in zip(starts, starts[1:])],
+               "max_abs_err": max_err(torch, ctx, whole, dt, scaled=True),
+               "lse_max_abs_err": max_err(torch, lse, whole_lse, dt), "bit_equal_twice": True}
+        big = max(range(len(blocks)), key=lambda i: int((lens - starts[i]).clamp(0, starts[i + 1] - starts[i]).sum()))
+        blk, a = blocks[big][:5], blocks[big][5]
+        nbytes, flops = mla_block_work(*blk, a)
+        with ops.uncounted():
+            ms = time_ms(torch, {"block": lambda *x: ops.mla_decode_block(
+                *x, start=a, return_lse=True, **kw)}, cold_sets(blk))["block"]
+            merge = time_ms(torch, {"merge": ops.merge_partials}, [(outs, lses)])["merge"]
+            if whole_ms is None:
+                whole_ms = time_ms(torch, {"whole": lambda *x: ops.mla_decode_attention(*x, **kw)},
+                                   cold_sets((q_abs, q_rope, ckv, krope, lens)))["whole"]
+        row.update(block=big, block_start=a, block_valid_rows=int((lens - a).clamp(0, blk[2].shape[1]).sum()),
+                   ms=ms, merge_ms=merge, whole_ms=whole_ms, bytes=nbytes, flops=flops,
+                   byte_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, timed="cold")
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops, "f32")  # the products run in f32
+        rows[(dt, n)] = row
+        log(f"[shards] mla {dt} over {n} blocks: block {ms:.5f} ms (byte bound "
+            f"{row['byte_bound_ms']:.5f} ms, bound {row['bound_ms']:.5f} ms by {row['bound_by']}), "
+            f"merge {merge:.5f} ms, whole call {whole_ms:.5f} ms | {card} | " + json.dumps(row))
+        del blocks, outs, lses
+    del q_abs, q_rope, ckv, krope
+    return rows
+
+
+def shard_serve(torch, np, ops, TF, get_config, arch: str = "granite-8b") -> dict:
     """14(c): granite-8b cut to 2 layers at full width, a prefill of 4 x 128
     and 4 decode steps, once unsharded and once through a one-rank NCCL
     mesh whose rules put the cache's sequence over "model": each sharded
     decode runs ops' flash-decoding path (the kernel with lse on the rank's
     block, the all-gather and the merge).  Logits within bf16's 2e-2, token
-    ids equal."""
+    ids equal.  14(f), ``arch`` minicpm3-4b: the latent cache's sequence
+    over "model", so each sharded decode runs MLA's block path
+    (``ops.mla_decode_block`` on the rank's rows, the merge); logits
+    bit-equal to the unsharded run (one block merged gives its bits)."""
     from repro_torch.distributed import sharding as sh
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import steps as steps_mod
 
-    t = SHARD_SERVE
-    cfg = get_config("granite-8b").replace(n_layers=t["layers"])
+    mla = arch == "minicpm3-4b"
+    t = SHARD_SERVE_MLA if mla else SHARD_SERVE
+    leaf, seq_dim = ("ckv", 2) if mla else ("k", 3)  # the stacked leaf's sequence dim
+    cfg = get_config(arch).replace(n_layers=t["layers"])
     params = TF.init_params(cfg, SEED, device="cuda")
     tokens = torch.as_tensor(np.random.default_rng(SEED + 14).integers(
         0, cfg.vocab_size, size=(t["batch"], t["prompt"])).astype(np.int32), device="cuda")
@@ -3454,31 +3569,36 @@ def shard_serve(torch, np, ops, TF, get_config) -> dict:
         caches = TF.init_caches(cfg, t["batch"], max_seq, device="cuda")
         specs = sh.specs_for_axes(caches, TF.cache_axes(cfg), rules)
         caches = sh.map_pair(lambda x, spec: sh.distribute(x, spec, mesh), caches, specs)
-        placed = [str(p) for p in caches["layers"]["k"].placements]
-        check(caches["layers"]["k"].placements[1].is_shard(3),
-              f"shards serve: the cache's sequence is not over 'model': {placed}")
+        placed = [str(p) for p in caches["layers"][leaf].placements]
+        check(caches["layers"][leaf].placements[1].is_shard(seq_dim),
+              f"shards serve {arch}: the cache's sequence is not over 'model': {placed}")
         sparams = sh.distribute_tree(params, TF.param_template(cfg), rules)
-        before = ops.variant_counts()["decode_attention_lse"]
+        before = (ops.mla_block_calls, ops.variant_counts()["decode_attention_lse"])
         got = run(sparams, caches, sh.distribute(tokens, rules.spec_for_shape(
             tuple(tokens.shape), ("batch", "seq")), mesh), rules)
-        launched = ops.variant_counts()["decode_attention_lse"] - before
+        blocks = ops.mla_block_calls - before[0]
+        launched = ops.variant_counts()["decode_attention_lse"] - before[1]
         del sparams, caches
     finally:
         if started:
             torch.distributed.destroy_process_group()
     want = cfg.n_layers * t["steps"]
-    check(launched == want, f"shards serve: {launched} decode launches with lse, not {want}")
+    check((blocks, launched) == ((want, 0) if mla else (0, want)),
+          f"shards serve {arch}: {blocks} MLA block calls and {launched} decode launches with lse, "
+          f"not {want} of the {'first' if mla else 'second'} and 0 of the other")
     errs = []
     for i, (g, p) in enumerate(zip(got, plain)):
         diff = (g.float() - p.float()).abs()
         errs.append(float(diff.max()))
         check(bool((diff <= TOL["bf16"] + TOL["bf16"] * p.float().abs()).all()),
-              f"shards serve: pass {i} logits {errs[-1]} from the unsharded run")
-        check(torch.equal(g.argmax(-1), p.argmax(-1)), f"shards serve: pass {i} tokens differ")
+              f"shards serve {arch}: pass {i} logits {errs[-1]} from the unsharded run")
+        check(torch.equal(g.argmax(-1), p.argmax(-1)), f"shards serve {arch}: pass {i} tokens differ")
+    bit_equal = all(torch.equal(g, p) for g, p in zip(got, plain))
+    check(bit_equal or not mla, f"shards serve {arch}: logits not bit-equal to the unsharded run: {errs}")
     row = {"model": cfg.name, "layers": cfg.n_layers, "mesh": list(mesh.shape), "cache": placed,
-           "decode_lse_launches": launched, "max_abs_diff": errs,
-           "bit_equal": all(torch.equal(g, p) for g, p in zip(got, plain))}
-    log("[shards] serve " + json.dumps(row))
+           "decode_lse_launches": launched, "mla_block_calls": blocks, "max_abs_diff": errs,
+           "bit_equal": bit_equal}
+    log(f"[shards] serve {arch} " + json.dumps(row))
     del params
     return row
 
@@ -3489,8 +3609,10 @@ def phase_shards(torch, np, ops, ref, TF, get_config, card: str) -> dict:
     int8, and whisper's cross cache over 16 uneven blocks; (b) the flash
     forward over 4 q blocks at their offsets, in bf16 and f32; (c) the
     sharded decode of the model through a one-rank mesh; (d) the flash
-    backward over 4 q blocks at their offsets, in bf16 and f32.  The
-    variants' launch counts are set to 0 before and read after;
+    backward over 4 q blocks at their offsets, in bf16 and f32; (e) MLA's
+    absorbed decode over latent cache blocks merged, bf16 and f32; (f)
+    minicpm3-4b's sharded decode through the one-rank mesh, bit-equal.
+    The variants' launch counts are set to 0 before and read after;
     comparisons and timings are not counted."""
     t_phase = time.perf_counter()
     gc.collect()
@@ -3528,6 +3650,16 @@ def phase_shards(torch, np, ops, ref, TF, get_config, card: str) -> dict:
             gc.collect()
             torch.cuda.empty_cache()
     rows["serve"] = shard_serve(torch, np, ops, TF, get_config)
+    mcfg = get_config("minicpm3-4b")
+    rows["mla"] = {}
+    t0 = time.perf_counter()
+    for dt in ("bf16", "f32"):
+        rows["mla"].update(shard_mla_decode(torch, ops, mcfg, dt, card))
+        gc.collect()
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    rows["serve_mla"] = shard_serve(torch, np, ops, TF, get_config, "minicpm3-4b")
+    rows["mla_wall_s"] = [t1 - t0, time.perf_counter() - t1]  # (e), (f)
     for dt in ("bf16", "f32"):
         for case, shape in SHARD_FLASH_BWD.items():
             row = shard_flash_bwd(torch, ops, ref, case, dt, shape)
@@ -3547,7 +3679,8 @@ def phase_shards(torch, np, ops, ref, TF, get_config, card: str) -> dict:
     check(counts == want, f"shards: variant launches {counts} != the phase's {want}")
     rows["launches"] = counts
     rows["wall_s"] = time.perf_counter() - t_phase
-    log(f"[shards] phase passed in {rows['wall_s']:.1f} s, launches {counts} | {card}")
+    log(f"[shards] phase passed in {rows['wall_s']:.1f} s ((e) {rows['mla_wall_s'][0]:.1f} s, (f) "
+        f"{rows['mla_wall_s'][1]:.1f} s), launches {counts} | {card}")
     return rows
 
 
@@ -3707,7 +3840,7 @@ def _phases(args, torch, np, t_all, card, kind, build_s, fwd_build, dryrun, tool
         })
     if args.log_dir is not None:
         shard_rows = {k: [{"key": list(key), **r} for key, r in shards[k].items()]
-                      for k in ("decode", "flash", "flash_bwd")}
+                      for k in ("decode", "flash", "flash_bwd", "mla")}
         record = {"card": card, "torch": torch.__version__, "build_s": build_s,
                   "fwd_build": fwd_build, "kernels": [kern[k] for k in sorted(kern)], "parity": parity,
                   "serve": serve, "live": [live_row, live_mla], "profile": prof, "cluster": cluster,

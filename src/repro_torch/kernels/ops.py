@@ -36,6 +36,12 @@ sequence shards thus:
   slices) give each rank the same bits, and out takes q's placement back.
   A slice with no key of a row (past its length, or an uneven shard's
   empty tail) has weight 0.
+* MLA's absorbed decode (``mla_decode_attention``, plain products, no
+  kernel, as the reference computes it) keeps the latent cache's sequence
+  shard the same way: each rank runs ``mla_decode_block`` on its rows
+  (the block's own softmax, then p·c, and the block's lse), and the
+  (ctx, lse) partials are gathered once and merged, ctx (kvlr wide) before
+  W_uv.  With one block the merge gives the unsharded bits.
 * the flash forward keeps q's sequence shard beside the whole k and v
   (gathered), its block start the query offset, in serving and in
   training alike; under autograd its backward runs at the same offset.
@@ -157,7 +163,7 @@ def _rmsnorm_blocks(x, w, eps, impl):
     return sh.from_block(out, mesh, x_pl, x.shape)
 
 
-def _attention_layout(q, kvs, q_heads: int, kv_heads: int, *, q_seq: int | None = None,
+def _attention_layout(q, kvs, q_heads: int, kv_heads: int | None, *, q_seq: int | None = None,
                       kv_seq: int | None = None):
     """Placements that let attention run block by block: per mesh dimension,
     a batch shard of q is kept (the KV side follows it); with ``q_seq``, a
@@ -168,7 +174,9 @@ def _attention_layout(q, kvs, q_heads: int, kv_heads: int, *, q_seq: int | None 
     evenly, else the KV side is replicated; anything else (a sequence shard
     not kept, a partial) is gathered.  Returns (q's, the KV side's, the mesh
     dims whose KV heads are replicated beside q's head shard, the mesh dims
-    that keep a sequence shard)."""
+    that keep a sequence shard).  ``kv_heads`` None: the KV side has no
+    heads (MLA's latent cache, which every head reads), so a head shard of
+    q is kept beside the whole KV side, nothing sliced."""
     _, Replicate, Shard = sh.placement_types()
     sizes = q.device_mesh.shape
     q_pl, kv_pl, sliced, seq = [], [], [], []
@@ -186,10 +194,11 @@ def _attention_layout(q, kvs, q_heads: int, kv_heads: int, *, q_seq: int | None 
             seq.append(i)
         elif pq.is_shard(q_heads) and q.shape[q_heads] % sizes[i] == 0:
             q_pl.append(Shard(q_heads))
-            even = all(t.placements[i].is_shard(kv_heads) for t in kvs) and \
+            even = kv_heads is not None and \
+                all(t.placements[i].is_shard(kv_heads) for t in kvs) and \
                 kvs[0].shape[kv_heads] % sizes[i] == 0
             kv_pl.append(Shard(kv_heads) if even else Replicate())
-            if not even:
+            if not even and kv_heads is not None:
                 sliced.append(i)
         else:
             q_pl.append(Replicate())
@@ -308,6 +317,65 @@ def _decode_blocks(q, k_cache, v_cache, lengths, kw, impl):
     return sh.redistributed(sh.from_block(out.to(q.dtype), mesh, q_pl, q.shape), out_pl)
 
 
+NEG_INF = -1e30  # the reference's score mask (models.layers.NEG_INF)
+mla_block_calls = 0  # calls of the sequence-sharded MLA decode's block path (no kernel)
+
+
+def mla_decode_block(q_abs, q_rope, ckv, krope, lengths, *, softmax_scale: float, start: int = 0,
+                     return_lse: bool = False):
+    """MLA's absorbed decode over the latent cache rows [start, start + S)
+    that ``ckv`` (B, S, kvlr) and ``krope`` (B, S, rope) hold, in f32 as
+    the reference computes it: s = (q_abs·c + q_rope·kr) · scale, NEG_INF
+    where start + j >= lengths, then ctx = softmax(s)·c (B, H, kvlr).
+    ``return_lse``: also each head's log-sum-exp of s in the log2 domain
+    (``merge_partials``), -inf where the block holds no key of the row, so
+    that it weighs 0 in a merge; a block of no rows gives ctx 0 and lse
+    -inf.  One block merged alone gives ctx's bits back (weight 2^0 = 1,
+    divisor 1)."""
+    if return_lse and ckv.shape[1] == 0:
+        b, h = q_abs.shape[:2]
+        return (torch.zeros((b, h, ckv.shape[2]), device=ckv.device),
+                torch.full((b, h), float("-inf"), device=ckv.device))
+    c = ckv.float()
+    s_latent = torch.einsum("bhr,bsr->bhs", q_abs.float(), c)
+    s_rope = torch.einsum("bhk,bsk->bhs", q_rope.float(), krope.float())
+    s = (s_latent + s_rope) * softmax_scale
+    valid = torch.arange(start, start + c.shape[1], device=c.device)[None, :] < lengths[:, None]
+    s = torch.where(valid[:, None, :], s, NEG_INF)
+    ctx = torch.einsum("bhs,bsr->bhr", torch.softmax(s, dim=-1), c)
+    if not return_lse:
+        return ctx
+    lse = torch.logsumexp(s, dim=-1) / math.log(2.0)
+    return ctx, torch.where(valid.any(dim=1)[:, None], lse, float("-inf"))
+
+
+def _mla_decode_blocks(q_abs, q_rope, ckv, krope, lengths, softmax_scale):
+    """On a mesh dim that shards the latent cache's sequence (flash-decoding,
+    as ``_decode_blocks``): q_abs and q_rope are gathered there instead, a
+    few KB a layer; each rank runs ``mla_decode_block`` on its own rows from
+    its block start; one all-gather of every block's (ctx, lse) and
+    ``merge_partials`` give each rank the same bits, merged before W_uv as
+    the reference orders it; ctx then takes q_abs's placement back."""
+    global mla_block_calls
+    _, Replicate, Shard = sh.placement_types()
+    mesh = _mesh_of(q_abs, q_rope, ckv, krope)
+    q_abs, q_rope, ckv, krope, lengths = (sh.as_dtensor(t, mesh)
+                                          for t in (q_abs, q_rope, ckv, krope, lengths))
+    q_own = tuple(q_abs.placements)
+    q_pl, kv_pl, _, seq = _attention_layout(q_abs, (ckv, krope), 1, None, kv_seq=1)
+    b_pl = [Shard(0) if p.is_shard(0) else Replicate() for p in q_pl]
+    q_abs, q_rope = sh.redistributed(q_abs, q_pl), sh.redistributed(q_rope, q_pl)
+    ckv, krope = sh.redistributed(ckv, kv_pl), sh.redistributed(krope, kv_pl)
+    lengths = sh.redistributed(lengths, b_pl)
+    rows = sh.local_block(tuple(ckv.shape), mesh, tuple(kv_pl))[1]
+    ctx, lse = mla_decode_block(*(t.to_local() for t in (q_abs, q_rope, ckv, krope, lengths)),
+                                softmax_scale=softmax_scale, start=rows.start, return_lse=True)
+    mla_block_calls += 1
+    ctx, _ = merge_partials(*_gathered_partials(ctx, lse, mesh, q_pl, seq, q_abs.shape))
+    out_pl = [q_own[i] if i in seq and q_own[i].is_shard() else p for i, p in enumerate(q_pl)]
+    return sh.redistributed(sh.from_block(ctx, mesh, q_pl, q_abs.shape), out_pl)
+
+
 # ---------------------------------------------------------------------------
 # The ops
 # ---------------------------------------------------------------------------
@@ -371,6 +439,19 @@ def decode_attention(
     if _use_kernel(impl, q):
         return _decode.decode_attention(q, k_cache, v_cache, lengths, **kw)
     return ref.decode_attention_ref(q, k_cache, v_cache, lengths, **kw)
+
+
+def mla_decode_attention(q_abs, q_rope, ckv, krope, lengths, *, softmax_scale: float):
+    """MLA's absorbed decode over the whole latent cache: ctx (B, H, kvlr)
+    f32 (``mla_decode_block``), in plain products, as the reference computes
+    it outside any Pallas kernel.  A latent cache sharded along its sequence
+    (DTensors) keeps its shard (``_mla_decode_blocks``); any other input
+    runs the block function over the whole cache (through DTensor's own ops
+    on DTensors)."""
+    if sh.is_dtensor(ckv) and sh.is_dtensor(krope) and any(
+            a.is_shard(1) and b.is_shard(1) for a, b in zip(ckv.placements, krope.placements)):
+        return _mla_decode_blocks(q_abs, q_rope, ckv, krope, lengths, softmax_scale)
+    return mla_decode_block(q_abs, q_rope, ckv, krope, lengths, softmax_scale=softmax_scale)
 
 
 # kernel name -> (wrapper module, its launch counter)

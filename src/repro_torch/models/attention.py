@@ -8,8 +8,10 @@ kernels run non-causal over it, with no RoPE and no append.
 ``mla_prefill`` (minicpm3) expands the latent keys and values per head and
 runs the same flash kernel at the qk head dim; ``mla_decode`` scores one
 token against the latent cache in the absorbed form, in plain products, as
-the JAX package computes it outside any Pallas kernel.  The caches are
-written in place.
+the JAX package computes it outside any Pallas kernel
+(``ops.mla_decode_attention``; a latent cache sharded along its sequence
+keeps its shard there, each rank's block merged as flash-decoding merges
+it).  The caches are written in place.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 from repro_torch.distributed.sharding import TensorSpec, matmul, pad, seq_sharded, shard
 from repro_torch.kernels import ops
 from repro_torch.models import kvcache
-from repro_torch.models.layers import NEG_INF, apply_rope, rope_for
+from repro_torch.models.layers import apply_rope, rope_for
 
 
 def gqa_template(cfg) -> dict[str, TensorSpec]:
@@ -248,23 +250,19 @@ def mla_decode(
     live: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """One token in the absorbed form: score = (q_nope·W_uk)·c + q_rope·kr
-    and out = W_uv·(p·c), in f32 over the latent cache.  A
-    ``uniform_decode`` config appends in lockstep (``append_mla_uniform``)."""
+    and out = W_uv·(p·c), in f32 over the latent cache; a cache whose
+    sequence is sharded merges each rank's p·c before W_uv
+    (``ops.mla_decode_attention``).  A ``uniform_decode`` config appends in
+    lockstep (``append_mla_uniform``)."""
     pos = cache["lengths"][:, None]  # (B, 1)
     q_nope, q_rope = _mla_q(params, x, pos, cfg)  # (B, 1, H, ·)
     c_new, kr_new = _mla_ckv(params, x, pos, cfg)
     append = kvcache.append_mla_uniform if cfg.uniform_decode else kvcache.append_mla
     cache = append(cache, c_new[:, 0], kr_new[:, 0], live)
-    ckv = cache["ckv"].float()
     q_abs = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], params["w_uk"])  # (B, H, kvlr)
-    s_latent = torch.einsum("bhr,bsr->bhs", q_abs.float(), ckv)
-    s_rope = torch.einsum("bhk,bsk->bhs", q_rope[:, 0].float(), cache["krope"].float())
-    s = (s_latent + s_rope) * (1.0 / math.sqrt(cfg.mla_qk_head_dim))
-    smax = ckv.shape[1]
-    valid = torch.arange(smax, device=x.device)[None, :] < cache["lengths"][:, None]
-    s = torch.where(valid[:, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    ctx = torch.einsum("bhs,bsr->bhr", p, ckv)  # (B, H, kvlr)
+    ctx = ops.mla_decode_attention(q_abs, q_rope[:, 0], cache["ckv"], cache["krope"],
+                                   cache["lengths"],
+                                   softmax_scale=1.0 / math.sqrt(cfg.mla_qk_head_dim))
     out = shard(torch.einsum("bhr,rhk->bhk", ctx, params["w_uv"].float()), "batch", "act_heads")
     return shard(_out_proj(out.to(x.dtype), params["wo"])[:, None], "batch", "seq",
                  "act_d_model"), cache

@@ -24,7 +24,11 @@ paths (the plain versions on this CPU):
   sequence shards.  Two decode steps, not three: the reduced model
   amplifies f32 rounding at its third step, where on one row the unsharded
   port is already 5.9e-4 from JAX (and a sharded run 2.9e-4 from the
-  unsharded one, in the gathered layout as well), past both tolerances.
+  unsharded one, in the gathered layout as well), past both tolerances;
+- minicpm3-4b on (2, 2): sequence parallel, its latent cache (``ckv``,
+  ``krope``) sequence-sharded over "model" and batch-sharded over "data",
+  so the absorbed decode merges each rank's block (flash-decoding, as
+  GQA's decode does).
 
 The rules shard no dimension that the axis does not divide, so the cases
 give even blocks.  Uneven and empty ones (6 cache rows over the 4-way axis:
@@ -82,6 +86,7 @@ CASES = {
     "qwen1.5-4b": ("qwen1.5-4b", 2, False, STEPS),
     "olmoe-1b-7b": ("olmoe-1b-7b", 2, False, STEPS),
     "whisper-large-v3": ("whisper-large-v3", 2, False, 2),
+    "minicpm3-4b": ("minicpm3-4b", 2, False, STEPS),
 }
 FRAMES = 6  # whisper's frames: blocks of 2, 2, 2, 0 over a 4-way axis
 
@@ -374,7 +379,7 @@ def test_sharded_caches_match(runs, name):
 def test_each_case_is_really_sharded(runs):
     """The layouts the cases are meant to exercise are the ones that ran."""
     rec = runs[1]
-    cache = {n: rec[n]["caches"]["layers/k"] for n in CASES}
+    cache = {n: rec[n]["caches"]["layers/k"] for n in CASES if n != "minicpm3-4b"}
     # q's heads over the 4-way "model" axis, the 2 KV heads whole
     assert rec["granite-8b"]["attn"]["wq"][1] == "S(2)"
     assert rec["granite-8b"]["attn"]["wk"][1] == "R"
@@ -382,7 +387,10 @@ def test_each_case_is_really_sharded(runs):
     assert cache["granite-8b-int8"] == ["S(1)", "S(3)"]  # + the batch over "data"
     assert rec["granite-8b-int8"]["caches"]["layers/k_scale"] == ["S(1)", "S(3)"]
     assert cache["olmoe-1b-7b"] == ["S(1)", "S(2)"]  # KV heads over "model"
-    assert [rec[n]["seq_sharded"] for n in CASES] == [False, False, True, False, True]
+    assert [rec[n]["seq_sharded"] for n in CASES] == [False, False, True, False, True, True]
+    # the latent cache: the batch over "data", the sequence over "model"
+    for leaf in ("layers/ckv", "layers/krope"):
+        assert rec["minicpm3-4b"]["caches"][leaf] == ["S(1)", "S(2)"]
     # the cross cache's frames over "model" beside the self cache's sequence
     assert rec["whisper-large-v3"]["caches"]["cross/k"] == ["S(1)", "S(3)"]
     assert rec["whisper-large-v3"]["caches"]["layers/k"] == ["S(1)", "S(3)"]
@@ -394,17 +402,25 @@ SEQ_CACHE = [n for n in CASES if n != "olmoe-1b-7b"]  # olmoe's cache: KV heads 
 @pytest.mark.parametrize("name", SEQ_CACHE)
 def test_decode_keeps_the_cache_sequence_shard(runs, name):
     """No decode step all-gathers a block of a cache leaf (K, V, their int8
-    scales; whisper's cross cache too): each rank reads its own slice, and
-    what the step gathers are q and the slices' (out, lse) partials."""
+    scales; whisper's cross cache too; MLA's ckv and krope) or, under MLA,
+    a (B, H, S_loc) score block: each rank reads its own slice, and what
+    the step gathers are q and the slices' (out, lse) partials, one a
+    layer a step (ctx and lse, kv_lora_rank + 1 wide, under MLA)."""
     rec = runs[1][name]
+    cfg = _config(name)
+    mla = cfg.attn == "mla"
     blocks = {k: v for k, v in rec["blocks"].items() if k.split("/")[-1] != "lengths"}
-    assert all(v[3] < MAX_SEQ for k, v in blocks.items() if k.startswith("layers/")), blocks
+    seq = 2 if mla else 3  # the sequence's dim in a stacked (L, B, ...) leaf
+    assert all(v[seq] < MAX_SEQ for k, v in blocks.items() if k.startswith("layers/")), blocks
     cache_shapes = [v for v in blocks.values()] + [v[1:] for v in blocks.values()]
+    if mla:
+        b, s = blocks["layers/ckv"][1:3]
+        cache_shapes.append([b, cfg.n_heads, s])  # a score block
     decode = rec["gathers"]["decode"]
     assert not [s for s in decode if s in cache_shapes], (decode, cache_shapes)
-    hd = blocks["layers/k"][-1]
-    partials = [s for s in decode if s[0] == 1 and s[-1] == hd + 1]
-    calls = CASES[name][3] * _config(name).n_layers * (2 if name.startswith("whisper") else 1)
+    width = cfg.kv_lora_rank if mla else blocks["layers/k"][-1]
+    partials = [s for s in decode if s[0] == 1 and s[-1] == width + 1]
+    calls = CASES[name][3] * cfg.n_layers * (2 if name.startswith("whisper") else 1)
     assert len(partials) == calls, (partials, calls)
 
 

@@ -1,7 +1,8 @@
 """Sequence-sharded attention in the port, piece by piece, against the JAX
 package on the CPU: the plain decode with its log-sum-exp over cache slices
-merged by ``ops.merge_partials`` (flash-decoding), the plain flash forward
-and backward with a query offset row block by row block, the kernel path's
+merged by ``ops.merge_partials`` (flash-decoding), MLA's absorbed decode
+over latent cache blocks merged the same way, the plain flash forward and
+backward with a query offset row block by row block, the kernel path's
 dispatch at an offset, and the dry-run's gathers and FLOPs.
 
 Inputs come from numpy seeds and go to both sides.  Tolerances are the
@@ -22,10 +23,16 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.models import attention as JA  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
+from repro.models import transformer as JTF  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import flash_attention as _flash  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.models import kvcache  # noqa: E402
+from repro_torch.models import attention as TA  # noqa: E402
+from repro_torch.models import bridge, kvcache  # noqa: E402
+from repro_torch.models import transformer as TF  # noqa: E402
 
 SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
 TOL = {"f32": dict(atol=3e-5, rtol=3e-5), "bf16": dict(atol=2e-2, rtol=2e-2)}
@@ -156,6 +163,124 @@ def test_merge_partials_is_exact_and_deterministic():
     assert torch.equal(out[1, 3], torch.zeros(8)) and lse[1, 3].item() == float("-inf")
     again = ops.merge_partials(outs.clone(), lses.clone())
     assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+
+
+# MLA's latent cache of 40 rows cut into blocks: one (the unsharded bits),
+# two, even, uneven and with empty blocks (zero rows, and blocks past a
+# row's length)
+MLA_CUTS = {"one": [0, 40], "two": [0, 20, 40], **CUTS}
+MLA_LENGTHS = [39, 11, 4, 0]  # before the step's append: 40, 12, 5 and 1 after it
+
+
+def _mla_step_inputs(dt, seed):
+    """minicpm3-4b REDUCED's layer-0 attention on both sides (JAX's init,
+    bridged), a latent cache of 40 rows filled from numpy to MLA_LENGTHS,
+    and one token's x: (JAX's (cfg, layer params, cache, x), the port's)."""
+    jd, td = DTYPES[dt][1], DTYPES[dt][0]
+    jcfg = jax_get_config("minicpm3-4b", reduced=True).replace(dtype=jd)
+    cfg = get_config("minicpm3-4b", reduced=True).replace(dtype=td)
+    jparams = JTF.init_params(jax.random.PRNGKey(seed), jcfg)
+    jlp = jax.tree.map(lambda a: a[0], jparams["layers"]["attn"])
+    params = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
+    lp = TF.layer_slice(params["layers"]["attn"], 0)
+    rng = np.random.default_rng(seed)
+    b, s = len(MLA_LENGTHS), MLA_CUTS["one"][-1]
+    cache = {"ckv": torch.from_numpy(rng.standard_normal((b, s, cfg.kv_lora_rank)).astype(np.float32)),
+             "krope": torch.from_numpy(rng.standard_normal((b, s, cfg.qk_rope_dim)).astype(np.float32))}
+    cache = {k: v.to(td) for k, v in cache.items()}
+    cache["lengths"] = torch.tensor(MLA_LENGTHS, dtype=torch.int32)
+    jcache = {k: jnp.asarray(v.float().numpy(), jd) if v.is_floating_point() else jnp.asarray(v.numpy())
+              for k, v in cache.items()}
+    x = rng.standard_normal((b, 1, cfg.d_model)).astype(np.float32)
+    return (jcfg, jlp, jcache, jnp.asarray(x, jd)), (cfg, lp, cache, torch.from_numpy(x).to(td))
+
+
+def _mla_merged_core(cuts):
+    """``ops.mla_decode_attention`` as the sharded path computes it: the
+    block function over each block [a, e) of the latent cache from its
+    start a, the blocks' (ctx, lse) merged."""
+    def core(q_abs, q_rope, ckv, krope, lengths, *, softmax_scale):
+        parts = [ops.mla_decode_block(q_abs, q_rope, ckv[:, a:e], krope[:, a:e], lengths,
+                                      softmax_scale=softmax_scale, start=a, return_lse=True)
+                 for a, e in zip(cuts, cuts[1:])]
+        ctx, _ = ops.merge_partials(torch.stack([c for c, _ in parts]),
+                                    torch.stack([x for _, x in parts]))
+        return ctx
+    return core
+
+
+@pytest.mark.parametrize("cut", list(MLA_CUTS))
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_mla_decode_blocks_merged_match_jax(monkeypatch, dt, cut):
+    """One ``mla_decode`` step of minicpm3-4b REDUCED with its core run as
+    the sequence-sharded path runs it (the block function over each block,
+    merged) against JAX's ``mla_decode`` on the same bridged parameters,
+    latent cache and token, at the reference's tolerance; one block is
+    bit-equal to the port's unsharded step, and the caches are the
+    unsharded step's."""
+    (jcfg, jlp, jcache, jx), (cfg, lp, cache, x) = _mla_step_inputs(dt, 9)
+    with jax.disable_jit():  # op by op, as tests/test_torch_mla.py runs bf16
+        jout, _ = JA.mla_decode(jlp, jx, jcfg, jcache)
+    plain_cache = {k: v.clone() for k, v in cache.items()}
+    plain, plain_cache = TA.mla_decode(lp, x, cfg, plain_cache)
+    monkeypatch.setattr(ops, "mla_decode_attention", _mla_merged_core(MLA_CUTS[cut]))
+    out, cache = TA.mla_decode(lp, x, cfg, cache)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(jout.astype(jnp.float32)), **TOL[dt])
+    np.testing.assert_allclose(out.float().numpy(), plain.float().numpy(), **TOL[dt])
+    if cut == "one":
+        assert torch.equal(out, plain)
+    for k in cache:
+        assert torch.equal(cache[k], plain_cache[k]), k
+
+
+def _lse2_f64(s, n):
+    """Each row's log2-sum-exp of its first n scores, in f64 with numpy."""
+    row = s[..., :n].astype(np.float64)
+    m = row.max(-1, keepdims=True)
+    return (m[..., 0] + np.log(np.exp(row - m).sum(-1))) / math.log(2)
+
+
+def test_mla_decode_block_lse_and_keyless_blocks():
+    """The block function's lse is the log2-sum-exp of the block's scaled
+    scores over its valid rows (numpy, f64), -inf where the block holds no
+    key of the row (a row past its length, a block of no rows, whose ctx
+    is 0 too); without ``return_lse`` ctx has the same bits; merged over
+    every cut, ctx and lse are the whole cache's, and a row of length 0
+    gives ctx 0 and lse -inf (every block keyless)."""
+    rng = np.random.default_rng(11)
+    b, h, r, rope, s = 5, 4, 16, 8, 40
+    q_abs, ckv = (torch.from_numpy(rng.standard_normal(x).astype(np.float32))
+                  for x in ((b, h, r), (b, s, r)))
+    q_rope, krope = (torch.from_numpy(rng.standard_normal(x).astype(np.float32))
+                     for x in ((b, h, rope), (b, s, rope)))
+    lens = torch.tensor([40, 12, 5, 0, 1], dtype=torch.int32)
+    scale = 1.0 / math.sqrt(24)
+    kw = dict(softmax_scale=scale)
+    ctx, lse = ops.mla_decode_block(q_abs, q_rope, ckv, krope, lens, return_lse=True, **kw)
+    assert torch.equal(ops.mla_decode_block(q_abs, q_rope, ckv, krope, lens, **kw), ctx)
+    scores = (np.einsum("bhr,bsr->bhs", q_abs.double().numpy(), ckv.double().numpy())
+              + np.einsum("bhk,bsk->bhs", q_rope.double().numpy(), krope.double().numpy())) * scale
+    for i, n in enumerate(lens.tolist()):
+        if n:
+            np.testing.assert_allclose(lse[i].numpy(), _lse2_f64(scores[i], n), **TOL["f32"])
+        else:
+            assert lse[i].isinf().all() and (lse[i] < 0).all()
+    late, late_lse = ops.mla_decode_block(q_abs, q_rope, ckv[:, 20:], krope[:, 20:], lens,
+                                          start=20, return_lse=True, **kw)
+    assert torch.isfinite(late_lse[0]).all() and late_lse[1:].isinf().all()
+    assert torch.isfinite(late).all()
+    none, none_lse = ops.mla_decode_block(q_abs, q_rope, ckv[:, 40:], krope[:, 40:], lens,
+                                          start=40, return_lse=True, **kw)
+    assert none.shape == (b, h, r) and not none.any() and none_lse.isinf().all()
+    live = lens > 0
+    for cut in MLA_CUTS.values():
+        parts = [ops.mla_decode_block(q_abs, q_rope, ckv[:, a:e], krope[:, a:e], lens,
+                                      start=a, return_lse=True, **kw) for a, e in zip(cut, cut[1:])]
+        merged, merged_lse = ops.merge_partials(torch.stack([c for c, _ in parts]),
+                                                torch.stack([x for _, x in parts]))
+        torch.testing.assert_close(merged[live], ctx[live], **TOL["f32"])
+        torch.testing.assert_close(merged_lse[live], lse[live], **TOL["f32"])
+        assert not merged[~live].any() and merged_lse[~live].isinf().all()
 
 
 FLASH_CASES = {  # name -> (b, s, h, kv, d, v_dim, row cuts)
@@ -306,6 +431,18 @@ def test_flash_q_offset_past_the_keys():
     torch.testing.assert_close(ops.flash_attention(q, k, v, causal=False, q_offset=3), full)
 
 
+def _dryrun(tmp_path, arch: str, shape: str) -> dict:
+    """One dry-run cell on the single-pod mesh (256 fake ranks), in a
+    subprocess: its record."""
+    env = {**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "1"}
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+         "--mesh", "single", "--out", str(tmp_path), "--force"],
+        env=env, capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    return json.loads((tmp_path / f"{arch}__{shape}__single.json").read_text())
+
+
 DRYRUN_GATHER_BEFORE = 2_415_968_256  # granite-8b decode_32k, single mesh, per device, gathering the cache
 
 
@@ -314,15 +451,28 @@ def test_dryrun_granite_decode_32k_gathers_no_cache(tmp_path):
     fake ranks, in a subprocess): its all-gathers move under 1% of the
     2,415,968,256 bytes a device that gathering each layer's cache shard
     moved; the cell is ok."""
-    env = {**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "1"}
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "granite-8b", "--shape",
-         "decode_32k", "--mesh", "single", "--out", str(tmp_path), "--force"],
-        env=env, capture_output=True, text=True, timeout=240)
-    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
-    rec = json.loads((tmp_path / "granite-8b__decode_32k__single.json").read_text())
+    rec = _dryrun(tmp_path, "granite-8b", "decode_32k")
     assert rec["ok"]
     assert rec["coll_by_op"]["all_gather_into_tensor"] < 0.01 * DRYRUN_GATHER_BEFORE, rec["coll_by_op"]
+
+
+# minicpm3-4b decode_32k, single mesh, a device: all-gather bytes while each
+# layer gathered its (B, H, S_loc) scores, and temp bytes then
+DRYRUN_MLA_GATHER_BEFORE = 162_603_008
+DRYRUN_MLA_TEMP_BEFORE = 2_752_002_560
+
+
+def test_dryrun_minicpm3_decode_32k_keeps_the_latent_cache(tmp_path):
+    """The dry-run of minicpm3-4b ``decode_32k`` on the single-pod mesh (256
+    fake ranks, in a subprocess): with the latent cache's sequence shard
+    kept (each layer gathers its (ctx, lse) partials, not its scores), its
+    all-gathers move under 20% of the 162,603,008 bytes a device of the
+    gathered scores, and its temp bytes are no more than they were then;
+    the cell is ok."""
+    rec = _dryrun(tmp_path, "minicpm3-4b", "decode_32k")
+    assert rec["ok"]
+    assert rec["coll_by_op"]["all_gather_into_tensor"] < 0.2 * DRYRUN_MLA_GATHER_BEFORE, rec["coll_by_op"]
+    assert rec["temp_bytes_per_dev"] <= DRYRUN_MLA_TEMP_BEFORE
 
 
 DRYRUN_FLOPS_BEFORE = 6.764e14  # qwen1.5-4b train_4k, single mesh, dot FLOPs a device, q gathered under autograd
@@ -334,13 +484,7 @@ def test_dryrun_qwen_train_4k_keeps_q_local(tmp_path):
     a local sequence shard in the forward and backward, a device's dot
     FLOPs are at most 1.6e14, not the 6.764e14 of every rank computing the
     whole sequence's attention; the cell is ok."""
-    env = {**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "1"}
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "qwen1.5-4b", "--shape",
-         "train_4k", "--mesh", "single", "--out", str(tmp_path), "--force"],
-        env=env, capture_output=True, text=True, timeout=240)
-    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
-    rec = json.loads((tmp_path / "qwen1.5-4b__train_4k__single.json").read_text())
+    rec = _dryrun(tmp_path, "qwen1.5-4b", "train_4k")
     assert rec["ok"]
     assert rec["dot_flops_per_dev"] <= 1.6e14 < DRYRUN_FLOPS_BEFORE, rec["dot_flops_per_dev"]
 

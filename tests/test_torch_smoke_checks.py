@@ -246,3 +246,47 @@ def test_kernel_line_lists_every_variant():
     for name, source, *_ in cs.SHARD_VARIANTS:
         mod, _ = ops.VARIANTS[name]
         assert Path(mod.__file__).stem in source
+
+
+def test_mla_shard_cuts_are_the_mesh_blocks():
+    """Phase 14(e) cuts minicpm3-4b's latent cache where the ranks of a 4-
+    and a 16-way axis hold it (``sharding.local_block``), and by hand into
+    uneven blocks of which exactly one is empty, each cut covering every
+    row once."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.distributed import sharding as sh
+
+    rows = cs.SHARD_MLA["s"]
+    cuts = cs.mla_cuts(rows)
+    for n in (4, 16):
+        for r in range(n):
+            (blk,) = sh.local_block((rows,), _Rank(n, r), (Shard(0),))
+            assert (blk.start, blk.stop) == (cuts[n][r], cuts[n][r + 1])
+    u = cuts["uneven"]
+    sizes = [e - a for a, e in zip(u, u[1:])]
+    assert u[0] == 0 and u[-1] == rows and min(sizes) == 0
+    assert sizes.count(0) == 1 and len(set(sizes)) > 2
+
+
+def test_mla_block_work_counts_the_latent_rows():
+    """14(e)'s block bound counts the ckv and krope rows that hold a key
+    (read once, in the cache's dtype) beside q_abs and q_rope read and ctx
+    and lse written in f32: over the blocks of a cut, with an empty block
+    and blocks past a row's length, the rows' bytes and the FLOPs add up
+    to the whole cache's."""
+    import torch
+
+    b, h, r, rope, s = 3, 4, 16, 8, 40
+    q_abs, q_rope, ckv, krope = (torch.empty(x, dtype=torch.bfloat16)
+                                 for x in ((b, h, r), (b, h, rope), (b, s, r), (b, s, rope)))
+    lens = torch.tensor([40, 13, 1])
+    fixed = b * h * (r + rope) * 2 + 4 * b * h * (r + 1)
+    nbytes, flops = cs.mla_block_work(q_abs, q_rope, ckv, krope, lens, 0)
+    assert nbytes - fixed == 54 * (r + rope) * 2
+    assert flops == 2 * h * 54 * (2 * r + rope)
+    for cut in ([0, 10, 20, 30, 40], [0, 5, 5, 12, 40]):
+        parts = [cs.mla_block_work(q_abs, q_rope, ckv[:, a:e], krope[:, a:e], lens, a)
+                 for a, e in zip(cut, cut[1:])]
+        assert sum(p[0] - fixed for p in parts) == nbytes - fixed
+        assert sum(p[1] for p in parts) == flops
