@@ -245,8 +245,22 @@ Run from the root of a checkout.  Phases, each of which must pass:
               layers, full width) served through the one-rank mesh with
               the latent cache's sequence over "model", so each decode
               runs the block path: logits and tokens bit-equal to the
-              unsharded run, n_layers x steps block calls; every time
-              logged beside the card's name and power limit
+              unsharded run, n_layers x steps block calls; (g) grok-1-314b
+              and olmoe-1b-7b (2 layers, full width) served the same way
+              (a prefill of 4 x 128, 4 decode steps): logits bit-equal to
+              the unsharded run, and the product that contracts a sharded
+              index (grok-1's down projection over d_ff, olmoe's combine
+              over the experts) partial on every layer of every pass; (h)
+              mamba2-370m (2 layers) and zamba2-2.7b (6: its shared block
+              runs once) the same: logits bit-equal, every prefill layer's
+              SSD scan given x head-sharded and run on the rank's heads;
+              (i) mamba2-370m's SSD scan at full width (4 x 8,192 tokens,
+              32 heads of 64, state 128, chunk 128, f32) cut into 16 head
+              blocks, each block's y and final state within 1e-5 of the
+              whole call's (of its largest magnitude), two runs bit-equal;
+              timed cold: the whole call and the largest block beside their
+              bounds; every time logged beside the card's name and power
+              limit
 
 It prints one JSON ``kernels`` line (the three forward kernels, the decode
 kernel over the int8 cache with its launches in phase 7b, the two backward
@@ -3211,6 +3225,14 @@ SHARD_MLA_UNEVEN = (0, 1000, 1000, 9000, 20000, 32768)  # a hand cut: one empty 
 # 14(f): minicpm3-4b at full width through the one-rank mesh, its latent
 # cache's sequence over "model": MLA's decode on the block path
 SHARD_SERVE_MLA = dict(layers=2, batch=4, prompt=128, steps=4)
+# 14(g), (h): the MoE and SSM archs at full width through the one-rank mesh,
+# served as 14(c): arch -> layers (zamba2's shared block runs after its 6th)
+SHARD_SERVE_FAMILIES = {"grok-1-314b": 2, "olmoe-1b-7b": 2, "mamba2-370m": 2, "zamba2-2.7b": 6}
+# the MoE product that contracts a sharded index (grok-1's d_ff, olmoe's experts)
+MOE_CONTRACTED = {"grok-1-314b": "gecf,efd->gecd", "olmoe-1b-7b": "gsec,gecd->gsd"}
+# 14(i): mamba2-370m's SSD scan over 4 x 8,192 tokens cut into 16 head blocks
+SHARD_SSD = dict(b=4, s=8192, blocks=16)
+SSD_TOL = 1e-5  # a block's y and state against the whole call's, of its largest magnitude
 # the kernel line's rows of the variants: (name, source, replaces, the case timed)
 SHARD_VARIANTS = (
     ("decode_attention_lse", "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -3523,24 +3545,17 @@ def shard_mla_decode(torch, ops, cfg, dt: str, card: str) -> dict:
     return rows
 
 
-def shard_serve(torch, np, ops, TF, get_config, arch: str = "granite-8b") -> dict:
-    """14(c): granite-8b cut to 2 layers at full width, a prefill of 4 x 128
-    and 4 decode steps, once unsharded and once through a one-rank NCCL
-    mesh whose rules put the cache's sequence over "model": each sharded
-    decode runs ops' flash-decoding path (the kernel with lse on the rank's
-    block, the all-gather and the merge).  Logits within bf16's 2e-2, token
-    ids equal.  14(f), ``arch`` minicpm3-4b: the latent cache's sequence
-    over "model", so each sharded decode runs MLA's block path
-    (``ops.mla_decode_block`` on the rank's rows, the merge); logits
-    bit-equal to the unsharded run (one block merged gives its bits)."""
+def _mesh_serve(torch, np, ops, TF, cfg, t: dict, leaf: str, record=contextlib.nullcontext):
+    """``cfg`` from seeded weights: a prefill of t["batch"] x t["prompt"]
+    tokens and t["steps"] decode steps, once unsharded (uncounted) and once
+    through a one-rank NCCL mesh under its rules.  Returns (the unsharded
+    passes' logits, the sharded ones', the placements of the cache's
+    ``leaf``, the mesh's shape, what ``record()``, entered around the
+    sharded run only, yielded)."""
     from repro_torch.distributed import sharding as sh
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import steps as steps_mod
 
-    mla = arch == "minicpm3-4b"
-    t = SHARD_SERVE_MLA if mla else SHARD_SERVE
-    leaf, seq_dim = ("ckv", 2) if mla else ("k", 3)  # the stacked leaf's sequence dim
-    cfg = get_config(arch).replace(n_layers=t["layers"])
     params = TF.init_params(cfg, SEED, device="cuda")
     tokens = torch.as_tensor(np.random.default_rng(SEED + 14).integers(
         0, cfg.vocab_size, size=(t["batch"], t["prompt"])).astype(np.int32), device="cuda")
@@ -3569,37 +3584,204 @@ def shard_serve(torch, np, ops, TF, get_config, arch: str = "granite-8b") -> dic
         caches = TF.init_caches(cfg, t["batch"], max_seq, device="cuda")
         specs = sh.specs_for_axes(caches, TF.cache_axes(cfg), rules)
         caches = sh.map_pair(lambda x, spec: sh.distribute(x, spec, mesh), caches, specs)
-        placed = [str(p) for p in caches["layers"][leaf].placements]
-        check(caches["layers"][leaf].placements[1].is_shard(seq_dim),
-              f"shards serve {arch}: the cache's sequence is not over 'model': {placed}")
+        placements = caches["layers"][leaf].placements
         sparams = sh.distribute_tree(params, TF.param_template(cfg), rules)
-        before = (ops.mla_block_calls, ops.variant_counts()["decode_attention_lse"])
-        got = run(sparams, caches, sh.distribute(tokens, rules.spec_for_shape(
-            tuple(tokens.shape), ("batch", "seq")), mesh), rules)
-        blocks = ops.mla_block_calls - before[0]
-        launched = ops.variant_counts()["decode_attention_lse"] - before[1]
+        with record() as seen:
+            got = run(sparams, caches, sh.distribute(tokens, rules.spec_for_shape(
+                tuple(tokens.shape), ("batch", "seq")), mesh), rules)
+        shape = list(mesh.shape)
         del sparams, caches
     finally:
         if started:
             torch.distributed.destroy_process_group()
-    want = cfg.n_layers * t["steps"]
-    check((blocks, launched) == ((want, 0) if mla else (0, want)),
-          f"shards serve {arch}: {blocks} MLA block calls and {launched} decode launches with lse, "
-          f"not {want} of the {'first' if mla else 'second'} and 0 of the other")
+    del params
+    return plain, got, placements, shape, seen
+
+
+def _logits_apart(torch, got, plain, what: str) -> tuple[list, bool]:
+    """Each pass's largest logit difference from the unsharded run (within
+    bf16's 2e-2, token ids equal, or fail) and whether all are bit-equal."""
     errs = []
     for i, (g, p) in enumerate(zip(got, plain)):
         diff = (g.float() - p.float()).abs()
         errs.append(float(diff.max()))
         check(bool((diff <= TOL["bf16"] + TOL["bf16"] * p.float().abs()).all()),
-              f"shards serve {arch}: pass {i} logits {errs[-1]} from the unsharded run")
-        check(torch.equal(g.argmax(-1), p.argmax(-1)), f"shards serve {arch}: pass {i} tokens differ")
-    bit_equal = all(torch.equal(g, p) for g, p in zip(got, plain))
+              f"{what}: pass {i} logits {errs[-1]} from the unsharded run")
+        check(torch.equal(g.argmax(-1), p.argmax(-1)), f"{what}: pass {i} tokens differ")
+    return errs, all(torch.equal(g, p) for g, p in zip(got, plain))
+
+
+def shard_serve(torch, np, ops, TF, get_config, arch: str = "granite-8b") -> dict:
+    """14(c): granite-8b cut to 2 layers at full width, a prefill of 4 x 128
+    and 4 decode steps, once unsharded and once through a one-rank NCCL
+    mesh whose rules put the cache's sequence over "model": each sharded
+    decode runs ops' flash-decoding path (the kernel with lse on the rank's
+    block, the all-gather and the merge).  Logits within bf16's 2e-2, token
+    ids equal.  14(f), ``arch`` minicpm3-4b: the latent cache's sequence
+    over "model", so each sharded decode runs MLA's block path
+    (``ops.mla_decode_block`` on the rank's rows, the merge); logits
+    bit-equal to the unsharded run (one block merged gives its bits)."""
+    mla = arch == "minicpm3-4b"
+    t = SHARD_SERVE_MLA if mla else SHARD_SERVE
+    leaf, seq_dim = ("ckv", 2) if mla else ("k", 3)  # the stacked leaf's sequence dim
+    cfg = get_config(arch).replace(n_layers=t["layers"])
+    before = (ops.mla_block_calls, ops.variant_counts()["decode_attention_lse"])
+    plain, got, placements, mesh_shape, _ = _mesh_serve(torch, np, ops, TF, cfg, t, leaf)
+    blocks = ops.mla_block_calls - before[0]
+    launched = ops.variant_counts()["decode_attention_lse"] - before[1]
+    placed = [str(p) for p in placements]
+    check(placements[1].is_shard(seq_dim),
+          f"shards serve {arch}: the cache's sequence is not over 'model': {placed}")
+    want = cfg.n_layers * t["steps"]
+    check((blocks, launched) == ((want, 0) if mla else (0, want)),
+          f"shards serve {arch}: {blocks} MLA block calls and {launched} decode launches with lse, "
+          f"not {want} of the {'first' if mla else 'second'} and 0 of the other")
+    errs, bit_equal = _logits_apart(torch, got, plain, f"shards serve {arch}")
     check(bit_equal or not mla, f"shards serve {arch}: logits not bit-equal to the unsharded run: {errs}")
-    row = {"model": cfg.name, "layers": cfg.n_layers, "mesh": list(mesh.shape), "cache": placed,
+    row = {"model": cfg.name, "layers": cfg.n_layers, "mesh": mesh_shape, "cache": placed,
            "decode_lse_launches": launched, "mla_block_calls": blocks, "max_abs_diff": errs,
            "bit_equal": bit_equal}
     log(f"[shards] serve {arch} " + json.dumps(row))
-    del params
+    return row
+
+
+def shard_serve_family(torch, np, ops, TF, get_config, arch: str) -> dict:
+    """14(g), (h): ``arch`` at full width cut to ``SHARD_SERVE_FAMILIES``'
+    depth, served as 14(c) through the one-rank NCCL mesh under its rules;
+    logits bit-equal to the unsharded run.  A recorder around the sharded
+    run shows the block paths: the MoE's product that contracts a sharded
+    index (``MOE_CONTRACTED``: grok-1's d_ff, olmoe's experts) gives a
+    partial output over "model" on every layer of every pass; every prefill
+    layer's SSD scan (mamba2, zamba2) is given x head-sharded over "model"
+    and runs on the rank's block of H / 1 heads.  Decode launches with lse:
+    n_layers x steps where the cache's sequence is over "model" (grok-1),
+    else none."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import mamba2, moe
+
+    cfg = get_config(arch).replace(n_layers=SHARD_SERVE_FAMILIES[arch])
+    t = dict(SHARD_SERVE, layers=cfg.n_layers)
+    ssm = cfg.family in ("ssm", "hybrid")
+    eq = MOE_CONTRACTED.get(arch)
+
+    @contextlib.contextmanager
+    def record():
+        seen = {"products": [], "ssd_in": [], "ssd_blocks": []}
+        einsum, ssd = moe.einsum, mamba2.ssd_chunked
+
+        def recorded_einsum(e, *ts):
+            out = einsum(e, *ts)
+            if e == eq:
+                seen["products"].append(["P" if p.is_partial() else str(p) for p in out.placements])
+            return out
+
+        def recorded_ssd(x, *a, **kw):
+            if sh.is_dtensor(x):
+                seen["ssd_in"].append([str(p) for p in x.placements])
+            else:  # the rank's block
+                seen["ssd_blocks"].append(list(x.shape))
+            return ssd(x, *a, **kw)
+
+        moe.einsum, mamba2.ssd_chunked = recorded_einsum, recorded_ssd
+        try:
+            yield seen
+        finally:
+            moe.einsum, mamba2.ssd_chunked = einsum, ssd
+
+    kv_heads = (cfg.sharding_overrides or {}).get("cache_kv_heads")  # else the cache's sequence
+    leaf, dim = ("h", 2) if ssm else ("k", 2 if kv_heads else 3)
+    before = ops.variant_counts()["decode_attention_lse"]
+    plain, got, placements, mesh_shape, seen = _mesh_serve(torch, np, ops, TF, cfg, t, leaf, record)
+    launched = ops.variant_counts()["decode_attention_lse"] - before
+    placed = [str(p) for p in placements]
+    check(placements[1].is_shard(dim), f"shards serve {arch}: the cache's {leaf} is not S({dim}) "
+          f"over 'model': {placed}")
+    passes = 1 + t["steps"]
+    if eq:
+        check(len(seen["products"]) == cfg.n_layers * passes
+              and all(p[1] == "P" for p in seen["products"]),
+              f"shards serve {arch}: {eq} not partial over 'model' on every layer and pass: "
+              f"{seen['products']}")
+    if ssm:
+        check(len(seen["ssd_in"]) == cfg.n_layers and all(p[1] == "S(2)" for p in seen["ssd_in"]),
+              f"shards serve {arch}: the SSD scan's x not head-sharded over 'model': {seen['ssd_in']}")
+        check(len(seen["ssd_blocks"]) == cfg.n_layers and all(
+            x[2] == cfg.ssm_nheads // mesh_shape[1] for x in seen["ssd_blocks"]),
+            f"shards serve {arch}: the SSD scan did not run on the rank's heads: {seen['ssd_blocks']}")
+    want = cfg.n_layers * t["steps"] if placements[1].is_shard(3) else 0
+    check(launched == want, f"shards serve {arch}: {launched} decode launches with lse, not {want}")
+    errs, bit_equal = _logits_apart(torch, got, plain, f"shards serve {arch}")
+    check(bit_equal, f"shards serve {arch}: logits not bit-equal to the unsharded run: {errs}")
+    row = {"model": cfg.name, "layers": cfg.n_layers, "mesh": mesh_shape, "cache": placed,
+           "decode_lse_launches": launched, "contracted_partial": len(seen["products"]),
+           "ssd_head_blocks": seen["ssd_blocks"], "max_abs_diff": errs, "bit_equal": bit_equal}
+    log(f"[shards] serve {arch} " + json.dumps(row))
+    return row
+
+
+def ssd_work(b: int, s: int, h: int, p: int, n: int, q: int) -> tuple[float, float]:
+    """(bytes, flops) of ``mamba2.ssd_chunked`` in f32 over (b, s, h, p)
+    with one group of state n and chunk q: x, dt, A, B and C read once, y
+    and the final state written; per (sequence, chunk, head) the scores
+    (2 q^2 n), y's diagonal term (2 q^2 p), the chunk's state and the
+    off-diagonal term (2 q n p each)."""
+    nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n + b * h * p * n)
+    return nbytes, (b * (s // q) * h) * (2 * q * q * (n + p) + 4 * q * n * p)
+
+
+def shard_ssd(torch, cfg, card: str) -> dict:
+    """14(i): mamba2-370m's SSD scan (``mamba2.ssd_chunked``: plain products
+    in f32, no kernel, as the reference computes it) at full width over
+    ``SHARD_SSD``'s tokens, inputs in f32 (dt and A from the init laws'
+    ranges), cut into blocks of heads as the sharded mixer cuts them (x, dt
+    and A cut, B and C of the one group whole): each block's y and final
+    state within ``SSD_TOL`` of the whole call's heads, of their largest
+    magnitude; the whole call twice bit-equal.  Timed cold: the whole call
+    and the largest block, beside their bounds (f32 operations)."""
+    from repro_torch.distributed.sharding import ssm_a_from_uniform
+    from repro_torch.models import mamba2
+
+    b, s, k = SHARD_SSD["b"], SHARD_SSD["s"], SHARD_SSD["blocks"]
+    h, p, n, q = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 29)
+    x = torch.randn((b, s, h, p), generator=gen, device="cuda")
+    u = torch.rand((b, s, h), generator=gen, device="cuda")
+    dt = torch.exp(u * math.log(0.1 / 1e-3) + math.log(1e-3))  # the ssm_dt law's range
+    a = ssm_a_from_uniform(torch.rand((h,), generator=gen, device="cuda"))
+    bm, cm = (torch.randn((b, s, 1, n), generator=gen, device="cuda") for _ in range(2))
+    y, hf = mamba2.ssd_chunked(x, dt, a, bm, cm, q)
+    y2, hf2 = mamba2.ssd_chunked(x, dt, a, bm, cm, q)
+    torch.cuda.synchronize()
+    check(torch.equal(y, y2) and torch.equal(hf, hf2), "shards ssd: two runs of the whole call differ")
+    cuts = block_starts(h, k)
+    blocks = [(x[:, :, lo:hi].contiguous(), dt[..., lo:hi].contiguous(), a[lo:hi].contiguous(), bm, cm)
+              for lo, hi in zip(cuts, cuts[1:])]
+    errs = []
+    for (lo, hi), blk in zip(zip(cuts, cuts[1:]), blocks):
+        yb, hb = mamba2.ssd_chunked(*blk, q)
+        for got, want in ((yb, y[:, :, lo:hi]), (hb, hf[:, lo:hi])):
+            check(bool(torch.isfinite(got).all()), f"shards ssd: heads [{lo}, {hi}) not finite")
+            err, top = float((got - want).abs().max()), float(want.abs().max())
+            check(err <= SSD_TOL * max(top, 1.0),
+                  f"shards ssd: heads [{lo}, {hi}) {err} from the whole call (largest {top})")
+            errs.append(err)
+    big = max(range(len(blocks)), key=lambda i: cuts[i + 1] - cuts[i])
+    whole_work, block_work = ssd_work(b, s, h, p, n, q), ssd_work(b, s, cuts[big + 1] - cuts[big], p, n, q)
+    whole_ms = time_ms(torch, {"whole": lambda *t: mamba2.ssd_chunked(*t, q)},
+                       cold_sets((x, dt, a, bm, cm)))["whole"]
+    block_ms = time_ms(torch, {"block": lambda *t: mamba2.ssd_chunked(*t, q)}, cold_sets(blocks[big]))["block"]
+    row = {"case": f"mamba2-370m B={b} S={s} H={h} P={p} N={n} chunk={q} f32", "blocks": k,
+           "heads_per_block": [hi - lo for lo, hi in zip(cuts, cuts[1:])], "max_abs_err": max(errs),
+           "bit_equal_twice": True, "whole_ms": whole_ms, "block_ms": block_ms,
+           "whole_bytes": whole_work[0], "whole_flops": whole_work[1],
+           "block_bytes": block_work[0], "block_flops": block_work[1], "timed": "cold"}
+    row["whole_bound_ms"], row["whole_bound_by"] = bound(*whole_work, "f32")
+    row["block_bound_ms"], row["block_bound_by"] = bound(*block_work, "f32")
+    log(f"[shards] ssd over {k} head blocks: whole call {whole_ms:.5f} ms (bound "
+        f"{row['whole_bound_ms']:.5f} ms by {row['whole_bound_by']}), block {block_ms:.5f} ms (bound "
+        f"{row['block_bound_ms']:.5f} ms), max err {row['max_abs_err']:.3g} | {card} | " + json.dumps(row))
+    del x, dt, a, bm, cm, y, hf, y2, hf2, blocks
     return row
 
 
@@ -3611,7 +3793,9 @@ def phase_shards(torch, np, ops, ref, TF, get_config, card: str) -> dict:
     sharded decode of the model through a one-rank mesh; (d) the flash
     backward over 4 q blocks at their offsets, in bf16 and f32; (e) MLA's
     absorbed decode over latent cache blocks merged, bf16 and f32; (f)
-    minicpm3-4b's sharded decode through the one-rank mesh, bit-equal.
+    minicpm3-4b's sharded decode through the one-rank mesh, bit-equal; (g),
+    (h) the MoE and SSM archs the same way, bit-equal, their block paths
+    recorded; (i) mamba2's SSD scan over 16 head blocks.
     The variants' launch counts are set to 0 before and read after;
     comparisons and timings are not counted."""
     t_phase = time.perf_counter()
@@ -3660,6 +3844,18 @@ def phase_shards(torch, np, ops, ref, TF, get_config, card: str) -> dict:
     t1 = time.perf_counter()
     rows["serve_mla"] = shard_serve(torch, np, ops, TF, get_config, "minicpm3-4b")
     rows["mla_wall_s"] = [t1 - t0, time.perf_counter() - t1]  # (e), (f)
+    t2 = time.perf_counter()
+    rows["serve_families"] = {}
+    for arch in SHARD_SERVE_FAMILIES:  # (g), (h)
+        rows["serve_families"][arch] = shard_serve_family(torch, np, ops, TF, get_config, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    with ops.uncounted():
+        rows["ssd"] = shard_ssd(torch, get_config("mamba2-370m"), card)  # (i)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows["family_wall_s"] = [t3 - t2, time.perf_counter() - t3]  # (g) and (h), (i)
     for dt in ("bf16", "f32"):
         for case, shape in SHARD_FLASH_BWD.items():
             row = shard_flash_bwd(torch, ops, ref, case, dt, shape)
@@ -3672,7 +3868,8 @@ def phase_shards(torch, np, ops, ref, TF, get_config, card: str) -> dict:
             torch.cuda.empty_cache()
     counts = ops.variant_counts()
     want = {"decode_attention_lse": sum(r["launches"] for r in rows["decode"].values())
-            + rows["serve"]["decode_lse_launches"],
+            + rows["serve"]["decode_lse_launches"]
+            + sum(r["decode_lse_launches"] for r in rows["serve_families"].values()),
             "flash_attention_q_offset": sum(r["launches"] for r in rows["flash"].values())
             + sum(r["fwd_launches"] for r in rows["flash_bwd"].values()),
             "flash_attention_bwd_q_offset": sum(r["launches"] for r in rows["flash_bwd"].values())}
@@ -3680,7 +3877,8 @@ def phase_shards(torch, np, ops, ref, TF, get_config, card: str) -> dict:
     rows["launches"] = counts
     rows["wall_s"] = time.perf_counter() - t_phase
     log(f"[shards] phase passed in {rows['wall_s']:.1f} s ((e) {rows['mla_wall_s'][0]:.1f} s, (f) "
-        f"{rows['mla_wall_s'][1]:.1f} s), launches {counts} | {card}")
+        f"{rows['mla_wall_s'][1]:.1f} s, (g) and (h) {rows['family_wall_s'][0]:.1f} s, (i) "
+        f"{rows['family_wall_s'][1]:.1f} s), launches {counts} | {card}")
     return rows
 
 

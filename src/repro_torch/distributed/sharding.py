@@ -199,7 +199,18 @@ def from_block(local: torch.Tensor, mesh: Any, placements, shape) -> torch.Tenso
     (DTensor's views of it need a plain layout)."""
     return _dtensor_class().from_local(
         local.contiguous(), mesh, placements, run_check=False, shape=torch.Size(shape),
-        stride=torch.empty(shape, device="meta").stride())
+        stride=_contiguous_strides(shape))
+
+
+def _contiguous_strides(shape) -> tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape``, in integer
+    arithmetic: no tensor is made, so a dry-run's counter of live bytes
+    sees none."""
+    strides, n = [], 1
+    for size in reversed(tuple(shape)):
+        strides.append(n)
+        n *= max(int(size), 1)
+    return tuple(reversed(strides))
 
 
 def redistributed(t: torch.Tensor | None, placements) -> torch.Tensor | None:
@@ -349,12 +360,12 @@ def pad(x: torch.Tensor, pads: tuple[int, ...]) -> torch.Tensor:
 def gather_dims(x: torch.Tensor, dims: tuple[int, ...], keep: list[bool] | None = None
                 ) -> torch.Tensor:
     """A DTensor with its shards of tensor dims ``dims`` gathered (those
-    mesh dims replicated, but for the mesh dims ``keep`` marks), the others
-    kept."""
+    mesh dims replicated, but for the mesh dims ``keep`` marks) and its
+    partial sums reduced, the other shards kept."""
     Replicate = placement_types()[1]
     keep = keep or [False] * len(x.placements)
-    return redistributed(x, [Replicate() if p.is_shard() and p.dim in dims and not k else p
-                             for p, k in zip(x.placements, keep)])
+    return redistributed(x, [Replicate() if p.is_partial() or (p.is_shard() and p.dim in dims and not k)
+                             else p for p, k in zip(x.placements, keep)])
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -394,11 +405,17 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
     """``torch.einsum`` without an ellipsis; on DTensors it runs on this
-    rank's blocks.  Per mesh dim one index of the output that an operand is
-    sharded on is kept: every operand holding that index is sharded on it
-    there, the others are replicated (and get a partial gradient); any other
-    shard is gathered.  DTensor's own einsum flattens the batch indices into
-    one dim, which a shard of an inner one (heads, say) cannot survive."""
+    rank's blocks.  Per mesh dim one index that an operand is sharded on is
+    kept, an index of the output first, else a contracted one: every
+    operand holding that index is sharded on it there (and its block gets
+    its own gradient), the others are replicated (and get a partial
+    gradient).  A kept output index shards the output; a kept contracted
+    index leaves each rank the sum over its own blocks, a ``Partial``
+    output, reduced where the next op or constraint needs it (as GSPMD
+    all-reduces or reduce-scatters a dot's partial sums).  Any other shard
+    is gathered, and a partial operand is reduced.  DTensor's own einsum
+    flattens the batch indices into one dim, which a shard of an inner one
+    (heads, say) cannot survive."""
     if not any(is_dtensor(t) for t in operands):
         return torch.einsum(eq, *operands)
     Partial, Replicate, Shard = placement_types()
@@ -410,6 +427,8 @@ def einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
     for i in range(mesh.ndim):
         sharded = [spec[t.placements[i].dim] for spec, t in zip(ins, ops) if t.placements[i].is_shard()]
         keep = next((c for c in sharded if c in out), None)
+        if keep is None:  # a contracted index, read once by each operand holding it
+            keep = next((c for c in sharded if all(spec.count(c) < 2 for spec in ins)), None)
         for k, spec in enumerate(ins):
             if keep is not None and keep in spec:
                 pls[k].append(Shard(spec.index(keep)))
@@ -417,7 +436,8 @@ def einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
             else:
                 pls[k].append(Replicate())
                 grads[k].append(Partial() if keep is not None else Replicate())
-        out_pl.append(Replicate() if keep is None else Shard(out.index(keep)))
+        out_pl.append(Replicate() if keep is None else
+                      Shard(out.index(keep)) if keep in out else Partial())
     ops = [redistributed(t, pl) for t, pl in zip(ops, pls)]
     local = torch.einsum(eq, *[t.to_local(grad_placements=g) for t, g in zip(ops, grads)])
     size = {c: n for spec, t in zip(ins, ops) for c, n in zip(spec, t.shape)}

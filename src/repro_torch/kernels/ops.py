@@ -24,9 +24,12 @@ DTensors (a model sharded over a device mesh).  Each op takes the same
 kernel or plain version on this rank's block, above that choice: the inputs
 are first redistributed to a layout the op can run block by block, and the
 result is wrapped back as a DTensor.  ``rmsnorm`` keeps x's batch and
-sequence shards (it reduces over the last dimension, which the rules never
-shard) and gathers ``w``.  The attentions keep batch and head shards, and
-sequence shards thus:
+sequence shards and gathers ``w``; with ``split_rows`` (the SSM's gated
+norm over its heads, on more than one rank) a shard of the last dimension
+is kept too, its row statistic summed across the shards by one
+all-reduce, in plain PyTorch on the block (the reference's jnp norm there
+has no kernel).  The attentions keep batch and head shards, and sequence
+shards thus:
 
 * decode keeps the cache's sequence shard (flash-decoding): on that mesh
   dim q, a few KB a layer, is gathered instead; each rank runs the kernel
@@ -149,18 +152,39 @@ def _mesh_of(*ts) -> object:
     return next(t.device_mesh for t in ts if sh.is_dtensor(t))
 
 
-def _rmsnorm_blocks(x, w, eps, impl):
-    """rmsnorm of a DTensor x, row block by row block."""
-    Partial, Replicate, _ = sh.placement_types()
+def _rmsnorm_blocks(x, w, eps, impl, split_rows):
+    """rmsnorm of a DTensor x, row block by row block.  With ``split_rows``
+    a last dim sharded over a mesh dim of more than one rank (the SSM's
+    gated norm: y over its heads) stays split: each rank sums its columns'
+    squares in f32, one all-reduce of that (..., 1) statistic gives each
+    row's, and the block is normalized with its block of w in plain
+    PyTorch, as the reference computes jnp there.  Otherwise the rows are
+    gathered whole on each rank (a mesh dim of one rank holds them whole)
+    and the op runs on them as on a plain tensor."""
+    Partial, Replicate, Shard = sh.placement_types()
     mesh = _mesh_of(x, w)
     x, w = sh.as_dtensor(x, mesh), sh.as_dtensor(w, mesh)
     last = x.ndim - 1
-    x_pl = [p if p.is_shard() and p.dim < last else Replicate() for p in x.placements]
+    split = [split_rows and p.is_shard(last) and mesh.size(i) > 1 for i, p in enumerate(x.placements)]
+    x_pl = [p if (p.is_shard() and p.dim < last) or s else Replicate()
+            for p, s in zip(x.placements, split)]
     x = sh.redistributed(x, x_pl)
-    w_local = sh.redistributed(w, [Replicate()] * mesh.ndim).to_local(
-        grad_placements=[Partial() if p.is_shard() else Replicate() for p in x_pl])
-    out = rmsnorm(x.to_local(), w_local, eps=eps, impl=impl)
-    return sh.from_block(out, mesh, x_pl, x.shape)
+    w_pl = [Shard(0) if s else Replicate() for s in split]
+    w_local = sh.redistributed(w, w_pl).to_local(
+        grad_placements=[q if s else Partial() if p.is_shard() else Replicate()
+                         for p, s, q in zip(x_pl, split, w_pl)])
+    if not any(split):
+        out = rmsnorm(x.to_local(), w_local, eps=eps, impl=impl)
+        return sh.from_block(out, mesh, x_pl, x.shape)
+    xl = x.to_local()
+    xf = xl if xl.dtype == torch.float64 else xl.float()
+    rows = [Partial() if s else p for p, s in zip(x_pl, split)]
+    ss = sh.from_block(xf.square().sum(dim=-1, keepdim=True), mesh, rows, (*x.shape[:-1], 1))
+    # each rank's gradient of the row statistic is partial: its columns' share
+    ss = ss.redistribute(mesh, [Replicate() if s else p for p, s in zip(x_pl, split)]).to_local(
+        grad_placements=rows)
+    out = xf * torch.rsqrt(ss / x.shape[last] + eps)
+    return sh.from_block((out * w_local.to(xf.dtype)).to(xl.dtype), mesh, x_pl, x.shape)
 
 
 def _attention_layout(q, kvs, q_heads: int, kv_heads: int | None, *, q_seq: int | None = None,
@@ -381,9 +405,12 @@ def _mla_decode_blocks(q_abs, q_rope, ckv, krope, lengths, softmax_scale):
 # ---------------------------------------------------------------------------
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5, impl: str | None = None):
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5, impl: str | None = None,
+            split_rows: bool = False):
+    """``split_rows`` (DTensors): keep a shard of x's last dim, the row
+    statistic all-reduced across it (``_rmsnorm_blocks``)."""
     if sh.is_dtensor(x) or sh.is_dtensor(w):
-        return _rmsnorm_blocks(x, w, eps, impl)
+        return _rmsnorm_blocks(x, w, eps, impl, split_rows)
     if _use_kernel(impl, x):
         if _needs_grad(x, w):
             return _RMSNorm.apply(x, w, eps)

@@ -13,8 +13,12 @@ Decode is the O(1) recurrent step over the (H, P, N) state.
 The gated norm goes through :func:`repro_torch.kernels.ops.rmsnorm`, so on
 the card it is the rmsnorm kernel.  The parameter named ``a_log`` holds A
 itself (negative), as the reference's init law and its use here have it.
-On DTensors the chunked scan runs on each rank's block (batch and head
-shards kept, a sequence shard gathered), as the attention kernels do.
+On DTensors the mixer keeps the reference's head shard from the input
+projection on: the conv runs on each rank's x channels, the chunked scan on
+its block (batch and head shards kept, a sequence shard gathered), as the
+attention kernels do, and the gated norm sums its row statistic across the
+head shards (one all-reduce; plain PyTorch on the block, as the reference
+computes jnp there).
 """
 
 from __future__ import annotations
@@ -25,12 +29,15 @@ import torch.nn.functional as F
 from repro_torch.distributed.sharding import (
     TensorSpec,
     as_dtensor,
+    current_rules,
     einsum,
     from_block,
+    gather_dims,
     is_dtensor,
     matmul,
     pad,
     placement_types,
+    placements_for,
     redistributed,
     shard,
 )
@@ -201,16 +208,54 @@ def ssd_reference(x, dt, a, b_in, c_in, h_init=None):
 def _gated_out(params: dict, y: torch.Tensor, z: torch.Tensor, u: torch.Tensor, cfg):
     """rmsnorm(y * silu(z)) @ out_proj, in u's dtype."""
     gated = y * F.silu(z.float()).to(u.dtype)
-    return matmul(ops.rmsnorm(gated, params["norm_w"], eps=cfg.norm_eps), params["out_proj"])
+    normed = ops.rmsnorm(gated, params["norm_w"], eps=cfg.norm_eps, split_rows=True)
+    return matmul(normed, params["out_proj"])
+
+
+def _on_heads(t: torch.Tensor, dim: int, cfg) -> torch.Tensor:
+    """A DTensor whose ``dim`` runs over the SSM heads (H wide, or H x P
+    channels) split as the rules split ``ssm_heads``: on those mesh dims
+    each rank keeps its heads' block, which a replicated dim gives without
+    moving data; a plain tensor, or any tensor without rules, as it is."""
+    rules = current_rules()
+    if rules is None or rules.mesh is None or not is_dtensor(t):
+        return t
+    Shard = placement_types()[2]
+    heads = placements_for(rules.spec_for_shape((cfg.ssm_nheads,), ("ssm_heads",)), t.device_mesh)
+    return redistributed(t, [Shard(dim) if h.is_shard() else p for h, p in zip(heads, t.placements)])
+
+
+def _conv_on_heads(params: dict, xbc_raw: torch.Tensor, cfg):
+    """The causal conv of a DTensor xbc whose channels are whole on each
+    rank: x's channels on each rank's heads (the conv's weights, a few KB,
+    gathered and cut the same way), B's and C's replicated.  The conv is
+    depthwise, so each channel's value is the unsharded one."""
+    din, gn = cfg.d_inner, cfg.ssm_ngroups * cfg.ssm_state
+    w, bias = (gather_dims(as_dtensor(params[k], xbc_raw.device_mesh), (params[k].ndim - 1,))
+               for k in ("conv_w", "conv_b"))
+    x = _causal_conv(_on_heads(xbc_raw[..., :din], 2, cfg), _on_heads(w[:, :din], 1, cfg),
+                     _on_heads(bias[:din], 0, cfg))
+    bc = _causal_conv(xbc_raw[..., din:], w[:, din:], bias[din:])
+    return x, bc[..., :gn], bc[..., gn:]
 
 
 def _ssm_inputs(params: dict, u: torch.Tensor, cfg):
     """in_proj, causal conv and the split: (z, raw xbc, x (B,S,H,P), B, C,
-    dt (B,S,H) f32 after softplus)."""
+    dt (B,S,H) f32 after softplus).  On DTensors in_proj's column shards,
+    which cut z, x, B, C and dt at no head boundary, are gathered once;
+    then z, x and dt keep each rank's heads (the conv runs on its x
+    channels) and B and C are replicated, as the reference's mixer keeps
+    the head dim sharded."""
     b, s, _ = u.shape
-    z, xbc_raw, dt = _split_in_proj(cfg, matmul(u, params["in_proj"]))
-    xbc = _causal_conv(xbc_raw, params["conv_w"], params["conv_b"])
-    x, b_in, c_in = _split_xbc(cfg, xbc)
+    zxbcdt = matmul(u, params["in_proj"])
+    if is_dtensor(zxbcdt):
+        zxbcdt = gather_dims(zxbcdt, (zxbcdt.ndim - 1,))
+    z, xbc_raw, dt = _split_in_proj(cfg, zxbcdt)
+    if is_dtensor(xbc_raw):
+        x, b_in, c_in = _conv_on_heads(params, xbc_raw, cfg)
+        z, dt = _on_heads(z, 2, cfg), _on_heads(dt, 2, cfg)
+    else:
+        x, b_in, c_in = _split_xbc(cfg, _causal_conv(xbc_raw, params["conv_w"], params["conv_b"]))
     x = x.reshape(b, s, cfg.ssm_nheads, cfg.ssm_headdim)
     b_in = b_in.reshape(b, s, cfg.ssm_ngroups, cfg.ssm_state)
     c_in = c_in.reshape(b, s, cfg.ssm_ngroups, cfg.ssm_state)

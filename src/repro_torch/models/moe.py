@@ -27,11 +27,14 @@ from repro_torch.distributed.sharding import (
     TensorSpec,
     current_rules,
     einsum,
+    from_block,
     gather_dims,
     is_dtensor,
     matmul,
     pad,
+    placement_types,
     placements_for,
+    redistributed,
     shard,
 )
 
@@ -62,7 +65,24 @@ def _expert_ffn(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     else:
         hidden = F.gelu(up.float(), approximate="tanh").to(x.dtype)
     hidden = shard(hidden, "batch", "experts", None, "act_d_ff")
+    # a sharded d_ff (grok-1's) is contracted on each rank's blocks: partial
+    # sums, added in f32 where the combine reads them, as the reference adds them
     return einsum("gecf,efd->gecd", hidden, params["w_down"])
+
+
+def _flatten_groups(y: torch.Tensor) -> torch.Tensor:
+    """(G, S, d) -> (G * S, d).  A DTensor with no shard of S is reshaped
+    block by block, a shard of G becoming the rows' (the same blocks: the
+    rules shard G only over mesh axes that divide it); DTensor's own view
+    refuses a shard that holds a single group (one group on a one-rank
+    axis)."""
+    g, s, d = y.shape
+    if not is_dtensor(y) or any(p.is_shard(1) for p in y.placements):
+        return y.reshape(g * s, d)
+    _, Replicate, Shard = placement_types()
+    local = y.to_local(grad_placements=[Replicate() if p.is_partial() else p for p in y.placements])
+    return from_block(local.reshape(-1, d), y.device_mesh,
+                      [Shard(p.dim - 1) if p.is_shard(2) else p for p in y.placements], (g * s, d))
 
 
 def route_topk(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -120,17 +140,31 @@ def moe_forward(
     # one-hot of the slot, zero past the capacity (jax.nn.one_hot's rule)
     oc = (pos[..., None] == torch.arange(cap, device=x.device, dtype=pos.dtype)).float()
     oc = oc * keep[..., None]  # (G, S, k, C)
+    # each rank builds its experts' columns only, as the reference's
+    # constraints on dispatch and combine have GSPMD build them
+    onehot = shard(onehot, "batch", None, None, "experts")
     dispatch = einsum("gske,gskc->gsec", onehot, oc)  # (G, S, E, C)
     combine = einsum("gske,gskc->gsec", onehot * pi[..., None], oc)
     dispatch = shard(dispatch, "batch", None, "experts", None)
     combine = shard(combine, "batch", None, "experts", None)
+    if is_dtensor(tk):
+        # where the groups could not take the tokens' shard (one group of a
+        # decode step's tokens), the tokens keep it: the combine computes
+        # each rank's tokens only, as GSPMD propagates the output's batch
+        # shard back into it (a replicated dim cut, no data moved)
+        Shard = placement_types()[2]
+        combine = redistributed(combine, [Shard(1) if pt.is_shard(1) else pc
+                                          for pt, pc in zip(tk.placements, combine.placements)])
 
     buf = einsum("gsec,gsd->gecd", dispatch.to(x.dtype), tk)  # (G, E, C, d)
     buf = shard(buf, "batch", "experts", None, None)
     out_buf = _expert_ffn(params, buf, cfg)
     y = einsum("gsec,gecd->gsd", combine, out_buf.float())  # (G, S, d)
-    flat = y.reshape(n_groups * g_sz, d)[:t]
-    if is_dtensor(flat):  # gather the group shards over axes the batch is not sharded on
+    flat = _flatten_groups(y)[:t]
+    if is_dtensor(flat):
+        # the expert shards' partial sums added in f32, before the cast (as
+        # the reference adds them); the group shards gathered over axes the
+        # batch is not sharded on
         batch = placements_for(current_rules().spec_for_shape((b,), ("batch",)), flat.device_mesh)
         flat = gather_dims(flat, (0,), keep=[p.is_shard(0) for p in batch])
     out = flat.reshape(b, s, d).to(x.dtype)

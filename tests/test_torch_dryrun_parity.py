@@ -1,0 +1,60 @@
+"""The port's dry-run against the reference's, cell by cell: dot FLOPs a
+device on the single-pod (16, 16) mesh, where the port's MoE and SSM layers
+under the mesh must do the work a device that the reference's GSPMD
+program does.
+
+The reference's figures are those of ``python -m repro.launch.dryrun
+--arch <arch> --shape <shape> --mesh single`` (the JAX package's dry-run,
+its loop-corrected ``dot_flops_per_dev``), written here as constants: the
+JAX dry-run compiles each cell for 256 placeholder devices, which these
+tests do not repeat.  The port's cells run as the CLI runs them, on fake
+tensors over a fake process group of 256 ranks, one subprocess a cell, the
+three at once.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
+
+# (arch, shape) -> (the reference's dot FLOPs a device, the most the port may
+# do as a multiple of it)
+CELLS = {
+    ("olmoe-1b-7b", "prefill_32k"): (5.013e13, 1.02),  # 4.32x while the combine gathered out_buf
+    ("grok-1-314b", "decode_32k"): (1.329e11, 1.2),  # 12.2x while the down projection gathered
+    ("mamba2-370m", "prefill_32k"): (3.105e12, 1.02),  # 3.49x while every rank scanned all heads
+}
+
+
+@pytest.fixture(scope="module")
+def records(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("dryrun_parity")
+    env = {**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "1"}
+    procs = {cell: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", cell[0], "--shape", cell[1],
+         "--mesh", "single", "--out", str(tmp), "--force"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for cell in CELLS}
+    out = {}
+    for (arch, shape), p in procs.items():
+        log = p.communicate(timeout=300)[0].decode()
+        assert p.returncode == 0, log[-3000:]
+        out[(arch, shape)] = json.loads((tmp / f"{arch}__{shape}__single.json").read_text())
+    return out
+
+
+@pytest.mark.parametrize("cell", list(CELLS), ids=lambda c: f"{c[0]}-{c[1]}")
+def test_dot_flops_a_device_match_the_reference(records, cell):
+    """The cell is ok, fits in 80 GB, and its dot FLOPs a device are at most
+    the bound's multiple of the reference's (and at least 0.98 of them:
+    no work is lost)."""
+    rec = records[cell]
+    ref, most = CELLS[cell]
+    assert rec["ok"], rec.get("error")
+    assert rec["fits_80gb"], (rec["argument_bytes_per_dev"], rec["temp_bytes_per_dev"])
+    assert 0.98 * ref <= rec["dot_flops_per_dev"] <= most * ref, rec["dot_flops_per_dev"]

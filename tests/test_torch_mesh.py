@@ -7,8 +7,11 @@ sharding overrides: granite-8b (tensor parallel, two microbatches),
 nemotron-4-340b (the FSDP overlay: d_model over "data"), olmoe-1b-7b
 (experts over "model"), qwen1.5-4b and minicpm3-4b (MLA) (sequence
 parallel: "seq" over "model", q a local sequence shard at its query
-offset in the flash forward and backward, only k and v gathered) and
-mamba2-370m (the SSD scan on each rank's batch and head block).  The
+offset in the flash forward and backward, only k and v gathered),
+mamba2-370m (the SSD scan on each rank's batch and head block) and
+grok-1-314b (FSDP, each expert's d_ff over "model": the down projection
+contracts d_ff on each rank's blocks, as olmoe's combine contracts its
+experts).  The
 weights are JAX's init carried over through ``models.bridge``; the
 batches are the shared numpy pipeline's.  Each worker records the local
 operand of every all-gather of its sharded steps.
@@ -67,7 +70,9 @@ SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
 WORLD = 4
 TOL = dict(rtol=3e-5, atol=3e-5)  # tests/test_kernels.py's f32 tolerance
 ARCHS = {"granite-8b": 2, "nemotron-4-340b": 1, "olmoe-1b-7b": 1, "qwen1.5-4b": 1,
-         "mamba2-370m": 1, "minicpm3-4b": 1}  # microbatches
+         "mamba2-370m": 1, "minicpm3-4b": 1, "grok-1-314b": 1}  # microbatches
+# the MoE product that contracts a sharded index (grok-1's d_ff, olmoe's experts)
+MOE_CONTRACTED = {"grok-1-314b": "gecf,efd->gecd", "olmoe-1b-7b": "gsec,gecd->gsd"}
 SEQ_ARCHS = ("qwen1.5-4b", "minicpm3-4b")  # "seq" over "model"
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=20)
 BATCH, SEQ, STEPS = 4, 16, 3
@@ -119,19 +124,44 @@ WORKER = textwrap.dedent("""
         scale = want.norm().item()
         return ((got - want).norm().item() / scale) if scale else got.norm().item()
 
+    axis_of = {mesh.get_group(i).group_name: n for i, n in enumerate(mesh.mesh_dim_names)}
+
     class Gathers(TorchDispatchMode):
-        # the local operand shape of each all-gather issued below DTensor
+        # the local operand shape of each all-gather issued below DTensor,
+        # and the mesh axis it gathers over
 
         def __init__(self):
             super().__init__()
-            self.shapes = []
+            self.shapes, self.axes = [], []
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             if any(issubclass(t, DTensor) for t in types):
                 return NotImplemented
             if func.namespace == "_c10d_functional" and func.__name__.startswith("all_gather"):
                 self.shapes.append(list(args[0].shape))
+                self.axes.append(axis_of[args[2]])
             return func(*args, **(kwargs or {}))
+
+    from repro_torch.models import mamba2, moe
+
+    products, ssd_x = [], []  # what the sharded steps' MoE products and SSD scans ran on
+    sharded = [False]  # inside a sharded step
+
+    def recorded_einsum(eq, *ts):
+        out = sh.einsum(eq, *ts)
+        if sharded[0]:
+            products.append([eq, ["P" if p.is_partial() else str(p) for p in out.placements],
+                             [list(t.to_local().shape) for t in ts if sh.is_dtensor(t)]])
+        return out
+
+    ssd = mamba2.ssd_chunked
+
+    def recorded_ssd(x, *a, **kw):
+        if sharded[0] and not sh.is_dtensor(x):  # a rank's block (the DTensor call runs it on one)
+            ssd_x.append(list(x.shape))
+        return ssd(x, *a, **kw)
+
+    moe.einsum, mamba2.ssd_chunked = recorded_einsum, recorded_ssd
 
     flash_q = []  # q's local block at each sharded flash call (forward and remat's recompute)
     flash = ops.flash_attention
@@ -163,6 +193,8 @@ WORKER = textwrap.dedent("""
         losses, norms, apart = [], [], []
         gathers = Gathers()
         flash_q.clear()
+        products.clear()
+        ssd_x.clear()
         for step in range(steps):
             before = {k: full(v).numpy() for k, v in tree_paths(params)}
             if rank == 0:
@@ -174,8 +206,10 @@ WORKER = textwrap.dedent("""
             else:
                 tree_map(full, (params, opt_state))  # rank 0's gathers
             b = _device_batch(cfg, batch, seq, step, 1, torch.device("cpu"), rules)
+            sharded[0] = True
             with sh.use_sharding_rules(rules), gathers:
                 params, opt_state, m = step_fn(params, opt_state, b)
+            sharded[0] = False
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
             after = tree_map(full, (params, opt_state["m"], opt_state["v"]))
@@ -196,7 +230,10 @@ WORKER = textwrap.dedent("""
                          "m": placed(opt_state["m"]), "v": placed(opt_state["v"]),
                          "batch": placed(b), "seq_sharded": sh.seq_sharded(),
                          "mesh": list(mesh.shape), "flash_q": flash_q[:],
-                         "gathers": [g for g in gathers.shapes if len(g) == 4]}
+                         "gathers": [g for g in gathers.shapes if len(g) == 4],
+                         "model_gathers": [g for g, a in zip(gathers.shapes, gathers.axes)
+                                           if a == "model"],
+                         "products": products[:], "ssd_x": ssd_x[:]}
     if rank == 0:
         with open(f"{tmp}/out.json", "w") as f:
             json.dump(out, f)
@@ -356,3 +393,27 @@ def test_every_kind_of_leaf_is_really_sharded(runs, arch):
     if arch == "mamba2-370m":  # SSM heads over "model"
         assert "layers/mixer/a_log" in _sharded_on(rec["params"], 1, 1)
 
+
+
+@pytest.mark.parametrize("arch", list(MOE_CONTRACTED))
+def test_moe_product_contracts_its_sharded_index_in_training(runs, arch):
+    """In the sharded train steps (forward and remat's recompute) grok-1's
+    down projection and olmoe's combine run on each rank's blocks: their
+    output is partial over "model", and no all-gather over "model" (forward
+    or backward) takes an operand's block."""
+    rec = runs[1][arch]
+    calls = [c for c in rec["products"] if c[0] == MOE_CONTRACTED[arch]]
+    assert calls, rec["products"]
+    for _, placements, blocks in calls:
+        assert placements[1] == "P", placements
+        assert not [s for s in rec["model_gathers"] if s in blocks], (blocks, rec["model_gathers"])
+
+
+def test_ssd_scans_each_rank_heads_in_training(runs):
+    """In mamba2's sharded train steps every SSD scan (forward and remat's
+    recompute) runs on the rank's block: half the batch over "data" and
+    H / 2 heads over "model"."""
+    rec = runs[1]["mamba2-370m"]
+    h = jax_get_config("mamba2-370m", reduced=True).ssm_nheads
+    assert rec["ssd_x"] and all(x[0] == BATCH // 2 and x[2] == h // 2 for x in rec["ssd_x"]), \
+        rec["ssd_x"]

@@ -28,7 +28,21 @@ paths (the plain versions on this CPU):
 - minicpm3-4b on (2, 2): sequence parallel, its latent cache (``ckv``,
   ``krope``) sequence-sharded over "model" and batch-sharded over "data",
   so the absorbed decode merges each rank's block (flash-decoding, as
-  GQA's decode does).
+  GQA's decode does);
+- grok-1-314b on (2, 2): its 4 experts replicated, each expert's d_ff over
+  "model" and d_model over "data" (FSDP), so the down projection contracts
+  d_ff on each rank's blocks (a partial sum); its cache's sequence over
+  "model".  Two decode steps, as whisper's: at a third the unsharded port
+  is already 3.5e-4 from JAX on one row (the sharded run 3.1e-4, and
+  4.5e-5 from the unsharded one);
+- mamba2-370m on (1, 4) and zamba2-2.7b on (2, 2): the SSM mixer keeps its
+  heads over "model" (the conv on each rank's channels, the SSD scan on its
+  heads, the gated norm's statistic all-reduced); zamba2's shared
+  attention block caches its KV heads over "model".
+
+Each worker also records what the MoE's products and the SSD scans ran on
+(the output's placements, the operands' blocks; x's block), and the mesh
+axis of every all-gather.
 
 The rules shard no dimension that the axis does not divide, so the cases
 give even blocks.  Uneven and empty ones (6 cache rows over the 4-way axis:
@@ -87,7 +101,15 @@ CASES = {
     "olmoe-1b-7b": ("olmoe-1b-7b", 2, False, STEPS),
     "whisper-large-v3": ("whisper-large-v3", 2, False, 2),
     "minicpm3-4b": ("minicpm3-4b", 2, False, STEPS),
+    "grok-1-314b": ("grok-1-314b", 2, False, 2),
+    "mamba2-370m": ("mamba2-370m", 4, False, STEPS),
+    "zamba2-2.7b": ("zamba2-2.7b", 2, False, STEPS),
 }
+# the MoE product that contracts a sharded index: grok-1's down projection
+# (d_ff over "model"), olmoe's combine (the experts over "model")
+MOE_CONTRACTED = {"grok-1-314b": "gecf,efd->gecd", "olmoe-1b-7b": "gsec,gecd->gsd"}
+SSM_CASES = ("mamba2-370m", "zamba2-2.7b")
+
 FRAMES = 6  # whisper's frames: blocks of 2, 2, 2, 0 over a 4-way axis
 
 WORKER = textwrap.dedent("""
@@ -134,21 +156,45 @@ WORKER = textwrap.dedent("""
             else:
                 yield f"{path}{k}", v
 
+    axis_of = {mesh.get_group(i).group_name: n for mesh in meshes.values()
+               for i, n in enumerate(mesh.mesh_dim_names)}
+
     class Gathers(TorchDispatchMode):
-        # the local operand shape of each all-gather issued below DTensor
+        # the local operand shape of each all-gather issued below DTensor,
+        # and the mesh axis it gathers over
 
         def __init__(self):
             super().__init__()
-            self.shapes = []
+            self.shapes, self.axes = [], []
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             if any(issubclass(t, DTensor) for t in types):
                 return NotImplemented
             if func.namespace == "_c10d_functional" and func.__name__.startswith("all_gather"):
                 self.shapes.append(list(args[0].shape))
+                self.axes.append(axis_of[args[2]])
             return func(*args, **(kwargs or {}))
 
     from repro_torch.kernels import ops
+    from repro_torch.models import mamba2, moe
+
+    products, ssd_x = [], []  # what the sharded MoE products and SSD scans ran on
+
+    def recorded_einsum(eq, *ts):
+        out = sh.einsum(eq, *ts)
+        if sh.is_dtensor(out):
+            products.append([eq, ["P" if p.is_partial() else str(p) for p in out.placements],
+                             [list(t.to_local().shape) for t in ts if sh.is_dtensor(t)]])
+        return out
+
+    ssd = mamba2.ssd_chunked
+
+    def recorded_ssd(x, *a, **kw):
+        if not sh.is_dtensor(x):  # a rank's block (the DTensor call runs it on one)
+            ssd_x.append(list(x.shape))
+        return ssd(x, *a, **kw)
+
+    moe.einsum, mamba2.ssd_chunked = recorded_einsum, recorded_ssd
 
     out = {}
     mesh = meshes[4]
@@ -216,13 +262,16 @@ WORKER = textwrap.dedent("""
         rec["plain"], plain_snaps = run(plain, caches, toks, frames, None)
         for g in gathers.values():
             g.shapes.clear()
+            g.axes.clear()
+        products.clear()
+        ssd_x.clear()
         caches = TF.init_caches(cfg, batch, max_seq, device="cpu")
         specs = sh.specs_for_axes(caches, TF.cache_axes(cfg), rules)
         caches = sh.map_pair(lambda t, s: sh.distribute(t, s, mesh), caches, specs)
         with sh.use_sharding_rules(rules):
             rec.update(seq_sharded=sh.seq_sharded(), caches=placed(caches))
         params = sh.distribute_tree(plain, TF.param_template(cfg), rules)
-        rec["attn"] = placed(params["layers"]["attn"])
+        rec["attn"] = placed(params["layers"].get("attn", {}))
         rec["blocks"] = {k: list(v.to_local().shape) for k, v in tree_items(caches)}
         frames = tuple(sh.distribute(f, rules.spec_for_shape(tuple(f.shape), ("batch", "seq", None)),
                                      mesh) for f in frames)
@@ -230,6 +279,8 @@ WORKER = textwrap.dedent("""
         rec["tokens_block"] = list(toks.to_local().shape)
         rec["logits"], snaps = run(params, caches, toks, frames, rules)
         rec["gathers"] = {k: g.shapes for k, g in gathers.items()}
+        rec["gather_axes"] = {k: g.axes for k, g in gathers.items()}
+        rec["products"], rec["ssd_x"] = products[:], ssd_x[:]
         if rank == 0:
             for i, (snap, plain_snap) in enumerate(zip(snaps, plain_snaps)):
                 np.savez(f"{tmp}/{name}_cache{i}.npz", **snap)
@@ -325,8 +376,9 @@ def runs(tmp_path_factory):
 @pytest.mark.parametrize("name", list(CASES))
 def test_sharded_prefill_and_decode_logits_match(runs, name):
     """Every pass's logits: within 3e-5 of the port's unsharded run, within
-    1e-4 of JAX's (tests/test_torch_model.py's tolerance for the port's f32
-    model, whose sums run in another order than XLA's), the same token."""
+    1e-4 of JAX's
+    (tests/test_torch_model.py's tolerance for the port's f32 model, whose
+    sums run in another order than XLA's), the same token."""
     _, got, want = runs
     jlogits, jids, _ = want[name]
     logits = [np.asarray(x, np.float32) for x in got[name]["logits"]]
@@ -362,8 +414,9 @@ def _assert_cache_close(got, want, tol, where) -> int:
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_sharded_caches_match(runs, name):
-    """Every cache leaf after the prefill and after the last step, gathered:
-    against the port's unsharded run at 3e-5 and JAX's at 1e-4
+    """Every cache leaf (the SSM state too) after the prefill and after the
+    last step, gathered: against the port's unsharded run at 3e-5 and JAX's
+    at 1e-4
     (tests/test_torch_kvquant.py's rule for the f32 leaves)."""
     tmp, _, want = runs
     near_half = 0
@@ -379,7 +432,7 @@ def test_sharded_caches_match(runs, name):
 def test_each_case_is_really_sharded(runs):
     """The layouts the cases are meant to exercise are the ones that ran."""
     rec = runs[1]
-    cache = {n: rec[n]["caches"]["layers/k"] for n in CASES if n != "minicpm3-4b"}
+    cache = {n: rec[n]["caches"]["layers/k"] for n in CASES if "layers/k" in rec[n]["caches"]}
     # q's heads over the 4-way "model" axis, the 2 KV heads whole
     assert rec["granite-8b"]["attn"]["wq"][1] == "S(2)"
     assert rec["granite-8b"]["attn"]["wk"][1] == "R"
@@ -387,7 +440,13 @@ def test_each_case_is_really_sharded(runs):
     assert cache["granite-8b-int8"] == ["S(1)", "S(3)"]  # + the batch over "data"
     assert rec["granite-8b-int8"]["caches"]["layers/k_scale"] == ["S(1)", "S(3)"]
     assert cache["olmoe-1b-7b"] == ["S(1)", "S(2)"]  # KV heads over "model"
-    assert [rec[n]["seq_sharded"] for n in CASES] == [False, False, True, False, True, True]
+    assert [rec[n]["seq_sharded"] for n in CASES] == [False, False, True, False, True, True,
+                                                      False, False, False]
+    assert cache["grok-1-314b"] == ["S(1)", "S(3)"]  # cache_seq over "model"
+    # the SSM state's heads over "model" (its batch over "data")
+    for n in SSM_CASES:
+        assert rec[n]["caches"]["layers/h"] == ["S(1)", "S(2)"]
+    assert rec["zamba2-2.7b"]["caches"]["shared/k"] == ["S(1)", "S(2)"]  # KV heads over "model"
     # the latent cache: the batch over "data", the sequence over "model"
     for leaf in ("layers/ckv", "layers/krope"):
         assert rec["minicpm3-4b"]["caches"][leaf] == ["S(1)", "S(2)"]
@@ -396,7 +455,8 @@ def test_each_case_is_really_sharded(runs):
     assert rec["whisper-large-v3"]["caches"]["layers/k"] == ["S(1)", "S(3)"]
 
 
-SEQ_CACHE = [n for n in CASES if n != "olmoe-1b-7b"]  # olmoe's cache: KV heads over "model"
+# olmoe's and zamba2's caches: KV heads over "model"; mamba2 has no KV cache
+SEQ_CACHE = [n for n in CASES if n not in ("olmoe-1b-7b", *SSM_CASES)]
 
 
 @pytest.mark.parametrize("name", SEQ_CACHE)
@@ -455,3 +515,38 @@ def test_uneven_and_empty_sequence_blocks(runs):
     for causal in (True, False):
         assert u[f"flash_{causal}"] <= 3e-5
         assert u[f"flash_{causal}_gathers"] == []
+
+
+@pytest.mark.parametrize("name", list(MOE_CONTRACTED))
+def test_moe_product_contracts_its_sharded_index_on_blocks(runs, name):
+    """grok-1's down projection (d_ff over "model") and olmoe's combine (the
+    experts over "model") run on each rank's blocks in the prefill and every
+    decode step: one call a layer a pass, its output partial over "model"
+    (reduced where the next op reads it), and no all-gather over "model" of
+    an operand's block (hidden and w_down; combine and out_buf)."""
+    rec = runs[1][name]
+    calls = [c for c in rec["products"] if c[0] == MOE_CONTRACTED[name]]
+    assert len(calls) == _config(name).n_layers * (CASES[name][3] + 1), rec["products"]
+    model_gathers = [s for k in ("prefill", "decode")
+                     for s, a in zip(rec["gathers"][k], rec["gather_axes"][k]) if a == "model"]
+    for _, placements, blocks in calls:
+        assert placements[1] == "P", placements
+        assert not [s for s in model_gathers if s in blocks], (blocks, model_gathers)
+
+
+@pytest.mark.parametrize("name", SSM_CASES)
+def test_ssd_scans_each_rank_heads(runs, name):
+    """The sharded SSM mixer keeps the reference's head shard: each prefill
+    layer's SSD scan runs on the rank's H / "model" heads (x's block), and
+    no all-gather over "model" takes a block of the gated norm's input (y,
+    its rows split over the heads: one all-reduce of its statistic)."""
+    rec = runs[1][name]
+    cfg = _config(name)
+    model = CASES[name][1]
+    assert len(rec["ssd_x"]) == cfg.n_layers, rec["ssd_x"]
+    b, s = rec["tokens_block"]
+    assert all(x[0] == b and x[2] == cfg.ssm_nheads // model for x in rec["ssd_x"]), rec["ssd_x"]
+    y_block = [b, s, cfg.ssm_expand * cfg.d_model // model]
+    model_gathers = [g for g, a in zip(rec["gathers"]["prefill"], rec["gather_axes"]["prefill"])
+                     if a == "model"]
+    assert y_block not in model_gathers, model_gathers

@@ -10,7 +10,10 @@ sides.  Each rank's block under the port's placements is the block the
 reference's ``NamedSharding`` gives that device (JAX over 8 host devices in
 a subprocess).  Also: the template axes leaf by leaf, the divisibility
 property, ``shard`` without rules, and attention on a rank whose q heads are
-sharded while the KV heads stay whole (the GQA head offset).
+sharded while the KV heads stay whole (the GQA head offset).  On 4 gloo
+ranks: ``sharding.einsum`` contracting a sharded index on each rank's
+blocks (a ``Partial`` output, reduced to ``torch.einsum``'s, forward and
+backward) and rmsnorm over rows split across ranks (JAX's).
 """
 
 import json
@@ -306,3 +309,176 @@ def test_rmsnorm_blocks_give_w_a_partial_gradient():
         out.sum().backward()
         assert wd.grad.placements == (Partial(),)
         torch.testing.assert_close(wd.grad.to_local(), w_rows.grad, rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Products that contract a sharded index, and rows split over the mesh, on
+# 4 gloo ranks: a (2, 2) ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+# name -> (equation, operands as (shape, tensor dim sharded on "data" and on
+# "model", None for replicated)); the output's placements the rule gives
+CONTRACT_CASES = {
+    # grok-1's down projection: groups over "data"; d_ff (f), the contracted
+    # index, over "model" in both operands, d_model over "data" (FSDP)
+    "grok_down": ("gecf,efd->gecd", [((4, 3, 5, 8), (0, 3)), ((3, 8, 6), (2, 1))],
+                  ["S(0)", "P"]),
+    # olmoe's combine: the experts (e), contracted, over "model" in both
+    "olmoe_combine": ("gsec,gecd->gsd", [((4, 6, 4, 5), (0, 2)), ((4, 4, 5, 6), (0, 1))],
+                      ["S(0)", "P"]),
+    # the contracted index sharded in one operand only: the other is cut
+    "one_side": ("ij,jk->ik", [((6, 8), (None, None)), ((8, 5), (None, 0))], ["R", "P"]),
+    # an output index sharded beside a contracted one: the output's is kept
+    "output_first": ("bk,kn->bn", [((4, 8), (0, 1)), ((8, 6), (None, 1))], ["S(0)", "S(1)"]),
+}
+SPLIT_NORM = {"x": ((4, 3, 16), (0, 2)), "w": ((16,), (None, 0))}  # the gated norm's layout
+
+CONTRACT_WORKER = textwrap.dedent("""
+    import json, sys
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    torch.set_num_threads(1)
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import ops
+
+    rank, port, tmp = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+    cases, norm = json.loads(sys.argv[4])
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=4)
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    data = np.load(f"{tmp}/inputs.npz")
+
+    axis = {mesh.get_group(i).group_name: n for i, n in enumerate(mesh.mesh_dim_names)}
+
+    class Gathers(TorchDispatchMode):
+        # (mesh axis, local operand shape) of each all-gather issued below DTensor
+
+        def __init__(self):
+            super().__init__()
+            self.shapes = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            if func.namespace == "_c10d_functional" and func.__name__.startswith("all_gather"):
+                self.shapes.append([axis[args[2]], list(args[0].shape)])
+            return func(*args, **(kwargs or {}))
+
+    def placed(name, dims):
+        pl = [Replicate() if d is None else Shard(d) for d in dims]
+        return sh.distribute_as(torch.from_numpy(data[name]), mesh, pl).requires_grad_(True)
+
+    def pl_str(t):
+        return ["P" if p.is_partial() else "R" if p.is_replicate() else f"S({p.dim})"
+                for p in t.placements]
+
+    out, saved = {}, {}
+    for name, (eq, operands, _) in cases.items():
+        ins = [placed(f"{name}_{i}", dims) for i, (_, dims) in enumerate(operands)]
+        with Gathers() as g:
+            y = sh.einsum(eq, *ins)
+        whole = y.redistribute(mesh, [Replicate()] * 2).to_local()
+        (whole * torch.from_numpy(data[f"{name}_cot"])).sum().backward()
+        out[name] = {"placements": pl_str(y), "gathers": g.shapes,
+                     "blocks": [list(t.to_local().shape) for t in ins]}
+        saved[f"{name}_out"] = whole.detach().numpy()
+        for i, t in enumerate(ins):
+            saved[f"{name}_grad{i}"] = t.grad.full_tensor().numpy()
+    x, w = placed("norm_x", norm["x"][1]), placed("norm_w", norm["w"][1])
+    with Gathers() as g:
+        y = ops.rmsnorm(x, w, eps=1e-5, split_rows=True)
+    y.full_tensor().mul(torch.from_numpy(data["norm_cot"])).sum().backward()
+    out["norm"] = {"placements": pl_str(y), "gathers": g.shapes,
+                   "x_block": list(x.to_local().shape)}
+    saved.update(norm_out=y.full_tensor().detach().numpy(), norm_grad_x=x.grad.full_tensor().numpy(),
+                 norm_grad_w=w.grad.full_tensor().numpy())
+    if rank == 0:
+        np.savez(f"{tmp}/outputs.npz", **saved)
+        with open(f"{tmp}/out.json", "w") as f:
+            json.dump(out, f)
+    dist.destroy_process_group()
+""")
+
+
+@pytest.fixture(scope="module")
+def contracted(tmp_path_factory):
+    """The workers' outputs and gradients (gathered), their placements and
+    all-gathers, beside the inputs and cotangents they were given."""
+    import socket
+
+    tmp = tmp_path_factory.mktemp("contract")
+    rng = np.random.default_rng(11)
+    inputs = {}
+    for name, (eq, operands, _) in CONTRACT_CASES.items():
+        for i, (shape, _) in enumerate(operands):
+            inputs[f"{name}_{i}"] = rng.standard_normal(shape).astype(np.float32)
+        ins = [inputs[f"{name}_{i}"] for i in range(len(operands))]
+        inputs[f"{name}_cot"] = rng.standard_normal(np.einsum(eq, *ins).shape).astype(np.float32)
+    for key, (shape, _) in SPLIT_NORM.items():
+        inputs[f"norm_{key}"] = rng.standard_normal(shape).astype(np.float32)
+    inputs["norm_cot"] = rng.standard_normal(SPLIT_NORM["x"][0]).astype(np.float32)
+    np.savez(tmp / "inputs.npz", **inputs)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    env = {**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "1"}
+    spec = json.dumps([CONTRACT_CASES, SPLIT_NORM])
+    procs = [subprocess.Popen([sys.executable, "-c", CONTRACT_WORKER, str(r), port, str(tmp), spec],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(4)]
+    logs = [p.communicate(timeout=180)[0].decode() for p in procs]
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} failed:\n{log[-3000:]}"
+    got = json.loads((tmp / "out.json").read_text())
+    return inputs, dict(np.load(tmp / "outputs.npz")), got
+
+
+@pytest.mark.parametrize("name", list(CONTRACT_CASES))
+def test_einsum_contracting_a_sharded_index_is_partial(contracted, name):
+    """``sharding.einsum`` on 4 gloo ranks: where the only shard on a mesh
+    dim is of a contracted index, each rank contracts its own blocks and the
+    output is ``Partial`` there (an output index, where one is sharded, is
+    kept instead); the reduction equals ``torch.einsum`` of the whole
+    operands, and each operand's gradient (through the reduction) equals
+    autograd's, within 1e-5; no operand block is gathered over "model" on
+    the way (grok's FSDP d_model is gathered over "data", as the
+    reference gathers it)."""
+    inputs, saved, got = contracted
+    eq, operands, placements = CONTRACT_CASES[name]
+    rec = got[name]
+    assert rec["placements"] == placements
+    ins = [torch.from_numpy(inputs[f"{name}_{i}"]).requires_grad_(True) for i in range(len(operands))]
+    want = torch.einsum(eq, *ins)
+    (want * torch.from_numpy(inputs[f"{name}_cot"])).sum().backward()
+    np.testing.assert_allclose(saved[f"{name}_out"], want.detach().numpy(), rtol=1e-5, atol=1e-5)
+    for i, t in enumerate(ins):
+        np.testing.assert_allclose(saved[f"{name}_grad{i}"], t.grad.numpy(), rtol=1e-5, atol=1e-5,
+                                   err_msg=f"operand {i}")
+    if placements[1] == "P":
+        assert not [s for a, s in rec["gathers"] if a == "model" and s in rec["blocks"]], rec
+
+
+def test_rmsnorm_over_a_split_row_matches_jax(contracted):
+    """The SSM's gated-norm layout on 4 gloo ranks: x's batch over "data"
+    and its last dim over "model", w's over "model".  The rows stay split
+    (the output's placements are x's), the row statistic is one all-reduce
+    of the (B, S, 1) sum of squares, x is never gathered; the output and
+    the gradients of x and w equal JAX's ``layers.rmsnorm`` and its vjp
+    within 1e-5."""
+    inputs, saved, got = contracted
+    rec = got["norm"]
+    assert rec["placements"] == ["S(0)", "S(2)"]
+    assert rec["gathers"] == [], rec
+    from repro.models import layers as JL
+
+    y, vjp = jax.vjp(lambda x, w: JL.rmsnorm(x, w, 1e-5), inputs["norm_x"], inputs["norm_w"])
+    gx, gw = vjp(jax.numpy.asarray(inputs["norm_cot"]))
+    np.testing.assert_allclose(saved["norm_out"], np.asarray(y), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(saved["norm_grad_x"], np.asarray(gx), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(saved["norm_grad_w"], np.asarray(gw), rtol=1e-5, atol=1e-5)

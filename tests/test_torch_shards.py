@@ -3,7 +3,8 @@ package on the CPU: the plain decode with its log-sum-exp over cache slices
 merged by ``ops.merge_partials`` (flash-decoding), MLA's absorbed decode
 over latent cache blocks merged the same way, the plain flash forward and
 backward with a query offset row block by row block, the kernel path's
-dispatch at an offset, and the dry-run's gathers and FLOPs.
+dispatch at an offset, the dry-run's gathers and FLOPs, and the SSD scan
+on blocks of heads (the sharded SSM mixer's).
 
 Inputs come from numpy seeds and go to both sides.  Tolerances are the
 reference's (tests/test_kernels.py:16-17): f32 3e-5, bf16 2e-2.
@@ -501,3 +502,37 @@ def test_variant_counts_reset_with_the_kernels():
         from repro_torch.kernels import decode_attention as dk
         dk.lse_launches += 3
     assert ops.variant_counts()["decode_attention_lse"] == 0
+
+
+# The SSD scan's heads cut by hand into the blocks a mesh gives each rank
+# (B and C of one group whole beside each block): (first head of each block, end)
+SSD_CUTS = {"whole": [0, 8], "four": [0, 2, 4, 6, 8], "uneven": [0, 3, 8]}
+
+
+@pytest.mark.parametrize("h_init", [False, True])
+@pytest.mark.parametrize("cut", list(SSD_CUTS))
+def test_ssd_head_blocks_match_jax(cut, h_init):
+    """``mamba2.ssd_chunked`` on each block of heads (x, dt, A and the
+    initial state cut, B and C of the one group whole: what a rank of the
+    sharded mixer runs) against JAX's ``ssd_chunked`` on all heads: each
+    block's y and final state within 1e-5 (f32) of JAX's rows of those
+    heads, with and without an initial state."""
+    from repro.models import mamba2 as JM
+    from repro_torch.models import mamba2 as TM
+
+    rng = np.random.default_rng(29)
+    b, s, h, p, n, chunk = 2, 32, 8, 4, 6, 8
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)  # softplus'd
+    a = -np.exp(rng.uniform(0, np.log(16.0), h)).astype(np.float32)
+    bc = [rng.standard_normal((b, s, 1, n)).astype(np.float32) for _ in range(2)]
+    h0 = rng.standard_normal((b, h, p, n)).astype(np.float32) if h_init else None
+    want_y, want_h = JM.ssd_chunked(*(jnp.asarray(t) for t in (x, dt, a, *bc)), chunk,
+                                    None if h0 is None else jnp.asarray(h0))
+    starts = SSD_CUTS[cut]
+    for lo, hi in zip(starts, starts[1:]):
+        y, hf = TM.ssd_chunked(torch.from_numpy(x[:, :, lo:hi]), torch.from_numpy(dt[..., lo:hi]),
+                               torch.from_numpy(a[lo:hi]), *map(torch.from_numpy, bc), chunk,
+                               None if h0 is None else torch.from_numpy(h0[:, lo:hi]))
+        np.testing.assert_allclose(y.numpy(), np.asarray(want_y)[:, :, lo:hi], rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(hf.numpy(), np.asarray(want_h)[:, lo:hi], rtol=1e-5, atol=1e-5)

@@ -290,3 +290,44 @@ def test_mla_block_work_counts_the_latent_rows():
                  for a, e in zip(cut, cut[1:])]
         assert sum(p[0] - fixed for p in parts) == nbytes - fixed
         assert sum(p[1] for p in parts) == flops
+
+
+def test_ssd_work_counts_the_scans_products():
+    """14(i)'s bound counts the SSD scan's products as torch's flop counter
+    counts ``mamba2.ssd_chunked`` (its einsums), and its blocks of heads
+    add up to the whole call: FLOPs exactly, bytes but for B and C, which
+    every block reads whole."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.models import mamba2
+
+    b, s, h, p, n, q = 2, 32, 4, 8, 6, 8
+    args = (torch.randn(b, s, h, p), torch.rand(b, s, h), -torch.rand(h), torch.randn(b, s, 1, n),
+            torch.randn(b, s, 1, n))
+    with FlopCounterMode(display=False) as fc:
+        mamba2.ssd_chunked(*args, q)
+    nbytes, flops = cs.ssd_work(b, s, h, p, n, q)
+    assert flops == fc.get_total_flops()
+    cuts = cs.block_starts(h, 2)
+    parts = [cs.ssd_work(b, s, e - a, p, n, q) for a, e in zip(cuts, cuts[1:])]
+    assert sum(f for _, f in parts) == flops
+    assert sum(nb for nb, _ in parts) - nbytes == 4 * 2 * b * s * n  # B and C read by both blocks
+
+
+def test_family_serving_records_the_models_products():
+    """14(g)'s recorder looks for the MoE's products by the equations the
+    model writes (grok-1's down projection, olmoe's combine), and 14(h)'s
+    archs are the SSM and hybrid families."""
+    import inspect
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    src = inspect.getsource(moe)
+    assert all(f'einsum("{eq}"' in src for eq in cs.MOE_CONTRACTED.values())
+    fams = {a: get_config(a).family for a in cs.SHARD_SERVE_FAMILIES}
+    assert fams == {"grok-1-314b": "moe", "olmoe-1b-7b": "moe", "mamba2-370m": "ssm",
+                    "zamba2-2.7b": "hybrid"}
+    cfg = get_config("zamba2-2.7b")
+    assert cs.SHARD_SERVE_FAMILIES["zamba2-2.7b"] % cfg.attn_every == 0  # its shared block runs
