@@ -259,8 +259,13 @@ Run from the root of a checkout.  Phases, each of which must pass:
               blocks, each block's y and final state within 1e-5 of the
               whole call's (of its largest magnitude), two runs bit-equal;
               timed cold: the whole call and the largest block beside their
-              bounds; every time logged beside the card's name and power
-              limit
+              bounds; (j) nemotron-4-340b's decode K/V projections at full
+              width, x (8, 18432) bf16 against wk and wv (18432, 1536): the
+              16 d_model blocks' f32 partials summed, held to the whole
+              product at bf16 2e-2; timed cold: both whole products and one
+              block of each beside their bounds; and (g)'s grok-1 pass
+              bit-equal with the idle-axis rule checked and never applied;
+              every time logged beside the card's name and power limit
 
 It prints one JSON ``kernels`` line (the three forward kernels, the decode
 kernel over the int8 cache with its launches in phase 7b, the two backward
@@ -3233,6 +3238,11 @@ MOE_CONTRACTED = {"grok-1-314b": "gecf,efd->gecd", "olmoe-1b-7b": "gsec,gecd->gs
 # 14(i): mamba2-370m's SSD scan over 4 x 8,192 tokens cut into 16 head blocks
 SHARD_SSD = dict(b=4, s=8192, blocks=16)
 SSD_TOL = 1e-5  # a block's y and state against the whole call's, of its largest magnitude
+# 14(j): nemotron-4-340b's decode K/V projections at full width: the 8 rows a
+# rank holds in decode_32k (128 over the 16-way "data" axis) against wk and wv,
+# d_model cut into the 16 blocks that the idle "model" axis contracts under
+# the FSDP overlay (``sharding.idle_contraction``)
+SHARD_KV_PROJ = dict(arch="nemotron-4-340b", rows=8, blocks=16)
 # the kernel line's rows of the variants: (name, source, replaces, the case timed)
 SHARD_VARIANTS = (
     ("decode_attention_lse", "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -3666,8 +3676,12 @@ def shard_serve_family(torch, np, ops, TF, get_config, arch: str) -> dict:
 
     @contextlib.contextmanager
     def record():
-        seen = {"products": [], "ssd_in": [], "ssd_blocks": []}
-        einsum, ssd = moe.einsum, mamba2.ssd_chunked
+        seen = {"products": [], "ssd_in": [], "ssd_blocks": [], "idle": []}
+        einsum, ssd, idle = moe.einsum, mamba2.ssd_chunked, sh.idle_contraction
+
+        def recorded_idle(*a):
+            seen["idle"].append(idle(*a))
+            return seen["idle"][-1]
 
         def recorded_einsum(e, *ts):
             out = einsum(e, *ts)
@@ -3683,10 +3697,12 @@ def shard_serve_family(torch, np, ops, TF, get_config, arch: str) -> dict:
             return ssd(x, *a, **kw)
 
         moe.einsum, mamba2.ssd_chunked = recorded_einsum, recorded_ssd
+        sh.idle_contraction = recorded_idle
         try:
             yield seen
         finally:
             moe.einsum, mamba2.ssd_chunked = einsum, ssd
+            sh.idle_contraction = idle
 
     kv_heads = (cfg.sharding_overrides or {}).get("cache_kv_heads")  # else the cache's sequence
     leaf, dim = ("h", 2) if ssm else ("k", 2 if kv_heads else 3)
@@ -3708,13 +3724,18 @@ def shard_serve_family(torch, np, ops, TF, get_config, arch: str) -> dict:
         check(len(seen["ssd_blocks"]) == cfg.n_layers and all(
             x[2] == cfg.ssm_nheads // mesh_shape[1] for x in seen["ssd_blocks"]),
             f"shards serve {arch}: the SSD scan did not run on the rank's heads: {seen['ssd_blocks']}")
+    # every axis of the one-rank mesh has size 1: the idle-axis rule never applies
+    check(seen["idle"] and not any(seen["idle"]),
+          f"shards serve {arch}: the idle-axis contraction applied on a one-rank mesh: "
+          f"{seen['idle']}")
     want = cfg.n_layers * t["steps"] if placements[1].is_shard(3) else 0
     check(launched == want, f"shards serve {arch}: {launched} decode launches with lse, not {want}")
     errs, bit_equal = _logits_apart(torch, got, plain, f"shards serve {arch}")
     check(bit_equal, f"shards serve {arch}: logits not bit-equal to the unsharded run: {errs}")
     row = {"model": cfg.name, "layers": cfg.n_layers, "mesh": mesh_shape, "cache": placed,
            "decode_lse_launches": launched, "contracted_partial": len(seen["products"]),
-           "ssd_head_blocks": seen["ssd_blocks"], "max_abs_diff": errs, "bit_equal": bit_equal}
+           "ssd_head_blocks": seen["ssd_blocks"], "idle_rule_checks": len(seen["idle"]),
+           "max_abs_diff": errs, "bit_equal": bit_equal}
     log(f"[shards] serve {arch} " + json.dumps(row))
     return row
 
@@ -3785,6 +3806,63 @@ def shard_ssd(torch, cfg, card: str) -> dict:
     return row
 
 
+def shard_kv_proj(torch, cfg, card: str) -> dict:
+    """14(j): ``SHARD_KV_PROJ``'s decode rows against wk and wv (d_model x
+    KV * head dim) at full width in bf16, x unit-scale and the weights
+    under the init law: the sum over the 16 d_model blocks of each block's
+    partial (``sharding.contract_block``: f32, the reduction's dtype) held
+    to the whole product at bf16 2e-2.  Timed cold: both whole products
+    (the unsharded path's) and one block of each (a rank's work under the
+    rule), beside their bounds, and the block with its operands cast to f32
+    first (``cast``: the path under autograd, and the reference's compiled
+    arithmetic)."""
+    from repro_torch.distributed import sharding as sh
+
+    rows, n = SHARD_KV_PROJ["rows"], SHARD_KV_PROJ["blocks"]
+    d, cols = cfg.d_model, cfg.n_kv_heads * cfg.resolved_head_dim
+    kb = d // n
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 30)
+    x = torch.randn((rows, d), generator=gen, device="cuda").to(torch.bfloat16)
+    wk, wv = (torch.randn((d, cols), generator=gen, device="cuda").mul_(d ** -0.5)
+              .to(torch.bfloat16) for _ in range(2))
+
+    def whole(x, wk, wv):
+        return x @ wk, x @ wv
+
+    def block(xb, wkb, wvb):
+        return sh.contract_block(xb, wkb), sh.contract_block(xb, wvb)
+
+    def cast(xb, wkb, wvb):
+        return xb.float() @ wkb.float(), xb.float() @ wvb.float()
+
+    want = whole(x, wk, wv)
+    sums = [torch.zeros((rows, cols), device="cuda") for _ in range(2)]
+    for i in range(n):
+        for acc, part in zip(sums, block(x[:, i * kb:(i + 1) * kb], wk[i * kb:(i + 1) * kb],
+                                         wv[i * kb:(i + 1) * kb])):
+            acc += part
+    errs = [max_err(torch, acc.to(torch.bfloat16), w, "bf16") for acc, w in zip(sums, want)]
+    one = (x[:, :kb].contiguous(), wk[:kb].contiguous(), wv[:kb].contiguous())
+    whole_ms = time_ms(torch, {"whole": whole}, cold_sets((x, wk, wv)))["whole"]
+    block_ms = time_ms(torch, {"block": block, "cast": cast}, cold_sets(one))
+    # each input read once, each output written once; two products of 2 rows x K x N
+    whole_bytes = 2 * (rows * d + 2 * d * cols + 2 * rows * cols)
+    block_bytes = 2 * (rows * kb + 2 * kb * cols) + 4 * 2 * rows * cols
+    row = {"case": f"{cfg.name} x ({rows}, {d}) bf16 @ wk, wv ({d}, {cols}), {n} d_model blocks",
+           "max_abs_err": max(errs), "whole_ms": whole_ms, "block_ms": block_ms["block"],
+           "block_cast_ms": block_ms["cast"], "whole_bytes": whole_bytes,
+           "block_bytes": block_bytes, "timed": "cold"}
+    row["whole_bound_ms"], row["whole_bound_by"] = bound(whole_bytes, 4 * rows * d * cols, "bf16")
+    row["block_bound_ms"], row["block_bound_by"] = bound(block_bytes, 4 * rows * kb * cols, "f32")
+    log(f"[shards] kv projections over {n} d_model blocks: whole {whole_ms:.5f} ms (bound "
+        f"{row['whole_bound_ms']:.5f} ms by {row['whole_bound_by']}), block {row['block_ms']:.5f} ms "
+        f"(bound {row['block_bound_ms']:.5f} ms; operands cast first {row['block_cast_ms']:.5f} ms), "
+        f"max err {row['max_abs_err']:.3g} | {card} | " + json.dumps(row))
+    del x, wk, wv, want, sums, one
+    return row
+
+
 def phase_shards(torch, np, ops, ref, TF, get_config, card: str) -> dict:
     """Phase 14: whole problems cut by hand into the blocks a mesh gives, on
     one card: (a) decode over 4 and 16 cache blocks merged, in bf16 and
@@ -3795,7 +3873,9 @@ def phase_shards(torch, np, ops, ref, TF, get_config, card: str) -> dict:
     absorbed decode over latent cache blocks merged, bf16 and f32; (f)
     minicpm3-4b's sharded decode through the one-rank mesh, bit-equal; (g),
     (h) the MoE and SSM archs the same way, bit-equal, their block paths
-    recorded; (i) mamba2's SSD scan over 16 head blocks.
+    recorded; (i) mamba2's SSD scan over 16 head blocks; (j) nemotron's
+    decode K/V projections over 16 d_model blocks, and (g)'s grok-1 pass
+    bit-equal with the idle-axis rule never applied on the one-rank mesh.
     The variants' launch counts are set to 0 before and read after;
     comparisons and timings are not counted."""
     t_phase = time.perf_counter()
@@ -3855,7 +3935,14 @@ def phase_shards(torch, np, ops, ref, TF, get_config, card: str) -> dict:
         rows["ssd"] = shard_ssd(torch, get_config("mamba2-370m"), card)  # (i)
     gc.collect()
     torch.cuda.empty_cache()
-    rows["family_wall_s"] = [t3 - t2, time.perf_counter() - t3]  # (g) and (h), (i)
+    t4 = time.perf_counter()
+    rows["kv_proj"] = shard_kv_proj(torch, get_config(SHARD_KV_PROJ["arch"]), card)  # (j)
+    grok = rows["serve_families"]["grok-1-314b"]
+    check(grok["bit_equal"] and grok["idle_rule_checks"] > 0,
+          f"shards: grok-1 through the one-rank mesh not bit-equal: {grok}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows["family_wall_s"] = [t3 - t2, t4 - t3, time.perf_counter() - t4]  # (g) and (h), (i), (j)
     for dt in ("bf16", "f32"):
         for case, shape in SHARD_FLASH_BWD.items():
             row = shard_flash_bwd(torch, ops, ref, case, dt, shape)
@@ -3878,7 +3965,8 @@ def phase_shards(torch, np, ops, ref, TF, get_config, card: str) -> dict:
     rows["wall_s"] = time.perf_counter() - t_phase
     log(f"[shards] phase passed in {rows['wall_s']:.1f} s ((e) {rows['mla_wall_s'][0]:.1f} s, (f) "
         f"{rows['mla_wall_s'][1]:.1f} s, (g) and (h) {rows['family_wall_s'][0]:.1f} s, (i) "
-        f"{rows['family_wall_s'][1]:.1f} s), launches {counts} | {card}")
+        f"{rows['family_wall_s'][1]:.1f} s, (j) {rows['family_wall_s'][2]:.1f} s), launches "
+        f"{counts} | {card}")
     return rows
 
 

@@ -368,6 +368,81 @@ def gather_dims(x: torch.Tensor, dims: tuple[int, ...], keep: list[bool] | None 
                              else p for p, k in zip(x.placements, keep)])
 
 
+def idle_contraction(x_shape: tuple[int, ...], x_placements, w_placements, mesh
+                     ) -> tuple[int, int] | None:
+    """The mesh dims ``(i, j)`` on which :func:`matmul` contracts w's FSDP
+    blocks over an idle axis, or None.  Dim i is idle: neither x's rows nor
+    w's columns are sharded there (8 KV heads' wk and wv on a 16-way
+    "model" axis, grok-1's router with its experts replicated).  Dim j holds
+    w's rows (the FSDP overlay's "data") beside x's rows, so the other
+    branches would gather the whole weight over j and compute the whole
+    product on every rank of i.  The rule applies where i and j have one
+    size n > 1, n divides the contraction K, nothing else shards x's last
+    dim or w's rows, and the rows on a rank are at most K / n, the rows of
+    the weight block a rank receives: the partial it all-reduces is then no
+    larger than that block.  The figures that fixed it, on the (16, 16)
+    mesh, are the reference's compiled programs. nemotron-4-340b
+    ``decode_32k`` has 8 rows a rank against blocks of 1,152, and grok-1
+    ``decode_32k`` has 8 against 384 (wk, wv and the router): the reference
+    moves one block to each rank (a collective-permute) and all-reduces the
+    partials over "model". Their ``prefill_32k`` has 65,536 rows a rank
+    (32,768 on the multi-pod mesh): there the reference gathers the whole
+    weight and does the whole product on every "model" rank, as the other
+    branches do. ``train_4k``'s microbatch of 8 sequences does not shard
+    over "data", so it never meets the rule."""
+    last = len(x_shape) - 1
+    if any(p.is_partial() for p in (*x_placements, *w_placements)) or \
+            any(p.is_shard(last) for p in x_placements):
+        return None
+    fsdp = [j for j, p in enumerate(w_placements) if p.is_shard(0)]
+    if len(fsdp) != 1 or not (x_placements[fsdp[0]].is_shard()):
+        return None
+    j, k = fsdp[0], x_shape[-1]
+    n = mesh.size(j)
+    block = local_block(x_shape, mesh, tuple(x_placements))
+    rows = int(np.prod([s.stop - s.start for s in block[:-1]]))
+    for i, (px, pw) in enumerate(zip(x_placements, w_placements)):
+        if i != j and mesh.size(i) == n > 1 and px.is_replicate() and pw.is_replicate() \
+                and k % n == 0 and rows * n <= k:
+            return i, j
+    return None
+
+
+def _shift_rows(block: torch.Tensor, group_name: str, n: int, r: int, shift: int) -> torch.Tensor:
+    """Group rank r receives the block of rank (r + shift) mod n and sends
+    its own to rank (r - shift) mod n: one all_to_all_single, a permute."""
+    send, recv = [0] * n, [0] * n
+    send[(r - shift) % n] = recv[(r + shift) % n] = block.shape[0]
+    c10d = torch.ops._c10d_functional
+    return c10d.wait_tensor(c10d.all_to_all_single(block.contiguous(), recv, send, group_name))
+
+
+class _ShiftRows(torch.autograd.Function):
+    """:func:`_shift_rows`, whose gradient goes back to the block's owner."""
+
+    @staticmethod
+    def forward(ctx, block, group_name, n, r, shift):
+        ctx.args = (group_name, n, r, -shift)
+        return _shift_rows(block, group_name, n, r, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift_rows(g, *ctx.args), None, None, None, None
+
+
+def contract_block(x_block: torch.Tensor, w_block: torch.Tensor) -> torch.Tensor:
+    """One rank's partial product over its block of K, in f32.  On the card,
+    bf16 or f16 operands go through a product with an f32 output (tensor
+    cores, nothing rounded before the reduction) where no gradient is
+    needed, as that product has none; otherwise the operands are cast to
+    f32 first, as the reference's compiled program casts them."""
+    if x_block.is_cuda and x_block.dtype in (torch.bfloat16, torch.float16) and not (
+            torch.is_grad_enabled() and (x_block.requires_grad or w_block.requires_grad)):
+        out = torch.mm(x_block.reshape(-1, x_block.shape[-1]), w_block, out_dtype=torch.float32)
+        return out.reshape(*x_block.shape[:-1], w_block.shape[1])
+    return x_block.float() @ w_block.float()
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` for x (..., K) and w (K, N).  On DTensors it runs on this
     rank's blocks, as the kernels do (:mod:`repro_torch.kernels.ops`): per
@@ -377,16 +452,34 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     gathered.  Running the product block by block never flattens a sharded
     row dim (a sequence shard under sequence parallelism), which DTensor's
     own matmul does; a replicated operand whose gradient differs per block
-    gets a partial gradient."""
+    gets a partial gradient.
+
+    Where :func:`idle_contraction` finds an idle dim i beside w's FSDP dim
+    j, K is contracted over i instead: the rank at (a on j, b on i) keeps
+    its rows of x, receives w's block (a + b) mod n from the rank of its
+    j group that holds it (one permute, not a gather), contracts x's
+    matching slice (x is replicated on i: nothing moves) in f32, and
+    returns an f32 output ``Partial`` on i, which the caller reduces and
+    casts.  The reference's compiled program converts the operands to f32
+    and all-reduces the partial in f32.  Over i the blocks cover K, so the
+    partials sum to the product.  x's gradient is partial on i, and w's
+    block gradient goes back to its owner, partial on i."""
     if not (is_dtensor(x) or is_dtensor(w)):
         return x @ w
     Partial, Replicate, Shard = placement_types()
     mesh = (x if is_dtensor(x) else w).device_mesh
     x, w = as_dtensor(x, mesh), as_dtensor(w, mesh)
     last = x.ndim - 1
+    idle = idle_contraction(tuple(x.shape), x.placements, w.placements, mesh)
     x_pl, w_pl, out_pl, gx, gw = [], [], [], [], []
-    for px, pw in zip(x.placements, w.placements):
-        if px.is_shard() and px.dim < last:  # x's rows
+    for d, (px, pw) in enumerate(zip(x.placements, w.placements)):
+        if idle and d == idle[0]:  # contracted on permuted blocks
+            x_pl.append(px), w_pl.append(pw), out_pl.append(Partial())
+            gx.append(Partial()), gw.append(Partial())
+        elif idle and d == idle[1]:  # x's rows beside w's FSDP blocks, both kept
+            x_pl.append(px), w_pl.append(pw), out_pl.append(px)
+            gx.append(px), gw.append(pw)
+        elif px.is_shard() and px.dim < last:  # x's rows
             x_pl.append(px), w_pl.append(Replicate()), out_pl.append(px)
             gx.append(px), gw.append(Partial())
         elif pw.is_shard(1):  # w's columns
@@ -399,7 +492,15 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             x_pl.append(Replicate()), w_pl.append(Replicate()), out_pl.append(Replicate())
             gx.append(Replicate()), gw.append(Replicate())
     x, w = redistributed(x, x_pl), redistributed(w, w_pl)
-    out = x.to_local(grad_placements=gx) @ w.to_local(grad_placements=gw)
+    xl, wl = x.to_local(grad_placements=gx), w.to_local(grad_placements=gw)
+    if idle:
+        i, j = idle
+        n, a, b = mesh.size(i), mesh.get_coordinate()[j], mesh.get_coordinate()[i]
+        wl = _ShiftRows.apply(wl, mesh.get_group(j).group_name, n, a, b)
+        s, kb = (a + b) % n, x.shape[-1] // n
+        out = contract_block(xl[..., s * kb:(s + 1) * kb], wl)
+    else:
+        out = xl @ wl
     return from_block(out, mesh, out_pl, (*x.shape[:-1], w.shape[1]))
 
 

@@ -56,13 +56,18 @@ def _gqa_q(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def _gqa_qkv(params: dict, x: torch.Tensor, cfg):
+    """q, k, v.  Under a mesh that cannot shard the KV heads, a decode's k
+    and v come out of ``matmul`` as f32 partial sums over that axis
+    (``sharding.idle_contraction``): the constraints reduce them, and they
+    are cast back to x's dtype, so RoPE and the cache see what they see
+    unsharded."""
     k = _proj_heads(x, params["wk"])
     v = _proj_heads(x, params["wv"])
     if cfg.qkv_bias:
         k = k + params["bk"]
         v = v + params["bv"]
-    k = shard(k, "batch", "seq", "act_heads", None)
-    v = shard(v, "batch", "seq", "act_heads", None)
+    k = shard(k, "batch", "seq", "act_heads", None).to(x.dtype)
+    v = shard(v, "batch", "seq", "act_heads", None).to(x.dtype)
     return _gqa_q(params, x, cfg), k, v
 
 

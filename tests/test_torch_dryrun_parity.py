@@ -1,15 +1,15 @@
 """The port's dry-run against the reference's, cell by cell: dot FLOPs a
 device on the single-pod (16, 16) mesh, where the port's MoE and SSM layers
-under the mesh must do the work a device that the reference's GSPMD
-program does.
+and the decode's K/V projections under the FSDP overlay must do the work a
+device that the reference's GSPMD program does.
 
 The reference's figures are those of ``python -m repro.launch.dryrun
 --arch <arch> --shape <shape> --mesh single`` (the JAX package's dry-run,
 its loop-corrected ``dot_flops_per_dev``), written here as constants: the
 JAX dry-run compiles each cell for 256 placeholder devices, which these
 tests do not repeat.  The port's cells run as the CLI runs them, on fake
-tensors over a fake process group of 256 ranks, one subprocess a cell, the
-three at once.
+tensors over a fake process group of 256 ranks, one subprocess a cell, all
+at once.
 """
 
 import json
@@ -27,7 +27,11 @@ SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
 # do as a multiple of it)
 CELLS = {
     ("olmoe-1b-7b", "prefill_32k"): (5.013e13, 1.02),  # 4.32x while the combine gathered out_buf
-    ("grok-1-314b", "decode_32k"): (1.329e11, 1.2),  # 12.2x while the down projection gathered
+    # 12.2x while the down projection gathered, 1.09x while wk, wv and the
+    # router ran whole on every "model" rank
+    ("grok-1-314b", "decode_32k"): (1.329e11, 1.02),
+    # 1.18x while wk and wv ran whole on every "model" rank
+    ("nemotron-4-340b", "decode_32k"): (4.523e11, 1.02),
     ("mamba2-370m", "prefill_32k"): (3.105e12, 1.02),  # 3.49x while every rank scanned all heads
 }
 

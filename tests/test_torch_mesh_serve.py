@@ -38,7 +38,16 @@ paths (the plain versions on this CPU):
 - mamba2-370m on (1, 4) and zamba2-2.7b on (2, 2): the SSM mixer keeps its
   heads over "model" (the conv on each rank's channels, the SSD scan on its
   heads, the gated norm's statistic all-reduced); zamba2's shared
-  attention block caches its KV heads over "model".
+  attention block caches its KV heads over "model";
+- nemotron-4-340b with one KV head and d_model 20 (``VARIANTS``, the same
+  config on both sides) on (2, 2), its FSDP overlay on: the KV head stays
+  whole on "model" while q's 2 heads split over it, and wk's and wv's rows
+  are FSDP blocks over "data".  A decode step has 2 rows a rank, at most
+  K / 2 = 10, so its wk and wv products contract d_model over "model" on
+  permuted blocks (``sharding.idle_contraction``, as the reference
+  contracts production nemotron's 8 rows a rank); the prefill's 12 rows a
+  rank keep the whole product, w gathered over "data".  Once with the f32
+  cache and once with ``kv_quant``'s int8 one.
 
 Each worker also records what the MoE's products and the SSD scans ran on
 (the output's placements, the operands' blocks; x's block), and the mesh
@@ -104,7 +113,12 @@ CASES = {
     "grok-1-314b": ("grok-1-314b", 2, False, 2),
     "mamba2-370m": ("mamba2-370m", 4, False, STEPS),
     "zamba2-2.7b": ("zamba2-2.7b", 2, False, STEPS),
+    "nemotron-4-340b-kv1": ("nemotron-4-340b", 2, False, STEPS),
+    "nemotron-4-340b-kv1-int8": ("nemotron-4-340b", 2, True, STEPS),
 }
+# name -> fields replaced in the reduced config, on both sides
+KV1 = {"n_kv_heads": 1, "n_heads": 2, "d_model": 20}
+VARIANTS = {"nemotron-4-340b-kv1": KV1, "nemotron-4-340b-kv1-int8": KV1}
 # the MoE product that contracts a sharded index: grok-1's down projection
 # (d_ff over "model"), olmoe's combine (the experts over "model")
 MOE_CONTRACTED = {"grok-1-314b": "gecf,efd->gecd", "olmoe-1b-7b": "gsec,gecd->gsd"}
@@ -130,7 +144,7 @@ WORKER = textwrap.dedent("""
     from repro_torch.models import transformer as TF
 
     rank, port, tmp = int(sys.argv[1]), sys.argv[2], sys.argv[3]
-    cases, batch, prompt, max_seq, n_frames = json.loads(sys.argv[4])
+    cases, variants, batch, prompt, max_seq, n_frames = json.loads(sys.argv[4])
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                             world_size=4)
     meshes = {m: make_host_mesh(model=m) for m in (2, 4)}
@@ -161,11 +175,12 @@ WORKER = textwrap.dedent("""
 
     class Gathers(TorchDispatchMode):
         # the local operand shape of each all-gather issued below DTensor,
-        # and the mesh axis it gathers over
+        # and the mesh axis it gathers over; the mesh axis and operand shape
+        # of each all_to_all_single (a permute)
 
         def __init__(self):
             super().__init__()
-            self.shapes, self.axes = [], []
+            self.shapes, self.axes, self.permutes = [], [], []
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             if any(issubclass(t, DTensor) for t in types):
@@ -173,12 +188,17 @@ WORKER = textwrap.dedent("""
             if func.namespace == "_c10d_functional" and func.__name__.startswith("all_gather"):
                 self.shapes.append(list(args[0].shape))
                 self.axes.append(axis_of[args[2]])
+            if func.namespace == "_c10d_functional" and func.__name__.startswith("all_to_all"):
+                self.permutes.append([axis_of[args[3]], list(args[0].shape)])
             return func(*args, **(kwargs or {}))
 
     from repro_torch.kernels import ops
-    from repro_torch.models import mamba2, moe
+    from repro_torch.models import attention, mamba2, moe
 
     products, ssd_x = [], []  # what the sharded MoE products and SSD scans ran on
+    # the sharded K/V projections by pass: the output's placements, w's
+    # block, and the all-gathers and permutes issued inside the product
+    kv_proj, phase = {"prefill": [], "decode": []}, []
 
     def recorded_einsum(eq, *ts):
         out = sh.einsum(eq, *ts)
@@ -194,7 +214,22 @@ WORKER = textwrap.dedent("""
             ssd_x.append(list(x.shape))
         return ssd(x, *a, **kw)
 
+    proj_heads = attention._proj_heads
+
+    def recorded_proj_heads(x, w):
+        g = gathers[phase[-1]] if phase else None
+        marks = (len(g.shapes), len(g.permutes)) if g else (0, 0)
+        out = proj_heads(x, w)
+        if g and sh.is_dtensor(w) and w.shape[1] == cfg.n_kv_heads != cfg.n_heads:
+            kv_proj[phase[-1]].append(
+                [["P" if p.is_partial() else str(p) for p in out.placements],
+                 list(w.to_local().reshape(w.to_local().shape[0], -1).shape),
+                 [[a, s] for a, s in zip(g.axes[marks[0]:], g.shapes[marks[0]:])],
+                 g.permutes[marks[1]:]])
+        return out
+
     moe.einsum, mamba2.ssd_chunked = recorded_einsum, recorded_ssd
+    attention._proj_heads = recorded_proj_heads
 
     out = {}
     mesh = meshes[4]
@@ -227,11 +262,11 @@ WORKER = textwrap.dedent("""
         mesh = meshes[model]
         cfg = get_config(arch, reduced=True).replace(
             dtype=torch.float32, kv_quant=quant,
-            sharding_overrides=get_config(arch).sharding_overrides)
+            sharding_overrides=get_config(arch).sharding_overrides, **variants.get(name, {}))
         if cfg.family == "encdec":
             cfg = cfg.replace(n_frontend_tokens=n_frames)
         rules = make_rules(cfg, mesh)
-        flat = np.load(f"{tmp}/{arch}.npz")
+        flat = np.load(f"{tmp}/{name if name in variants else arch}.npz")
         tree = {}
         for key in flat.files:
             node = tree
@@ -246,15 +281,18 @@ WORKER = textwrap.dedent("""
 
         def run(params, caches, toks, frames, rules):
             step = (lambda fn: fn) if rules is None else (lambda fn: _with_rules(rules, fn))
+            phase[:] = ["prefill"]
             with gathers["prefill"]:
                 logits, caches = step(TF.prefill_logits)(cfg, params, toks, caches, *frames)
             out, snaps = [full(logits).tolist()], [gathered(caches)]
+            phase[:] = ["decode"]
             for _ in range(steps):
                 nxt = logits.argmax(-1).to(torch.int32)
                 with gathers["decode"]:
                     logits, caches = step(TF.decode_logits)(cfg, params, nxt, caches)
                 out.append(full(logits).tolist())
             snaps.append(gathered(caches))
+            phase.clear()
             return out, snaps
 
         caches = TF.init_caches(cfg, batch, max_seq, device="cpu")
@@ -263,6 +301,9 @@ WORKER = textwrap.dedent("""
         for g in gathers.values():
             g.shapes.clear()
             g.axes.clear()
+            g.permutes.clear()
+        for v in kv_proj.values():
+            v.clear()
         products.clear()
         ssd_x.clear()
         caches = TF.init_caches(cfg, batch, max_seq, device="cpu")
@@ -281,6 +322,8 @@ WORKER = textwrap.dedent("""
         rec["gathers"] = {k: g.shapes for k, g in gathers.items()}
         rec["gather_axes"] = {k: g.axes for k, g in gathers.items()}
         rec["products"], rec["ssd_x"] = products[:], ssd_x[:]
+        rec["kv_proj"] = {k: v[:] for k, v in kv_proj.items()}
+        rec["permutes"] = {k: g.permutes for k, g in gathers.items()}
         if rank == 0:
             for i, (snap, plain_snap) in enumerate(zip(snaps, plain_snaps)):
                 np.savez(f"{tmp}/{name}_cache{i}.npz", **snap)
@@ -317,16 +360,22 @@ def _flat(tree, path=""):
     return out
 
 
-def _jax_cfg(arch):
-    jcfg = jax_get_config(arch, reduced=True).replace(dtype=jnp.float32)
+def _jax_cfg(name):
+    arch = CASES[name][0] if name in CASES else name
+    jcfg = jax_get_config(arch, reduced=True).replace(dtype=jnp.float32, **VARIANTS.get(name, {}))
     return jcfg.replace(n_frontend_tokens=FRAMES) if jcfg.family == "encdec" else jcfg
 
 
-def _jax_run(arch, quant, steps, params, toks, frames):
+def _params_key(name):
+    """The name of a case's parameters: its arch's, or its own for a variant."""
+    return name if name in VARIANTS else CASES[name][0]
+
+
+def _jax_run(name, quant, steps, params, toks, frames):
     """JAX's prefill and decode steps: (masked logits of every pass, token
     ids of every pass, cache leaves after the prefill and after the last
     step)."""
-    jcfg = _jax_cfg(arch).replace(kv_quant=quant)
+    jcfg = _jax_cfg(name).replace(kv_quant=quant)
     extra = (jnp.asarray(frames),) if jcfg.family == "encdec" else ()
     with pytest.MonkeyPatch.context() as mp, _jax_logits_recorded(mp) as logits:
         nxt, jc = JTF.prefill(jcfg, params, jnp.asarray(toks), JTF.init_caches(jcfg, BATCH, MAX_SEQ),
@@ -345,9 +394,11 @@ def runs(tmp_path_factory):
     JAX's run of each case, which the parent makes while the workers run."""
     tmp = tmp_path_factory.mktemp("mesh_serve")
     jparams = {}
-    for arch in {c[0] for c in CASES.values()}:
-        jparams[arch] = JTF.init_params(jax.random.PRNGKey(0), _jax_cfg(arch))
-        np.savez(tmp / f"{arch}.npz", **_flat(jparams[arch]))
+    for name in CASES:
+        key = _params_key(name)
+        if key not in jparams:
+            jparams[key] = JTF.init_params(jax.random.PRNGKey(0), _jax_cfg(name))
+            np.savez(tmp / f"{key}.npz", **_flat(jparams[key]))
     vocab = min(jax_get_config(c[0], reduced=True).vocab_size for c in CASES.values())
     toks = np.random.default_rng(3).integers(0, vocab, (BATCH, PROMPT)).astype(np.int32)
     np.save(tmp / "tokens.npy", toks)
@@ -359,12 +410,12 @@ def runs(tmp_path_factory):
         s.bind(("127.0.0.1", 0))
         port = str(s.getsockname()[1])
     env = {**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "1"}
-    spec = json.dumps([CASES, BATCH, PROMPT, MAX_SEQ, FRAMES])
+    spec = json.dumps([CASES, VARIANTS, BATCH, PROMPT, MAX_SEQ, FRAMES])
     procs = [subprocess.Popen([sys.executable, "-c", WORKER, str(r), port, str(tmp), spec],
                               env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
              for r in range(WORLD)]
-    want = {name: _jax_run(arch, quant, steps, jparams[arch], toks, frames)
-            for name, (arch, _, quant, steps) in CASES.items()}
+    want = {name: _jax_run(name, quant, steps, jparams[_params_key(name)], toks, frames)
+            for name, (_, _, quant, steps) in CASES.items()}
     logs = [p.communicate(timeout=240)[0].decode() for p in procs]
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"rank {r} failed:\n{log[-3000:]}"
@@ -441,12 +492,18 @@ def test_each_case_is_really_sharded(runs):
     assert rec["granite-8b-int8"]["caches"]["layers/k_scale"] == ["S(1)", "S(3)"]
     assert cache["olmoe-1b-7b"] == ["S(1)", "S(2)"]  # KV heads over "model"
     assert [rec[n]["seq_sharded"] for n in CASES] == [False, False, True, False, True, True,
-                                                      False, False, False]
+                                                      False, False, False, False, False]
     assert cache["grok-1-314b"] == ["S(1)", "S(3)"]  # cache_seq over "model"
     # the SSM state's heads over "model" (its batch over "data")
     for n in SSM_CASES:
         assert rec[n]["caches"]["layers/h"] == ["S(1)", "S(2)"]
     assert rec["zamba2-2.7b"]["caches"]["shared/k"] == ["S(1)", "S(2)"]  # KV heads over "model"
+    # q's 2 heads over "model", the one KV head whole there; d_model over "data" (FSDP)
+    for name in ("nemotron-4-340b-kv1", "nemotron-4-340b-kv1-int8"):
+        kv1 = rec[name]["attn"]
+        assert kv1["wq"] == ["S(1)", "S(2)"] and kv1["wk"] == kv1["wv"] == ["S(1)", "R"]
+        assert cache[name] == ["S(1)", "S(3)"]
+    assert rec["nemotron-4-340b-kv1-int8"]["caches"]["layers/k_scale"] == ["S(1)", "S(3)"]
     # the latent cache: the batch over "data", the sequence over "model"
     for leaf in ("layers/ckv", "layers/krope"):
         assert rec["minicpm3-4b"]["caches"][leaf] == ["S(1)", "S(2)"]
@@ -499,7 +556,7 @@ def test_seq_parallel_prefill_keeps_q_local(runs, name):
 
 
 def _config(name):
-    return jax_get_config(CASES[name][0], reduced=True)
+    return jax_get_config(CASES[name][0], reduced=True).replace(**VARIANTS.get(name, {}))
 
 
 def test_uneven_and_empty_sequence_blocks(runs):
@@ -550,3 +607,27 @@ def test_ssd_scans_each_rank_heads(runs, name):
     model_gathers = [g for g, a in zip(rec["gathers"]["prefill"], rec["gather_axes"]["prefill"])
                      if a == "model"]
     assert y_block not in model_gathers, model_gathers
+
+
+@pytest.mark.parametrize("name", ["nemotron-4-340b-kv1", "nemotron-4-340b-kv1-int8"])
+def test_decode_contracts_kv_projections_over_the_idle_axis(runs, name):
+    """nemotron's variant on (2, 2), with the f32 and the int8 cache (k and
+    v cast back before RoPE and the append): in every decode step the wk and wv
+    products (one each a layer) come out ``Partial`` over "model", each
+    after one permute over "data" of w's block (d_model / 2 x KV * hd) and
+    no all-gather of it; the prefill's are whole on each "model" rank (not
+    partial), w's block gathered over "data" and nothing permuted.  The
+    logits and caches of these passes are held to the unsharded run and to
+    JAX by the tests above."""
+    rec = runs[1][name]
+    cfg = _config(name)
+    w_block = [cfg.d_model // 2, cfg.n_kv_heads * cfg.resolved_head_dim]
+    prefill, decode = rec["kv_proj"]["prefill"], rec["kv_proj"]["decode"]
+    assert len(prefill) == 2 * cfg.n_layers and len(decode) == 2 * cfg.n_layers * CASES[name][3]
+    for placements, block, gathers, permutes in decode:
+        assert placements[1] == "P" and block == w_block, (placements, block)
+        assert permutes == [["data", w_block]] and gathers == [], (permutes, gathers)
+    for placements, block, gathers, permutes in prefill:
+        assert placements[1] == "R" and block == w_block, (placements, block)
+        assert permutes == [] and gathers == [["data", w_block]], (permutes, gathers)
+    assert rec["permutes"]["prefill"] == [], rec["permutes"]

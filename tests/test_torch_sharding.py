@@ -13,7 +13,10 @@ property, ``shard`` without rules, and attention on a rank whose q heads are
 sharded while the KV heads stay whole (the GQA head offset).  On 4 gloo
 ranks: ``sharding.einsum`` contracting a sharded index on each rank's
 blocks (a ``Partial`` output, reduced to ``torch.einsum``'s, forward and
-backward) and rmsnorm over rows split across ranks (JAX's).
+backward), rmsnorm over rows split across ranks (JAX's), and
+``sharding.matmul`` contracting an FSDP weight over an idle axis on
+permuted blocks where a rank holds few rows; and the rule that picks it,
+``sharding.idle_contraction``, on the production cells' shapes.
 """
 
 import json
@@ -332,6 +335,17 @@ CONTRACT_CASES = {
     "output_first": ("bk,kn->bn", [((4, 8), (0, 1)), ((8, 6), (None, 1))], ["S(0)", "S(1)"]),
 }
 SPLIT_NORM = {"x": ((4, 3, 16), (0, 2)), "w": ((16,), (None, 0))}  # the gated norm's layout
+# name -> (x, w as (shape, dims as above)); the output's placements: a w whose
+# rows are FSDP blocks over "data" and whose columns "model" does not shard
+# (8 KV heads' wk on a 16-way axis): with few rows a rank (2, 2 and 3, at
+# most K / 2 = 4) K is contracted over "model" on permuted blocks; with many
+# (10) the whole product runs as before, w gathered over "data"
+MATMUL_CASES = {
+    "decode_wk": ([(4, 1, 8), (0, None)], [(8, 6), (0, None)], ["S(0)", "P"]),
+    "router": ([(4, 8), (0, None)], [(8, 3), (0, None)], ["S(0)", "P"]),
+    "three_rows": ([(2, 3, 8), (0, None)], [(8, 6), (0, None)], ["S(0)", "P"]),
+    "prefill_wk": ([(4, 5, 8), (0, None)], [(8, 6), (0, None)], ["S(0)", "R"]),
+}
 
 CONTRACT_WORKER = textwrap.dedent("""
     import json, sys
@@ -348,7 +362,7 @@ CONTRACT_WORKER = textwrap.dedent("""
     from repro_torch.kernels import ops
 
     rank, port, tmp = int(sys.argv[1]), sys.argv[2], sys.argv[3]
-    cases, norm = json.loads(sys.argv[4])
+    cases, norm, matmuls = json.loads(sys.argv[4])
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                             world_size=4)
     mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
@@ -357,18 +371,23 @@ CONTRACT_WORKER = textwrap.dedent("""
     axis = {mesh.get_group(i).group_name: n for i, n in enumerate(mesh.mesh_dim_names)}
 
     class Gathers(TorchDispatchMode):
-        # (mesh axis, local operand shape) of each all-gather issued below DTensor
+        # (mesh axis, local operand shape) of each all-gather issued below
+        # DTensor, and (mesh axis, operand shape, result shape) of each
+        # all_to_all_single
 
         def __init__(self):
             super().__init__()
-            self.shapes = []
+            self.shapes, self.permutes = [], []
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             if any(issubclass(t, DTensor) for t in types):
                 return NotImplemented
+            out = func(*args, **(kwargs or {}))
             if func.namespace == "_c10d_functional" and func.__name__.startswith("all_gather"):
                 self.shapes.append([axis[args[2]], list(args[0].shape)])
-            return func(*args, **(kwargs or {}))
+            if func.namespace == "_c10d_functional" and func.__name__.startswith("all_to_all"):
+                self.permutes.append([axis[args[3]], list(args[0].shape), list(out.shape)])
+            return out
 
     def placed(name, dims):
         pl = [Replicate() if d is None else Shard(d) for d in dims]
@@ -398,6 +417,19 @@ CONTRACT_WORKER = textwrap.dedent("""
                    "x_block": list(x.to_local().shape)}
     saved.update(norm_out=y.full_tensor().detach().numpy(), norm_grad_x=x.grad.full_tensor().numpy(),
                  norm_grad_w=w.grad.full_tensor().numpy())
+    for name, (xs, ws, _) in matmuls.items():
+        x, w = placed(f"{name}_x", xs[1]), placed(f"{name}_w", ws[1])
+        with Gathers() as g:
+            y = sh.matmul(x, w)
+        with Gathers() as gb:
+            whole = y.redistribute(mesh, [Replicate()] * 2).to_local()
+            (whole * torch.from_numpy(data[f"{name}_cot"])).sum().backward()
+        out[name] = {"placements": pl_str(y), "dtype": str(y.dtype), "gathers": g.shapes,
+                     "permutes": g.permutes, "bwd_permutes": gb.permutes,
+                     "blocks": [list(t.to_local().shape) for t in (x, w)]}
+        saved.update({f"{name}_out": whole.detach().numpy(),
+                      f"{name}_grad0": x.grad.full_tensor().numpy(),
+                      f"{name}_grad1": w.grad.full_tensor().numpy()})
     if rank == 0:
         np.savez(f"{tmp}/outputs.npz", **saved)
         with open(f"{tmp}/out.json", "w") as f:
@@ -423,12 +455,16 @@ def contracted(tmp_path_factory):
     for key, (shape, _) in SPLIT_NORM.items():
         inputs[f"norm_{key}"] = rng.standard_normal(shape).astype(np.float32)
     inputs["norm_cot"] = rng.standard_normal(SPLIT_NORM["x"][0]).astype(np.float32)
+    for name, (xs, ws, _) in MATMUL_CASES.items():
+        inputs[f"{name}_x"] = rng.standard_normal(xs[0]).astype(np.float32)
+        inputs[f"{name}_w"] = rng.standard_normal(ws[0]).astype(np.float32)
+        inputs[f"{name}_cot"] = rng.standard_normal((*xs[0][:-1], ws[0][1])).astype(np.float32)
     np.savez(tmp / "inputs.npz", **inputs)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = str(s.getsockname()[1])
     env = {**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "1"}
-    spec = json.dumps([CONTRACT_CASES, SPLIT_NORM])
+    spec = json.dumps([CONTRACT_CASES, SPLIT_NORM, MATMUL_CASES])
     procs = [subprocess.Popen([sys.executable, "-c", CONTRACT_WORKER, str(r), port, str(tmp), spec],
                               env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
              for r in range(4)]
@@ -482,3 +518,85 @@ def test_rmsnorm_over_a_split_row_matches_jax(contracted):
     np.testing.assert_allclose(saved["norm_out"], np.asarray(y), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(saved["norm_grad_x"], np.asarray(gx), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(saved["norm_grad_w"], np.asarray(gw), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", list(MATMUL_CASES))
+def test_matmul_contracts_an_idle_axis_on_permuted_blocks(contracted, name):
+    """``sharding.matmul`` on 4 gloo ranks, w's rows FSDP blocks over
+    "data" and nothing sharded over "model".  With few rows a rank the
+    output is an f32 ``Partial`` over "model": each rank received one block
+    of w (one all_to_all_single over "data", w's block in and out, and its
+    gradient sent back the same way) and gathered no block of w.  With many
+    rows the placements are those of before: w gathered over "data", the
+    whole product on each "model" rank, no permute.  Either way the output
+    and the gradients of x and w equal the unsharded product's within the
+    f32 tolerance 3e-5."""
+    inputs, saved, got = contracted
+    rec = got[name]
+    placements = MATMUL_CASES[name][2]
+    assert rec["placements"] == placements
+    x = torch.from_numpy(inputs[f"{name}_x"]).requires_grad_(True)
+    w = torch.from_numpy(inputs[f"{name}_w"]).requires_grad_(True)
+    want = x @ w
+    (want * torch.from_numpy(inputs[f"{name}_cot"])).sum().backward()
+    np.testing.assert_allclose(saved[f"{name}_out"], want.detach().numpy(), rtol=3e-5, atol=3e-5)
+    np.testing.assert_allclose(saved[f"{name}_grad0"], x.grad.numpy(), rtol=3e-5, atol=3e-5)
+    np.testing.assert_allclose(saved[f"{name}_grad1"], w.grad.numpy(), rtol=3e-5, atol=3e-5)
+    w_block = rec["blocks"][1]
+    w_gathers = [a for a, s in rec["gathers"] if s == w_block]
+    if placements[1] == "P":
+        assert rec["dtype"] == "torch.float32"
+        assert rec["permutes"] == [["data", w_block, w_block]], rec
+        assert rec["bwd_permutes"] == [["data", w_block, w_block]], rec
+        assert w_gathers == [], rec
+    else:
+        assert rec["permutes"] == [] and w_gathers == ["data"], rec
+
+
+def _placements(mesh, x_dims, w_dims):
+    _, Replicate, Shard = sh.placement_types()
+    pl = [[Replicate()] * len(mesh.shape) for _ in range(2)]
+    for k, dims in enumerate((x_dims, w_dims)):
+        for axis, dim in dims.items():
+            pl[k][mesh.mesh_dim_names.index(axis)] = Shard(dim)
+    return pl
+
+
+SINGLE, MULTI = {"data": 16, "model": 16}, {"pod": 2, "data": 16, "model": 16}
+# (mesh, x shape, x's sharded dims by axis, w's by axis) -> the idle dim and
+# w's FSDP dim, or None: the production cells' products under the FSDP overlay
+IDLE_CASES = {
+    # wk / wv in decode_32k: 8 rows a rank against blocks of 1,152 / 384 rows
+    "nemotron_decode_wk": (SINGLE, (128, 1, 18432), {"data": 0}, {"data": 0}, (1, 0)),
+    "nemotron_decode_wk_multi": (MULTI, (128, 1, 18432), {"pod": 0, "data": 0}, {"data": 0},
+                                 (2, 1)),
+    "grok_decode_wk": (SINGLE, (128, 1, 6144), {"data": 0}, {"data": 0}, (1, 0)),
+    "grok_decode_router": (SINGLE, (128, 6144), {"data": 0}, {"data": 0}, (1, 0)),
+    # prefill_32k: 65,536 rows a rank (32,768 on the multi-pod mesh)
+    "nemotron_prefill_wk": (SINGLE, (32, 32768, 18432), {"data": 0}, {"data": 0}, None),
+    "grok_prefill_router": (MULTI, (32 * 32768, 6144), {"pod": 0, "data": 0}, {"data": 0}, None),
+    # train_4k's microbatch of 8 sequences: its batch is not sharded
+    "nemotron_train_wk": (SINGLE, (8, 4096, 18432), {}, {"data": 0}, None),
+    # wq: its heads' columns over "model"
+    "nemotron_decode_wq": (SINGLE, (128, 1, 18432), {"data": 0}, {"data": 0, "model": 1}, None),
+    # no FSDP overlay (granite-8b): w's rows are not sharded
+    "granite_decode_wk": (SINGLE, (128, 1, 4096), {"data": 0}, {}, None),
+    # a one-rank mesh: every axis of size 1
+    "one_rank": ({"data": 1, "model": 1}, (8, 1, 64), {"data": 0}, {"data": 0}, None),
+}
+
+
+@pytest.mark.parametrize("name", list(IDLE_CASES))
+def test_idle_contraction_follows_the_reference_cells(name):
+    """``sharding.idle_contraction`` on the production meshes, from every
+    coordinate's corner: the decode projections that the reference
+    contracts over "model" (its collective-permutes of wk's, wv's and
+    grok's router's FSDP blocks) meet it; a prefill's 65,536 rows a rank,
+    a train microbatch that "data" does not shard, a weight whose columns
+    "model" shards, a weight without FSDP blocks and a one-rank mesh do
+    not."""
+    sizes, x_shape, x_dims, w_dims, want = IDLE_CASES[name]
+    for coord in ({a: 0 for a in sizes}, {a: n - 1 for a, n in sizes.items()}):
+        mesh = _CoordMesh(sizes, tuple(coord.values()))
+        x_pl, w_pl = _placements(mesh, x_dims, w_dims)
+        assert sh.idle_contraction(x_shape, x_pl, w_pl, mesh) == want
