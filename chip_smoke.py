@@ -676,6 +676,14 @@ def kernel_cases(torch, dt: str):
         ("flash_attention", "train B=4 S=2048 H=32 KV=8 D=128 causal",
          lambda: (randn(4, 2048, 32, 128), randn(4, 2048, 8, 128), randn(4, 2048, 8, 128)),
          {"causal": True}),
+        # untimed: phase 14(k)'s granite-8b with one KV head, its prefill of
+        # 4 x 512 at 32/1 heads and its decode at n_rep 32 (4 head groups)
+        ("flash_attention", "kv1 B=4 S=512 H=32 KV=1 D=128 causal",
+         lambda: (randn(4, 512, 32, 128), randn(4, 512, 1, 128), randn(4, 512, 1, 128)),
+         {"causal": True}),
+        ("decode_attention", "kv1 B=4 H=32 KV=1 S=515 D=128 lengths 1, 300, 513, 515",
+         lambda: (randn(4, 32, 128), randn(4, 1, 515, 128), randn(4, 1, 515, 128),
+                  lens(1, 300, 513, 515)), {}),
     ]
 
 
@@ -2819,7 +2827,8 @@ def phase_mesh_train(torch, ops, TF, base_cfg, train_cli, opt_mod, mesh_mod, sh,
             for tree in (a["params"], a["opt_state"]["m"], a["opt_state"]["v"]):
                 def one(leaf, spec):
                     nonlocal placed
-                    pl = sh.placements_for(rules.spec_for_shape(spec.shape, spec.axes), mesh)
+                    pl = sh.placements_for(rules.spec_for_shape(spec.shape, spec.axes), mesh,
+                                           spec.shape)
                     check(sh.is_dtensor(leaf) and tuple(leaf.placements) == pl,
                           f"mesh: a leaf {spec.shape} is not a DTensor in {pl}")
                     placed += 1
@@ -3243,6 +3252,11 @@ SSD_TOL = 1e-5  # a block's y and state against the whole call's, of its largest
 # d_model cut into the 16 blocks that the idle "model" axis contracts under
 # the FSDP overlay (``sharding.idle_contraction``)
 SHARD_KV_PROJ = dict(arch="nemotron-4-340b", rows=8, blocks=16)
+# 14(k): granite-8b at full width with one KV head through the one-rank
+# mesh: the KV head (a size-1 dim) over the 1-way "model" axis, which
+# placements leave whole; flash at 32/1 heads, decode at n_rep 32 (four head
+# groups of 8), bf16
+SHARD_SERVE_KV1 = dict(arch="granite-8b", layers=2, batch=4, prompt=512, steps=3)
 # the kernel line's rows of the variants: (name, source, replaces, the case timed)
 SHARD_VARIANTS = (
     ("decode_attention_lse", "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -3561,7 +3575,10 @@ def _mesh_serve(torch, np, ops, TF, cfg, t: dict, leaf: str, record=contextlib.n
     through a one-rank NCCL mesh under its rules.  Returns (the unsharded
     passes' logits, the sharded ones', the placements of the cache's
     ``leaf``, the mesh's shape, what ``record()``, entered around the
-    sharded run only, yielded)."""
+    sharded run only, yielded, and a dict of both runs' last caches, leaf
+    by leaf (``caches``, the sharded leaves gathered), and each sharded
+    decode step's ms on the card's stream (``step_ms``, CUDA events around
+    the step: the host's dispatch is inside))."""
     from repro_torch.distributed import sharding as sh
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import steps as steps_mod
@@ -3574,19 +3591,33 @@ def _mesh_serve(torch, np, ops, TF, cfg, t: dict, leaf: str, record=contextlib.n
     def full(x):
         return x.full_tensor() if sh.is_dtensor(x) else x
 
+    def leaves(tree, path=""):
+        out = {}
+        for k, v in tree.items():
+            out.update(leaves(v, f"{path}{k}/") if isinstance(v, dict) else {path + k: full(v)})
+        return out
+
+    step_ms = []
+
     def run(params, caches, toks, rules):
         step = (lambda fn: fn) if rules is None else (lambda fn: steps_mod._with_rules(rules, fn))
         logits, caches = step(TF.prefill_logits)(cfg, params, toks, caches)
         out = [full(logits)]
         for _ in range(t["steps"]):
             nxt = full(logits).argmax(-1).to(torch.int32)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
             logits, caches = step(TF.decode_logits)(cfg, params, nxt, caches)
+            ev[1].record()
             out.append(full(logits))
+            if rules is not None:
+                step_ms.append(ev)
         torch.cuda.synchronize()
-        return out
+        return out, leaves(caches)
 
     with ops.uncounted():
-        plain = run(params, TF.init_caches(cfg, t["batch"], max_seq, device="cuda"), tokens, None)
+        plain, plain_caches = run(params, TF.init_caches(cfg, t["batch"], max_seq, device="cuda"),
+                                  tokens, None)
     started = mesh_mod.init_process_group("cuda")
     try:
         mesh = mesh_mod.make_host_mesh()
@@ -3597,7 +3628,7 @@ def _mesh_serve(torch, np, ops, TF, cfg, t: dict, leaf: str, record=contextlib.n
         placements = caches["layers"][leaf].placements
         sparams = sh.distribute_tree(params, TF.param_template(cfg), rules)
         with record() as seen:
-            got = run(sparams, caches, sh.distribute(tokens, rules.spec_for_shape(
+            got, got_caches = run(sparams, caches, sh.distribute(tokens, rules.spec_for_shape(
                 tuple(tokens.shape), ("batch", "seq")), mesh), rules)
         shape = list(mesh.shape)
         del sparams, caches
@@ -3605,7 +3636,9 @@ def _mesh_serve(torch, np, ops, TF, cfg, t: dict, leaf: str, record=contextlib.n
         if started:
             torch.distributed.destroy_process_group()
     del params
-    return plain, got, placements, shape, seen
+    extra = {"caches": (plain_caches, got_caches),
+             "step_ms": [a.elapsed_time(b) for a, b in step_ms]}
+    return plain, got, placements, shape, seen, extra
 
 
 def _logits_apart(torch, got, plain, what: str) -> tuple[list, bool]:
@@ -3636,7 +3669,7 @@ def shard_serve(torch, np, ops, TF, get_config, arch: str = "granite-8b") -> dic
     leaf, seq_dim = ("ckv", 2) if mla else ("k", 3)  # the stacked leaf's sequence dim
     cfg = get_config(arch).replace(n_layers=t["layers"])
     before = (ops.mla_block_calls, ops.variant_counts()["decode_attention_lse"])
-    plain, got, placements, mesh_shape, _ = _mesh_serve(torch, np, ops, TF, cfg, t, leaf)
+    plain, got, placements, mesh_shape, _, _ = _mesh_serve(torch, np, ops, TF, cfg, t, leaf)
     blocks = ops.mla_block_calls - before[0]
     launched = ops.variant_counts()["decode_attention_lse"] - before[1]
     placed = [str(p) for p in placements]
@@ -3707,7 +3740,8 @@ def shard_serve_family(torch, np, ops, TF, get_config, arch: str) -> dict:
     kv_heads = (cfg.sharding_overrides or {}).get("cache_kv_heads")  # else the cache's sequence
     leaf, dim = ("h", 2) if ssm else ("k", 2 if kv_heads else 3)
     before = ops.variant_counts()["decode_attention_lse"]
-    plain, got, placements, mesh_shape, seen = _mesh_serve(torch, np, ops, TF, cfg, t, leaf, record)
+    plain, got, placements, mesh_shape, seen, _ = _mesh_serve(torch, np, ops, TF, cfg, t, leaf,
+                                                              record)
     launched = ops.variant_counts()["decode_attention_lse"] - before
     placed = [str(p) for p in placements]
     check(placements[1].is_shard(dim), f"shards serve {arch}: the cache's {leaf} is not S({dim}) "
@@ -3863,6 +3897,101 @@ def shard_kv_proj(torch, cfg, card: str) -> dict:
     return row
 
 
+def _bf16_apart(torch, got, want) -> tuple[float, bool]:
+    """The largest difference of two tensors and whether it is within
+    bf16's 2e-2 (and 2e-2 of each value's magnitude) for floats, none for
+    integers."""
+    diff = (got.float() - want.float()).abs()
+    if not want.is_floating_point():
+        return float(diff.max()) if diff.numel() else 0.0, torch.equal(got, want)
+    ok = bool((diff <= TOL["bf16"] + TOL["bf16"] * want.float().abs()).all())
+    return float(diff.max()) if diff.numel() else 0.0, ok
+
+
+def shard_serve_kv1(torch, np, ops, ref, TF, get_config, card: str) -> dict:
+    """14(k): ``SHARD_SERVE_KV1``: granite-8b at full width cut to 2
+    layers with one KV head under its 32 q heads, a prefill of 4 x 512 and
+    3 decode steps in bf16, once unsharded and once through the one-rank
+    NCCL mesh under its rules (the KV head, a size-1 dim, over the 1-way
+    "model" axis in the spec and whole in the placements; the cache's
+    sequence over "model", so each decode takes the flash-decoding path).
+    First the decode kernel with lse at the path's shape (B 4, H 32, KV 1,
+    S 515, D 128: four head groups of 8) against its plain version (out
+    within bf16's 2e-2 of its largest magnitude, lse within 2e-2; uncounted;
+    phase 2 holds the flash kernel at 4 x 512 x 32/1).  Then the run:
+    logits and every cache leaf within bf16's 2e-2 of the unsharded run
+    (bit-equality recorded), the launches of the sharded run exactly the
+    path's (flash a layer per prefill, decode with lse a layer per step,
+    the norms), and ``sharding.idle_contraction`` checked on every product
+    and never applied (every axis has one rank).  The step's ms on the
+    card's stream is logged beside the card."""
+    from repro_torch.distributed import sharding as sh
+
+    t = SHARD_SERVE_KV1
+    cfg = get_config(t["arch"]).replace(n_layers=t["layers"], n_kv_heads=1)
+    b, h, d, s = t["batch"], cfg.n_heads, cfg.resolved_head_dim, t["prompt"] + t["steps"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 31)
+    q, kc, vc = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                 for shape in ((b, h, d), (b, 1, s, d), (b, 1, s, d)))
+    lens = torch.tensor([1, 300, s - 2, s], dtype=torch.int32, device="cuda")
+    kernel, plain = _slice_fns(ops, ref)
+    with ops.uncounted():
+        (out, lse), (want, want_lse) = kernel(q, kc, vc, lens), plain(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    kernel_err = {"max_abs_err": max_err(torch, out, want, "bf16", scaled=True),
+                  "lse_max_abs_err": max_err(torch, lse, want_lse, "bf16")}
+    del q, kc, vc, out, lse, want, want_lse
+
+    @contextlib.contextmanager
+    def record():
+        seen = {"idle": []}
+        idle = sh.idle_contraction
+
+        def recorded_idle(*a):
+            seen["idle"].append(idle(*a))
+            return seen["idle"][-1]
+
+        sh.idle_contraction = recorded_idle
+        try:
+            yield seen
+        finally:
+            sh.idle_contraction = idle
+
+    before = (ops.launch_counts(), ops.variant_counts()["decode_attention_lse"])
+    plain_logits, got, placements, mesh_shape, seen, extra = _mesh_serve(
+        torch, np, ops, TF, cfg, t, "k", record)
+    counts = {k: v - before[0][k] for k, v in ops.launch_counts().items()}
+    lse_launches = ops.variant_counts()["decode_attention_lse"] - before[1]
+    want_counts = path_launches(cfg, 1, t["steps"])
+    placed = [str(p) for p in placements]
+    check(placements[1].is_shard(3), f"shards serve kv1: the cache's sequence is not over 'model': "
+          f"{placed}")
+    check(counts == want_counts and lse_launches == cfg.n_layers * t["steps"],
+          f"shards serve kv1: launches {counts} ({lse_launches} with lse), not the path's "
+          f"{want_counts} ({cfg.n_layers * t['steps']} with lse)")
+    check(seen["idle"] and not any(seen["idle"]),
+          f"shards serve kv1: the idle-axis contraction applied on a one-rank mesh: {seen['idle']}")
+    errs, bit_equal = _logits_apart(torch, got, plain_logits, "shards serve kv1")
+    plain_caches, got_caches = extra["caches"]
+    check(set(plain_caches) == set(got_caches), f"shards serve kv1: cache leaves differ: "
+          f"{sorted(plain_caches)} vs {sorted(got_caches)}")
+    cache_err = {}
+    for key, want in plain_caches.items():
+        cache_err[key], ok = _bf16_apart(torch, got_caches[key], want)
+        check(ok, f"shards serve kv1: cache leaf {key} {cache_err[key]} from the unsharded run")
+        bit_equal = bit_equal and torch.equal(got_caches[key], want)
+    step_ms = sorted(extra["step_ms"])[len(extra["step_ms"]) // 2]
+    row = {"model": f"{cfg.name} n_kv_heads=1", "layers": cfg.n_layers, "mesh": mesh_shape,
+           "cache": placed, "launches": counts, "decode_lse_launches": lse_launches,
+           "idle_rule_checks": len(seen["idle"]), "max_abs_diff": errs, "cache_max_abs_diff": cache_err,
+           "bit_equal": bit_equal, "decode_kernel_n_rep32": kernel_err,
+           "step_ms": extra["step_ms"], "step_ms_median": step_ms}
+    log(f"[shards] serve kv1: a sharded decode step {step_ms:.3f} ms on the card's stream (median of "
+        f"{len(extra['step_ms'])}, CUDA events) | {card} | " + json.dumps(row))
+    return row
+
+
 def phase_shards(torch, np, ops, ref, TF, get_config, card: str) -> dict:
     """Phase 14: whole problems cut by hand into the blocks a mesh gives, on
     one card: (a) decode over 4 and 16 cache blocks merged, in bf16 and
@@ -3875,7 +4004,8 @@ def phase_shards(torch, np, ops, ref, TF, get_config, card: str) -> dict:
     (h) the MoE and SSM archs the same way, bit-equal, their block paths
     recorded; (i) mamba2's SSD scan over 16 head blocks; (j) nemotron's
     decode K/V projections over 16 d_model blocks, and (g)'s grok-1 pass
-    bit-equal with the idle-axis rule never applied on the one-rank mesh.
+    bit-equal with the idle-axis rule never applied on the one-rank mesh;
+    (k) granite-8b with one KV head through the one-rank mesh.
     The variants' launch counts are set to 0 before and read after;
     comparisons and timings are not counted."""
     t_phase = time.perf_counter()
@@ -3942,7 +4072,12 @@ def phase_shards(torch, np, ops, ref, TF, get_config, card: str) -> dict:
           f"shards: grok-1 through the one-rank mesh not bit-equal: {grok}")
     gc.collect()
     torch.cuda.empty_cache()
-    rows["family_wall_s"] = [t3 - t2, t4 - t3, time.perf_counter() - t4]  # (g) and (h), (i), (j)
+    t5 = time.perf_counter()
+    rows["serve_kv1"] = shard_serve_kv1(torch, np, ops, ref, TF, get_config, card)  # (k)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (g) and (h), (i), (j), (k)
+    rows["family_wall_s"] = [t3 - t2, t4 - t3, t5 - t4, time.perf_counter() - t5]
     for dt in ("bf16", "f32"):
         for case, shape in SHARD_FLASH_BWD.items():
             row = shard_flash_bwd(torch, ops, ref, case, dt, shape)
@@ -3955,7 +4090,7 @@ def phase_shards(torch, np, ops, ref, TF, get_config, card: str) -> dict:
             torch.cuda.empty_cache()
     counts = ops.variant_counts()
     want = {"decode_attention_lse": sum(r["launches"] for r in rows["decode"].values())
-            + rows["serve"]["decode_lse_launches"]
+            + rows["serve"]["decode_lse_launches"] + rows["serve_kv1"]["decode_lse_launches"]
             + sum(r["decode_lse_launches"] for r in rows["serve_families"].values()),
             "flash_attention_q_offset": sum(r["launches"] for r in rows["flash"].values())
             + sum(r["fwd_launches"] for r in rows["flash_bwd"].values()),
@@ -3965,8 +4100,8 @@ def phase_shards(torch, np, ops, ref, TF, get_config, card: str) -> dict:
     rows["wall_s"] = time.perf_counter() - t_phase
     log(f"[shards] phase passed in {rows['wall_s']:.1f} s ((e) {rows['mla_wall_s'][0]:.1f} s, (f) "
         f"{rows['mla_wall_s'][1]:.1f} s, (g) and (h) {rows['family_wall_s'][0]:.1f} s, (i) "
-        f"{rows['family_wall_s'][1]:.1f} s, (j) {rows['family_wall_s'][2]:.1f} s), launches "
-        f"{counts} | {card}")
+        f"{rows['family_wall_s'][1]:.1f} s, (j) {rows['family_wall_s'][2]:.1f} s, (k) "
+        f"{rows['family_wall_s'][3]:.1f} s), launches {counts} | {card}")
     return rows
 
 

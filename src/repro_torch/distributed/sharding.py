@@ -13,10 +13,10 @@ per dimension, ``None``, one mesh-axis name or a tuple of names, trailing
 ``None``s trimmed, so it compares to the reference's spec by plain
 equality.  On a ``DeviceMesh`` it becomes DTensor placements
 (:func:`placements_for`): ``Shard(d)`` on each mesh dimension the spec names
-for tensor dimension ``d`` and ``Replicate()`` elsewhere; a dimension split
-over two mesh axes, ``("pod", "data")``, takes two ``Shard(d)`` in
-mesh-dimension order, which is the block order of the reference's
-``NamedSharding``.
+for tensor dimension ``d`` (unless ``d`` has size 1) and ``Replicate()``
+elsewhere; a dimension split over two mesh axes, ``("pod", "data")``,
+takes two ``Shard(d)`` in mesh-dimension order, which is the block order
+of the reference's ``NamedSharding``.
 
 ``shard(x, *axes)`` is the reference's sharding constraint: the identity on a
 plain tensor or without ambient rules, a redistribution of a DTensor to the
@@ -220,13 +220,18 @@ def redistributed(t: torch.Tensor | None, placements) -> torch.Tensor | None:
     return t.redistribute(t.device_mesh, placements)
 
 
-def placements_for(spec: tuple, mesh: Any) -> tuple:
-    """A resolved spec -> one placement per mesh dimension."""
+def placements_for(spec: tuple, mesh: Any, shape: tuple[int, ...]) -> tuple:
+    """A resolved spec of a tensor of ``shape`` -> one placement per mesh
+    dimension.  A dim of size 1 stays whole: only one-way axes divide it (a
+    KV head on a 1-way "model" axis, a batch of 1 on a 1-way "data" axis),
+    where a Shard holds the same block as a Replicate, and DTensor refuses
+    a view that merges or drops a sharded dim.  The spec itself keeps the
+    entry, as the reference writes it."""
     _, Replicate, Shard = placement_types()
     names = list(mesh_axis_sizes(mesh))
     out: list[Any] = [Replicate()] * len(names)
     for dim, entry in enumerate(spec):
-        if entry is None:
+        if entry is None or shape[dim] == 1:
             continue
         axes = (entry,) if isinstance(entry, str) else tuple(entry)
         idx = [names.index(a) for a in axes]
@@ -257,7 +262,7 @@ def local_block(shape: tuple[int, ...], mesh: Any, placements: tuple) -> tuple[s
 def distribute(t: torch.Tensor, spec: tuple, mesh: Any) -> torch.Tensor:
     """A full tensor, the same on every rank, -> a DTensor holding this
     rank's block; no communication."""
-    return distribute_as(t, mesh, placements_for(spec, mesh))
+    return distribute_as(t, mesh, placements_for(spec, mesh, tuple(t.shape)))
 
 
 def distribute_as(t: torch.Tensor, mesh: Any, placements: tuple) -> torch.Tensor:
@@ -270,7 +275,7 @@ def empty_sharded(shape: tuple[int, ...], dtype: torch.dtype, spec: tuple, mesh:
                   device: torch.device) -> torch.Tensor:
     """An uninitialised DTensor of global ``shape``: only this rank's block is
     made, so under a ``FakeTensorMode`` nothing is allocated."""
-    pl = placements_for(spec, mesh)
+    pl = placements_for(spec, mesh, shape)
     block = local_block(shape, mesh, pl)
     local = torch.empty([s.stop - s.start for s in block], dtype=dtype, device=device)
     return from_block(local, mesh, pl, shape)
@@ -321,7 +326,8 @@ def shard(x: torch.Tensor, *logical_axes: str | None) -> torch.Tensor:
     rules = current_rules()
     if rules is None or rules.mesh is None or not is_dtensor(x):
         return x
-    pl = placements_for(rules.spec_for_shape(tuple(x.shape), logical_axes), x.device_mesh)
+    pl = placements_for(rules.spec_for_shape(tuple(x.shape), logical_axes), x.device_mesh,
+                        tuple(x.shape))
     if tuple(x.placements) != pl:
         x = x.redistribute(x.device_mesh, pl)
     if x.requires_grad and torch.is_grad_enabled():
@@ -373,23 +379,27 @@ def idle_contraction(x_shape: tuple[int, ...], x_placements, w_placements, mesh
     """The mesh dims ``(i, j)`` on which :func:`matmul` contracts w's FSDP
     blocks over an idle axis, or None.  Dim i is idle: neither x's rows nor
     w's columns are sharded there (8 KV heads' wk and wv on a 16-way
-    "model" axis, grok-1's router with its experts replicated).  Dim j holds
-    w's rows (the FSDP overlay's "data") beside x's rows, so the other
-    branches would gather the whole weight over j and compute the whole
-    product on every rank of i.  The rule applies where i and j have one
-    size n > 1, n divides the contraction K, nothing else shards x's last
-    dim or w's rows, and the rows on a rank are at most K / n, the rows of
-    the weight block a rank receives: the partial it all-reduces is then no
-    larger than that block.  The figures that fixed it, on the (16, 16)
-    mesh, are the reference's compiled programs. nemotron-4-340b
-    ``decode_32k`` has 8 rows a rank against blocks of 1,152, and grok-1
-    ``decode_32k`` has 8 against 384 (wk, wv and the router): the reference
-    moves one block to each rank (a collective-permute) and all-reduces the
-    partials over "model". Their ``prefill_32k`` has 65,536 rows a rank
-    (32,768 on the multi-pod mesh): there the reference gathers the whole
-    weight and does the whole product on every "model" rank, as the other
-    branches do. ``train_4k``'s microbatch of 8 sequences does not shard
-    over "data", so it never meets the rule."""
+    "model" axis, 4 q heads' wq on an 8-way one, grok-1's router with its
+    experts replicated).  Dim j holds w's rows (the FSDP overlay's "data",
+    n ranks) beside x's rows, so the other branches would gather the whole
+    weight over j and compute the whole product on every rank of i.  The
+    rule applies where i has m = c * n ranks (c >= 1), n > 1, m divides the
+    contraction K, nothing else shards x's last dim or w's rows, and the
+    rows on a rank are fewer than K: the partial output it all-reduces
+    (rows x N) is then smaller than the weight (K x N) the other branches
+    gather.  That boundary is the reference's, read off its compiled decode
+    and prefill steps on ("data", "model") host meshes of (2, 2), (4, 4),
+    (2, 4), (2, 6), (3, 6), (2, 8), (4, 8) and (2, 16) devices, at K = 20,
+    96 and 192: a collective-permute of K / m rows of wq, wk and wv, and an
+    all-reduce over "model", up to K - 1 rows a rank; at K rows the weight
+    gathered over "data" and the whole product, as here.  Where "model" is
+    smaller than "data", or no multiple of it ((4, 2), (8, 2), (4, 6)),
+    the reference gathers.  On the (16, 16) production mesh
+    nemotron-4-340b ``decode_32k`` has 8 rows a rank against K = 18,432,
+    grok-1 ``decode_32k`` 8 against 6,144 (wk, wv and the router): they
+    contract; their ``prefill_32k`` has 65,536 rows a rank (32,768 on the
+    multi-pod mesh): it gathers.  ``train_4k``'s microbatch of 8 sequences
+    does not shard over "data", so it never meets the rule."""
     last = len(x_shape) - 1
     if any(p.is_partial() for p in (*x_placements, *w_placements)) or \
             any(p.is_shard(last) for p in x_placements):
@@ -402,8 +412,9 @@ def idle_contraction(x_shape: tuple[int, ...], x_placements, w_placements, mesh
     block = local_block(x_shape, mesh, tuple(x_placements))
     rows = int(np.prod([s.stop - s.start for s in block[:-1]]))
     for i, (px, pw) in enumerate(zip(x_placements, w_placements)):
-        if i != j and mesh.size(i) == n > 1 and px.is_replicate() and pw.is_replicate() \
-                and k % n == 0 and rows * n <= k:
+        m = mesh.size(i)
+        if i != j and n > 1 and m % n == 0 and px.is_replicate() and pw.is_replicate() \
+                and k % m == 0 and rows < k:
             return i, j
     return None
 
@@ -454,16 +465,21 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     own matmul does; a replicated operand whose gradient differs per block
     gets a partial gradient.
 
-    Where :func:`idle_contraction` finds an idle dim i beside w's FSDP dim
-    j, K is contracted over i instead: the rank at (a on j, b on i) keeps
-    its rows of x, receives w's block (a + b) mod n from the rank of its
-    j group that holds it (one permute, not a gather), contracts x's
-    matching slice (x is replicated on i: nothing moves) in f32, and
-    returns an f32 output ``Partial`` on i, which the caller reduces and
-    casts.  The reference's compiled program converts the operands to f32
-    and all-reduces the partial in f32.  Over i the blocks cover K, so the
-    partials sum to the product.  x's gradient is partial on i, and w's
-    block gradient goes back to its owner, partial on i."""
+    Where :func:`idle_contraction` finds an idle dim i of m = c * n ranks
+    beside w's FSDP dim j of n, K is contracted over i in m slices of K /
+    m instead: the rank at (a on j, b on i) keeps its rows of x and
+    contracts slice s = (a * c + b) mod m.  That slice is slice s mod c of
+    the FSDP block of j rank floor(s / c) = (a + floor(b / c)) mod n, so
+    for one b every rank of the j group sends slice b mod c of its own
+    block floor(b / c) ranks down the group (one permute, not a gather).
+    x's matching slice is at hand (x is replicated on i: nothing moves);
+    the product runs in f32 and returns an f32 output ``Partial`` on i,
+    which the caller reduces and casts.  The reference's compiled program
+    converts the operands to f32 and all-reduces the partial in f32 (its
+    permutation of the slices is another; any whose slices cover K over i
+    gives the same sum).  With c = 1 the slice is the whole block.  x's
+    gradient is partial on i, and w's slice gradient goes back to its
+    owner, partial on i."""
     if not (is_dtensor(x) or is_dtensor(w)):
         return x @ w
     Partial, Replicate, Shard = placement_types()
@@ -495,9 +511,11 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     xl, wl = x.to_local(grad_placements=gx), w.to_local(grad_placements=gw)
     if idle:
         i, j = idle
-        n, a, b = mesh.size(i), mesh.get_coordinate()[j], mesh.get_coordinate()[i]
-        wl = _ShiftRows.apply(wl, mesh.get_group(j).group_name, n, a, b)
-        s, kb = (a + b) % n, x.shape[-1] // n
+        n, m, a, b = mesh.size(j), mesh.size(i), mesh.get_coordinate()[j], mesh.get_coordinate()[i]
+        c, kb = m // n, x.shape[-1] // m
+        shift, r = divmod(b, c)
+        wl = _ShiftRows.apply(wl.narrow(0, r * kb, kb), mesh.get_group(j).group_name, n, a, shift)
+        s = (a * c + b) % m
         out = contract_block(xl[..., s * kb:(s + 1) * kb], wl)
     else:
         out = xl @ wl
@@ -558,7 +576,8 @@ def constrain_layer_params(lp: Any, template: Any) -> Any:
     def one(leaf, spec):
         if not is_dtensor(leaf):
             return leaf
-        pl = placements_for(tp_rules.spec_for_shape(tuple(leaf.shape), spec.axes), leaf.device_mesh)
+        pl = placements_for(tp_rules.spec_for_shape(tuple(leaf.shape), spec.axes), leaf.device_mesh,
+                            tuple(leaf.shape))
         return leaf.redistribute(leaf.device_mesh, pl)
 
     return map_pair(one, lp, template)

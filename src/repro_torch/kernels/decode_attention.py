@@ -10,12 +10,13 @@ each into a 2-stage shared-memory ring, the n_rep query heads that share a KV
 head share every cache read, and the cluster's CTAs merge their partial
 (max, sum, acc) through distributed shared memory, each a slice of the
 output.  No scratch tensor and no second kernel.  :func:`decode_plan` sizes
-the cluster and the chunks, and splits an n_rep above 8 (nemotron's 12) into
-groups of heads, each its own cluster over the same cache rows.  Head dims
-16, 32, 64, 80 (zamba2's shared block, a row of 10 or 20 lanes that leaves
-the rest of the warp idle), 128 and 192 (nemotron: a row of 24 lanes, each
-of one 16-byte vector in bf16 and two in f32); n_rep 1, 2, 3, 4, 6, 8 and
-12; any other D or n_rep raises.
+the cluster and the chunks, and splits an n_rep above 8 (nemotron's 12, or
+32 query heads over one KV head) into equal groups of heads, each its own
+cluster over the same cache rows.  Head dims 16, 32, 64, 80 (zamba2's
+shared block, a row of 10 or 20 lanes that leaves the rest of the warp
+idle), 128 and 192 (nemotron: a row of 24 lanes, each of one 16-byte vector
+in bf16 and two in f32); an n_rep whose groups hold 1, 2, 3, 4, 6 or 8
+heads (``N_REPS``); any other D or n_rep raises.
 
 The cache is of q's dtype, or int8 with f32 ``k_scale``/``v_scale`` (B, KV,
 S) (``kvcache.init_kv_cache(quant=True)``): the int8 branch of the JAX
@@ -45,7 +46,7 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 192)
-N_REPS = (1, 2, 3, 4, 6, 8, 12)
+GROUP_HEADS = (1, 2, 3, 4, 6, 8)  # the kernel's instantiations: query heads a CTA serves
 MAX_HEADS_PER_CTA = 8  # query heads whose q and output slices a thread keeps in registers
 
 launches = 0  # kernel launches since the last reset (see ops.reset_launch_counts)
@@ -86,6 +87,10 @@ def head_groups(n_rep: int) -> int:
     while n_rep % g:
         g += 1
     return g
+
+
+# the n_rep (up to 128) whose equal groups are an instantiation
+N_REPS = tuple(n for n in range(1, 129) if n // head_groups(n) in GROUP_HEADS)
 
 
 def decode_plan(b: int, kv: int, s: int, d: int, elem_bytes: int, n_rep: int = 1) -> DecodePlan:
@@ -146,7 +151,7 @@ def decode_attention(
     _, kv, s, _ = k_cache.shape
     if (k_cache.shape[0] != b or k_cache.shape[3] != d or lengths.shape != (b,) or kv == 0
             or h % kv or h // kv not in N_REPS or d not in HEAD_DIMS or s == 0):
-        raise ValueError(f"decode kernel: unsupported shapes q {tuple(q.shape)}, cache {tuple(k_cache.shape)} (D in {HEAD_DIMS}, H/KV in {N_REPS})")
+        raise ValueError(f"decode kernel: unsupported shapes q {tuple(q.shape)}, cache {tuple(k_cache.shape)} (D in {HEAD_DIMS}, H/KV in groups of {GROUP_HEADS})")
     if not all(t.is_contiguous() for t in (q, k_cache, v_cache, lengths)):
         raise ValueError("decode kernel needs contiguous q, caches and lengths")
     if q.data_ptr() % 16 or k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:

@@ -171,7 +171,7 @@ def bytes_per_device(abstract: Any, specs: Any, mesh) -> int:
 
     def one(t: torch.Tensor, spec: tuple) -> None:
         nonlocal total
-        block = sh.local_block(tuple(t.shape), mesh, sh.placements_for(spec, mesh))
+        block = sh.local_block(tuple(t.shape), mesh, sh.placements_for(spec, mesh, tuple(t.shape)))
         n = 1
         for b in block:
             n *= b.stop - b.start

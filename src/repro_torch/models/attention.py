@@ -52,15 +52,15 @@ def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _gqa_q(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     q = _proj_heads(x, params["wq"])
     q = q + params["bq"] if cfg.qkv_bias else q
-    return shard(q, "batch", "seq", "act_heads", None)
+    return shard(q, "batch", "seq", "act_heads", None).to(x.dtype)
 
 
 def _gqa_qkv(params: dict, x: torch.Tensor, cfg):
-    """q, k, v.  Under a mesh that cannot shard the KV heads, a decode's k
-    and v come out of ``matmul`` as f32 partial sums over that axis
-    (``sharding.idle_contraction``): the constraints reduce them, and they
-    are cast back to x's dtype, so RoPE and the cache see what they see
-    unsharded."""
+    """q, k, v.  Under a mesh that cannot shard the KV heads (or the q
+    heads), a decode's k and v (and q) come out of ``matmul`` as f32
+    partial sums over that axis (``sharding.idle_contraction``): the
+    constraints reduce them, and they are cast back to x's dtype, so RoPE
+    and the cache see what they see unsharded."""
     k = _proj_heads(x, params["wk"])
     v = _proj_heads(x, params["wv"])
     if cfg.qkv_bias:

@@ -221,7 +221,8 @@ def _on_heads(t: torch.Tensor, dim: int, cfg) -> torch.Tensor:
     if rules is None or rules.mesh is None or not is_dtensor(t):
         return t
     Shard = placement_types()[2]
-    heads = placements_for(rules.spec_for_shape((cfg.ssm_nheads,), ("ssm_heads",)), t.device_mesh)
+    n = (cfg.ssm_nheads,)
+    heads = placements_for(rules.spec_for_shape(n, ("ssm_heads",)), t.device_mesh, n)
     return redistributed(t, [Shard(dim) if h.is_shard() else p for h, p in zip(heads, t.placements)])
 
 

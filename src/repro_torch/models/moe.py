@@ -165,7 +165,8 @@ def moe_forward(
         # the expert shards' partial sums added in f32, before the cast (as
         # the reference adds them); the group shards gathered over axes the
         # batch is not sharded on
-        batch = placements_for(current_rules().spec_for_shape((b,), ("batch",)), flat.device_mesh)
+        batch = placements_for(current_rules().spec_for_shape((b,), ("batch",)), flat.device_mesh,
+                               (b,))
         flat = gather_dims(flat, (0,), keep=[p.is_shard(0) for p in batch])
     out = flat.reshape(b, s, d).to(x.dtype)
     return shard(out, "batch", "seq", "act_d_model"), aux

@@ -159,13 +159,13 @@ def test_decode_plan_partitions_the_cache(b, kv, s, d, elem):
                    for rank in range(plan.cluster))
 
 
-@pytest.mark.parametrize("n_rep,groups", [(1, 1), (3, 1), (6, 1), (8, 1), (12, 2)])
+@pytest.mark.parametrize("n_rep,groups", [(1, 1), (3, 1), (6, 1), (8, 1), (12, 2), (32, 4)])
 @pytest.mark.parametrize("b,kv,s,d,elem", [
     (4, 8, 552, 192, 2), (4, 8, 552, 192, 4), (3, 8, 1000, 192, 4), (1, 2, 4096, 192, 2),
     (1, 1, 1, 192, 4), (4, 8, 552, 128, 2), (4, 20, 1500, 64, 2), (1, 1, 100, 16, 4)])
 def test_decode_plan_splits_the_heads_into_groups(n_rep, groups, b, kv, s, d, elem):
-    """n_rep above 8 (nemotron's 12) splits into equal groups of at most 8
-    heads, each group a cluster of its own (grid y = KV x groups) over the
+    """n_rep above 8 (nemotron's 12; 32 q heads over one KV head) splits
+    into equal groups of at most 8 heads, each group a cluster of its own (grid y = KV x groups) over the
     same chunks; at D = 192 a chunk is at most 32 rows in bf16 and 16 in f32
     (the 2-stage ring of K and V chunks fits 64 KB); the chunks cover S,
     rank 0 needs every chunk slot a CTA is given, and every row below the
@@ -454,11 +454,12 @@ def test_decode_kernel_head_dim_80(cuda, n_rep, dt):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("d", [16, 128, 192])
-@pytest.mark.parametrize("n_rep", [3, 6, 12])
+@pytest.mark.parametrize("n_rep", [3, 6, 12, 32])
 def test_decode_kernel_new_n_reps(cuda, n_rep, d, dt):
-    """n_rep 3 (nemotron REDUCED), 6 (grok-1) and 12 (nemotron: two head
-    groups of 6 over one cache) at D = 16, 128 and 192 (a row of 24 lanes;
-    two 16-byte vectors a lane in f32).  Lengths 0, S, 1, one chunk + 1 and
+    """n_rep 3 (nemotron REDUCED), 6 (grok-1), 12 (nemotron: two head
+    groups of 6 over one cache) and 32 (granite-8b's q heads over one KV
+    head: four groups of 8) at D = 16, 128 and 192 (a row of 24 lanes; two
+    16-byte vectors a lane in f32).  Lengths 0, S, 1, one chunk + 1 and
     ragged."""
     b, s, kv = 5, 600, 2
     chunk = decode_plan(b, kv, s, d, 2 if dt == "bf16" else 4, n_rep).chunk

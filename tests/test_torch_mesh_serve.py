@@ -42,12 +42,13 @@ paths (the plain versions on this CPU):
 - nemotron-4-340b with one KV head and d_model 20 (``VARIANTS``, the same
   config on both sides) on (2, 2), its FSDP overlay on: the KV head stays
   whole on "model" while q's 2 heads split over it, and wk's and wv's rows
-  are FSDP blocks over "data".  A decode step has 2 rows a rank, at most
-  K / 2 = 10, so its wk and wv products contract d_model over "model" on
+  are FSDP blocks over "data".  A decode step has 2 rows a rank, fewer
+  than K = 20, so its wk and wv products contract d_model over "model" on
   permuted blocks (``sharding.idle_contraction``, as the reference
-  contracts production nemotron's 8 rows a rank); the prefill's 12 rows a
-  rank keep the whole product, w gathered over "data".  Once with the f32
-  cache and once with ``kv_quant``'s int8 one.
+  contracts production nemotron's 8 rows a rank); so do the prefill's 12
+  rows a rank, fewer than K = 20, as the reference's compiled prefill of
+  this variant does.  Once with the f32 cache and once with
+  ``kv_quant``'s int8 one.
 
 Each worker also records what the MoE's products and the SSD scans ran on
 (the output's placements, the operands' blocks; x's block), and the mesh
@@ -612,22 +613,23 @@ def test_ssd_scans_each_rank_heads(runs, name):
 @pytest.mark.parametrize("name", ["nemotron-4-340b-kv1", "nemotron-4-340b-kv1-int8"])
 def test_decode_contracts_kv_projections_over_the_idle_axis(runs, name):
     """nemotron's variant on (2, 2), with the f32 and the int8 cache (k and
-    v cast back before RoPE and the append): in every decode step the wk and wv
-    products (one each a layer) come out ``Partial`` over "model", each
-    after one permute over "data" of w's block (d_model / 2 x KV * hd) and
-    no all-gather of it; the prefill's are whole on each "model" rank (not
-    partial), w's block gathered over "data" and nothing permuted.  The
-    logits and caches of these passes are held to the unsharded run and to
-    JAX by the tests above."""
+    v cast back before RoPE and the append): in every decode step and in
+    the prefill the wk and wv products (one each a layer) come out
+    ``Partial`` over "model", each after one permute over "data" of w's
+    block (d_model / 2 x KV * hd) and no all-gather of it.  The prefill's
+    12 rows a rank are fewer than K = 20, and the reference's compiled
+    prefill of this variant on (2, 2) contracts there too: it permutes
+    f32[10,1,10] blocks of wk and wv and all-reduces their (2, 6, 1, 10)
+    partials.  No other product of either pass permutes.  The logits and
+    caches of these passes are held to the unsharded run and to JAX by the
+    tests above."""
     rec = runs[1][name]
     cfg = _config(name)
     w_block = [cfg.d_model // 2, cfg.n_kv_heads * cfg.resolved_head_dim]
     prefill, decode = rec["kv_proj"]["prefill"], rec["kv_proj"]["decode"]
     assert len(prefill) == 2 * cfg.n_layers and len(decode) == 2 * cfg.n_layers * CASES[name][3]
-    for placements, block, gathers, permutes in decode:
+    for placements, block, gathers, permutes in decode + prefill:
         assert placements[1] == "P" and block == w_block, (placements, block)
         assert permutes == [["data", w_block]] and gathers == [], (permutes, gathers)
-    for placements, block, gathers, permutes in prefill:
-        assert placements[1] == "R" and block == w_block, (placements, block)
-        assert permutes == [] and gathers == [["data", w_block]], (permutes, gathers)
-    assert rec["permutes"]["prefill"] == [], rec["permutes"]
+    for phase, calls in (("prefill", prefill), ("decode", decode)):
+        assert len(rec["permutes"][phase]) == len(calls), rec["permutes"][phase]

@@ -239,7 +239,7 @@ def test_rank_blocks_are_named_sharding_blocks():
     for (shape, spec), blocks in zip(cases, want):
         for rank, block in enumerate(blocks):
             mesh = _CoordMesh(sizes, tuple(np.unravel_index(rank, (2, 2, 2))))
-            got = sh.local_block(shape, mesh, sh.placements_for(spec, mesh))
+            got = sh.local_block(shape, mesh, sh.placements_for(spec, mesh, shape))
             assert [[s.start, s.stop] for s in got] == block, (shape, spec, rank)
 
 
@@ -337,9 +337,9 @@ CONTRACT_CASES = {
 SPLIT_NORM = {"x": ((4, 3, 16), (0, 2)), "w": ((16,), (None, 0))}  # the gated norm's layout
 # name -> (x, w as (shape, dims as above)); the output's placements: a w whose
 # rows are FSDP blocks over "data" and whose columns "model" does not shard
-# (8 KV heads' wk on a 16-way axis): with few rows a rank (2, 2 and 3, at
-# most K / 2 = 4) K is contracted over "model" on permuted blocks; with many
-# (10) the whole product runs as before, w gathered over "data"
+# (8 KV heads' wk on a 16-way axis): with few rows a rank (2, 2 and 3,
+# fewer than K = 8) K is contracted over "model" on permuted blocks; with
+# many (10) the whole product runs as before, w gathered over "data"
 MATMUL_CASES = {
     "decode_wk": ([(4, 1, 8), (0, None)], [(8, 6), (0, None)], ["S(0)", "P"]),
     "router": ([(4, 8), (0, None)], [(8, 3), (0, None)], ["S(0)", "P"]),
