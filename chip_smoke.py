@@ -11,7 +11,11 @@ Run from the root of a checkout.  Phases, each of which must pass:
               (flash_fwd_fma at every head dim and q-block height) and of
               every rmsnorm forward instantiation, none spilling, rmsnorm's
               registers within what its plan counts for its wave, the f32
-              flash forward's shared memory as its plan counts it
+              flash forward's shared memory as its plan counts it; the
+              decode kernel's tensor-core route (the int8 cache under a
+              bf16 q, decode_int8_mma_kernel at every head dim): HMMA in its
+              SASS, no spill, at most 128 registers at D <= 128 (4 CTAs an
+              SM), its shared memory as decode_plan counts it
   2. kernels  each kernel against its plain PyTorch version at the serving
               path's shapes and ragged ones, in bf16 and f32, timed beside its
               plain version, one PyTorch library call and its bound (decode
@@ -43,9 +47,11 @@ Run from the root of a checkout.  Phases, each of which must pass:
               the decode kernel over an int8 cache with its scales
               (decode_attention_int8), bf16 and f32 q, at the serving shape,
               grok-1's n_rep 6, nemotron's 12 at D = 192, whisper's D = 64,
-              zamba2's D = 80 and 8 x 32/8 x 32768 x 128, timed cold beside
-              its plain version and, as another function, SDPA over the
-              cache dequantized to bf16 beforehand
+              zamba2's D = 80 and 8 and 16 x 32/8 x 32768 x 128, timed cold
+              beside its plain version and, as another function, SDPA over
+              the cache dequantized to bf16 beforehand; each int8 case's
+              share of its byte bound and cache elements a second beside
+              PR 21's time
   3. parity   granite-8b, qwen1.5-4b and minicpm3-4b at full width, 2 layers,
               and granite-8b and qwen1.5-4b with kv_quant: the kernel path
               and the plain path agree over a 512-token prefill and 16
@@ -477,6 +483,75 @@ def fwd_build_report() -> dict:
     return rows
 
 
+# the decode kernel's tensor-core route (the int8 cache under a bf16 q), one
+# instantiation per head dim
+DECODE_MMA = {d: f"decode_int8_mma_kernelILi{d}E" for d in (16, 32, 64, 80, 128, 192)}
+
+
+def decode_build_report() -> dict:
+    """The decode library as built: each instantiation of the tensor-core
+    route (``decode_int8_mma_kernel<D>``) must be there, hold HMMA (mma.sync)
+    in its SASS, spill nothing and need no more registers than its CTAs an
+    SM allow (``decode_attention.MMA_CTAS_PER_SM``: 128 at D <= 128, 4 CTAs
+    of 128 threads); a CTA's shared memory, on every route, must be what
+    ``decode_plan`` counts at phase 2's, 7b's and the tests' shapes, at
+    every head dim and head group.  Logged per instantiation: registers,
+    stack, spills, HMMA and I2F counts; and the plans of the int8 cache
+    under a bf16 q with the clusters the card holds at once."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as dk
+
+    found = _ptxas_report(_build.log_path("decode_attention").read_text())
+    cuobjdump = str(Path(_build._nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.lib_path("decode_attention"))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = {"hmma": 0, "i2f": 0}
+        elif fn and "HMMA" in line:
+            counts[fn]["hmma"] += 1
+        elif fn and "I2F" in line:
+            counts[fn]["i2f"] += 1
+    rows = {}
+    for d, want in DECODE_MMA.items():
+        hits = [k for k in found if want in k]
+        check(len(hits) == 1, f"decode_attention: no single ptxas report of {want}: {hits}")
+        v = found[hits[0]]
+        regs = 65536 // (128 * dk.MMA_CTAS_PER_SM[d])
+        check("registers" in v and v["registers"] <= regs and v.get("spill_stores", 0) == 0
+              and v.get("spill_loads", 0) == 0,
+              f"decode_int8_mma_kernel<{d}>: {v} (at most {regs} registers, no spill)")
+        c = next((n for f, n in counts.items() if want in f), {"hmma": 0, "i2f": 0})
+        check(c["hmma"] > 0, f"decode_int8_mma_kernel<{d}> has no HMMA in its SASS")
+        rows[f"decode_int8_mma_kernel<{d}>"] = {**v, **c}
+    smem_of = _build.function("decode_attention", "decode_attention_smem", [ctypes.c_int] * 6)
+    fit = dk.clusters_fit_on(0)
+    plans, checked = {}, 0
+    for d in dk.HEAD_DIMS:
+        for n_rep in (1, 3, 4, 6, 8, 12, 32):
+            for b, kv, s in ((4, 8, 1024), (4, 8, 552), (8, 8, 32768), (16, 8, 32768), (5, 2, 600)):
+                for dtype, elem, quant in ((1, 1, True), (0, 1, True), (1, 2, False), (0, 4, False)):
+                    mma = dtype == 1 and quant
+                    plan = dk.decode_plan(b, kv, s, d, elem, n_rep, mma=mma,
+                                          clusters_fit=fit if mma else None)
+                    got = smem_of(d, n_rep // plan.groups, dtype, int(quant), plan.chunk, plan.ring)
+                    check(got == plan.smem, f"decode at D {d}, n_rep {n_rep}, {b} x {kv} x {s}, dtype "
+                          f"{dtype}, int8 {quant}: {got} bytes of shared memory at chunk {plan.chunk}, "
+                          f"ring {plan.ring}; decode_plan counts {plan.smem}")
+                    checked += 1
+                    if mma and n_rep == 4:
+                        plans[f"D {d} {b} x {kv} x {s}"] = (
+                            f"cluster {plan.cluster} chunk {plan.chunk} ring {plan.ring}, "
+                            f"{fit(d, plan.chunk, plan.ring, plan.cluster)} clusters at once")
+    log(f"[build] decode's tensor-core route: SASS and ptxas {json.dumps(rows)}; shared memory as "
+        f"decode_plan counts it in {checked} plans; int8 under bf16 q {json.dumps(plans)}")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -750,6 +825,36 @@ def dequant_sdpa(torch, inputs):
         q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
 
 
+# PR 21's device ms of phase 2's int8 cases (PERF.md §6, H100 80GB HBM3 at
+# 700 W; its CUDA-core loop at every q dtype), printed beside this run's
+PR21_INT8_MS = {
+    ("main", "bf16"): 0.01316, ("int8-grok", "bf16"): 0.01326, ("int8-nemotron", "bf16"): 0.03479,
+    ("int8-whisper", "bf16"): 0.00964, ("int8-zamba2", "bf16"): 0.01329,
+    ("int8-long", "bf16"): 0.37066, ("int8-long16", "bf16"): 0.70591,
+    ("main", "f32"): 0.01406, ("int8-long", "f32"): 0.37832,
+}
+
+
+def int8_report(row: dict, inputs, tag: str, dt: str, card: str) -> None:
+    """A timed int8 case's share of its bound and cache elements a second
+    (its valid K and V values), beside PR 21's time, into ``row`` and the
+    log."""
+    from repro_torch.kernels import decode_attention as dk
+
+    q, k, lengths = inputs[0], inputs[1], inputs[3]
+    (b, h, d), (kv, s) = q.shape, k.shape[1:3]
+    elems = 2 * int(lengths.clamp(0, s).sum()) * kv * d
+    mma = dt == "bf16"
+    plan = dk.decode_plan(b, kv, s, d, 1, h // kv, mma=mma,
+                          clusters_fit=dk.clusters_fit_on(q.device.index) if mma else None)
+    row.update(bound_share=row["bound_ms"] / row["ms"], elements_per_s=elems / (row["ms"] * 1e-3),
+               pr21_ms=PR21_INT8_MS.get((tag, dt)),
+               plan=dict(cluster=plan.cluster, chunk=plan.chunk, ring=plan.ring, smem=plan.smem))
+    log(f"[kernels] int8 {dt} q, {row['case']}: {row['ms']:.5f} ms (PR 21 {row['pr21_ms']} ms), "
+        f"bound {row['bound_ms']:.5f} ms, {100 * row['bound_share']:.1f}% of it, "
+        f"{row['elements_per_s'] / 1e12:.3f} T elements/s, plan {row['plan']} | {card}")
+
+
 # phase 2's flash cases that also check and time the forward's log-sum-exp
 # output (the training path's call): the serving prefill and the train microbatch
 LSE_TIMED = ("main", "train")
@@ -768,7 +873,7 @@ def check_forward_lse(torch, ref, inputs, kw, dt: str) -> dict:
     return {"lse_max_abs_err": max_err(torch, lse, want, dt), "lse_out_bit_equal": True}
 
 
-def phase_kernels(torch, ops, ref) -> dict:
+def phase_kernels(torch, ops, ref, card: str) -> dict:
     from repro_torch.kernels import flash_attention as fk
 
     def int8_kernel(q, k, v, lengths, ks, vs, **kw):
@@ -836,6 +941,8 @@ def phase_kernels(torch, ops, ref) -> dict:
                     row.update(launch_floor_ms=floor, after_add_ms=times["add_kernel"] - times["add"])
                 del sets
                 row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dt)
+                if name == "decode_attention_int8":
+                    int8_report(row, inputs, tag, dt, card)
                 results[(name, dt) if tag == "main" else (name, dt, tag)] = row
             log("[kernels] " + json.dumps(row))
             del inputs, got, want
@@ -1793,10 +1900,12 @@ def phase_long_context(torch, np, ops, TF, kvcache, cfg, params, engine_mod, log
         check(launches == 8 * L, f"long {tag}: {launches} decode launches in 8 steps, not {8 * L}")
         if quant:
             int8_launches += launches
+        # the int8 cache under granite's bf16 q runs the tensor-core route
+        kernel = "decode_int8_mma_kernel" if quant else "decode_attention_kernel"
         prof = _step_row(torch, step, 3, wall, log_dir, f"long_{slots}_{'int8' if quant else 'bf16'}_trace.json",
-                         expect=("decode_attention_kernel", L))
+                         expect=(kernel, L))
         kernels = prof.pop("_kernels")
-        decode_ms = sum(us for us, k, _ in kernels if "decode_attention_kernel" in k) / 3e3
+        decode_ms = sum(us for us, k, _ in kernels if kernel in k) / 3e3
         # bytes a profiled step must move: every weight once, and each valid
         # cache row (K and V, and their scales in int8) of every layer; the
         # 3 profiled steps read length + 1, + 2, + 3 rows
@@ -4141,6 +4250,7 @@ def main(argv: list[str] | None = None) -> int:
                 if _build.log_path(name).exists():
                     shutil.copy(_build.log_path(name), args.log_dir / f"nvcc_{name}.log")
         fwd_build = fwd_build_report()
+        fwd_build["decode_mma"] = decode_build_report()
         t0 = time.perf_counter()
         out, _ = proc.communicate(timeout=600)
         log(f"[dryrun] subprocess ended {time.perf_counter() - t0:.1f} s after the build "
@@ -4180,7 +4290,7 @@ def _phases(args, torch, np, t_all, card, kind, build_s, fwd_build, dryrun, tool
     from repro_torch.training import optimizer as opt_mod
     from repro_torch.training import train_step as step_mod
 
-    kern = phase_kernels(torch, ops, ref)
+    kern = phase_kernels(torch, ops, ref, card)
     cfg = get_config("granite-8b")
     mcfg = get_config("minicpm3-4b")
     qcfg = get_config("qwen1.5-4b")

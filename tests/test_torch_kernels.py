@@ -21,6 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import decode_attention as dk  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_plan  # noqa: E402
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -181,6 +182,83 @@ def test_decode_plan_splits_the_heads_into_groups(n_rep, groups, b, kv, s, d, el
     for length in sorted({min(n, s) for n in (0, 1, plan.chunk + 1, s // 3, s)}):
         rows = [r for rank in range(plan.cluster) for r in plan.rows_of(rank, length)]
         assert sorted(rows) == list(range(length))
+
+
+INT8_PLAN_SHAPES = [  # b, kv, s: 8 and 16 x 32k, serving, served S, whisper's cross cache, tiny
+    (8, 8, 32768), (16, 8, 32768), (4, 8, 1024), (4, 8, 552), (4, 20, 1500), (5, 2, 600),
+    (1, 1, 1), (2, 1, 15), (3, 2, 17), (1, 1, 100)]
+
+
+@pytest.mark.parametrize("n_rep", dk.N_REPS)
+@pytest.mark.parametrize("d", dk.HEAD_DIMS)
+def test_decode_plan_int8(d, n_rep):
+    """The int8 cache's plans, under a bf16 q (the tensor-core route) and an
+    f32 q (the CUDA-core loop), at every head dim and n_rep: chunks of a
+    multiple of 16 rows (the tensor-core route's tiles, a masked tail), a
+    CTA's shared memory within the 232,448 bytes a block may use; on the
+    tensor-core route a ring no deeper than a CTA's chunks, one chunk of at
+    most 256 rows a CTA on a short cache, chunks of 64 rows or more on a long
+    one within an SM's share for the 4 CTAs an SM its registers allow (3 at
+    D = 192, where 64-row chunks need more); and every row below the length
+    read once over the cluster's ranks (at S up to 4096: the long caches'
+    plans split rows by the same rule)."""
+    for mma in (True, False):
+        for b, kv, s in INT8_PLAN_SHAPES:
+            plan = decode_plan(b, kv, s, d, 1, n_rep, mma=mma)
+            assert plan.chunk % 16 == 0 and plan.smem <= dk.SMEM_PER_BLOCK
+            assert plan.groups == dk.head_groups(n_rep) and n_rep // plan.groups <= 8
+            if mma:
+                assert plan.smem == dk.mma_smem(d, plan.chunk, plan.ring)
+                assert 1 <= plan.ring <= min(dk.MMA_STAGES, plan.chunks_per_cta)
+                if s <= dk.MMA_SHORT_ROWS * dk.MAX_CLUSTER:  # one chunk of <= 256 rows a CTA
+                    assert plan.chunks_per_cta == 1 and plan.chunk <= dk.MMA_SHORT_ROWS
+                else:  # 64 rows or more, 4 CTAs an SM (3 at D = 192) where more than 64
+                    assert plan.chunk >= dk.MMA_MIN_CHUNK
+                    if plan.chunk > dk.MMA_MIN_CHUNK or d <= 128:
+                        assert dk.MMA_CTAS_PER_SM[d] * (plan.smem + 1024) <= dk.SMEM_PER_SM
+            if s > 4096:
+                continue
+            for length in sorted({min(n, s) for n in (0, 1, 15, 17, plan.chunk - 1, plan.chunk + 1,
+                                                       s // 3, s)}):
+                rows = [r for rank in range(plan.cluster) for r in plan.rows_of(rank, length)]
+                assert sorted(rows) == list(range(length))
+
+
+# clusters of the tensor-core route an H100 80GB HBM3 holds at once, by
+# cluster size, with 4 and with 2 CTAs an SM (cudaOccupancyMaxActiveClusters,
+# tools/decode_int8_sweep.py)
+H100_CLUSTERS = {4: {8: 62, 7: 69, 6: 79, 5: 94, 4: 124, 3: 163, 2: 264},
+                 2: {8: 30, 7: 32, 6: 39, 5: 47, 4: 62, 3: 79, 2: 132}}
+
+
+def _h100_fit(d, chunk, ring, cluster):
+    per_sm = min(dk.SMEM_PER_SM // (dk.mma_smem(d, chunk, ring) + 1024), dk.MMA_CTAS_PER_SM[d])
+    return H100_CLUSTERS[4 if per_sm >= 4 else 2][cluster]
+
+
+@pytest.mark.parametrize("b,cluster", [(8, 7), (16, 7), (4, 8)])
+def test_decode_plan_int8_cluster_fills_the_waves(b, cluster):
+    """The tensor-core route's cluster size on a long cache, from the
+    clusters a card holds at once: granite's 8 x 32k gets 64 clusters of 7
+    in one wave where 62 of 8 fit (2 clusters would run alone in a second),
+    16 x 32k clusters of 7 in two full waves, and 4 slots (32 clusters)
+    clusters of 8 in one; 64-row chunks in a 3-stage ring, 4 CTAs an SM."""
+    plan = decode_plan(b, 8, 32768, 128, 1, 4, mma=True, clusters_fit=_h100_fit)
+    assert plan.cluster == cluster and plan.grid == (cluster, 8, b)
+    assert (plan.chunk, plan.ring) == (64, 3) and plan.cluster * plan.chunks_per_cta * 64 >= 32768
+
+
+@pytest.mark.parametrize("b,kv,s,d,n_rep,cluster,chunk", [
+    (4, 8, 1024, 128, 4, 4, 256), (4, 32, 552, 80, 1, 3, 192), (4, 20, 1500, 64, 1, 6, 256),
+    (4, 8, 552, 192, 12, 3, 192), (1, 1, 1, 128, 1, 1, 16), (2, 1, 2048, 16, 32, 8, 256)])
+def test_decode_plan_int8_short_cache(b, kv, s, d, n_rep, cluster, chunk):
+    """A short cache (at most 2,048 rows) on the tensor-core route: one
+    chunk of about 256 rows a CTA (the serving shape's 1,024 rows in 4, the
+    served S of 552 in 3 of 192), whatever the card holds at once."""
+    plan = decode_plan(b, kv, s, d, 1, n_rep, mma=True, clusters_fit=_h100_fit)
+    groups = dk.head_groups(n_rep)
+    assert (plan.cluster, plan.chunk, plan.chunks_per_cta, plan.ring) == (cluster, chunk, 1, 1)
+    assert plan.grid == (cluster, kv * groups, b) and plan.cluster * plan.chunk >= s
 
 
 FWD_PLAN_SHAPES = [  # b, sq, h: the serving prefill, olmoe, MLA, whisper's encoder, the train
@@ -483,21 +561,54 @@ def _int8_cache(seed, b, kv, s, d, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("d", [16, 32, 64, 80, 128, 192])
-@pytest.mark.parametrize("n_rep", [1, 2, 3, 4, 6, 8, 12])
+@pytest.mark.parametrize("n_rep", [1, 2, 3, 4, 6, 8, 12, 32])
 def test_decode_kernel_int8_cache(cuda, n_rep, d, dt):
     """The int8 cache with its (B, KV, S) scales against the plain version,
-    with a bf16 or f32 q, at every head dim and n_rep of the kernel.
-    Lengths 0, S, 1, one chunk + 1 and ragged; S = 600 is no multiple of
-    the chunk, so a chunk's scales start at offsets that are not multiples
-    of 16 bytes."""
-    b, s, kv = 5, 600, 2
-    chunk = decode_plan(b, kv, s, d, 1, n_rep).chunk
+    with a bf16 q (the tensor-core route) or an f32 q (the CUDA-core loop),
+    at every head dim and n_rep of the kernel (32: four head groups of 8).
+    Lengths 0, S, 1, 15 and 17 (ending inside and just past a 16-row tile),
+    one chunk - 1 and + 1, and ragged; S = 600 is no multiple of the chunk,
+    so a chunk's scales start at offsets that are not multiples of 16
+    bytes.  Under a bf16 q also ``return_lse``: the out the bits of the call
+    without it, within bf16's 2e-2 of the plain version's f32 step-by-step
+    oracle (the kernel rounds p * v_scale to bf16 before PV, as the
+    reference does and that oracle does not), and the lse within f32's 3e-5
+    (it sums p unrounded, as the oracle)."""
+    s, kv = 600, 2
+    chunk = decode_plan(8, kv, s, d, 1, n_rep, mma=dt == "bf16").chunk
+    lens = [0, s, 1, 15, 17, chunk - 1, chunk + 1, 333]
+    b = len(lens)
     _, (q,) = _inputs(17, [(b, kv * n_rep, d)], dt, cuda)
     kq, vq, ks, vs = _int8_cache(18, b, kv, s, d, cuda)
-    lens = torch.tensor([0, s, 1, chunk + 1, 333], dtype=torch.int32, device=cuda)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
     got = ops.decode_attention(q, kq, vq, lens, k_scale=ks, v_scale=vs, impl="kernel")
     assert torch.equal(got[0], torch.zeros_like(got[0]))
     _close(got[1:], ref.decode_attention_ref(q, kq, vq, lens, k_scale=ks, v_scale=vs)[1:], dt)
+    if dt == "bf16":
+        out, lse = ops.decode_attention(q, kq, vq, lens, k_scale=ks, v_scale=vs, return_lse=True,
+                                        impl="kernel")
+        assert torch.equal(out, got)
+        want, want_lse = ref.decode_attention_ref(q, kq, vq, lens, k_scale=ks, v_scale=vs,
+                                                  return_lse=True)
+        assert bool((lse[0] == float("-inf")).all()) and bool(lse[1:].isfinite().all())
+        _close(out[1:], want[1:], "bf16")
+        _close(lse[1:], want_lse[1:], "f32")
+
+
+@pytest.mark.cuda
+def test_decode_kernel_int8_short_long_short(cuda):
+    """The tensor-core route at one head dim, a short cache (one 256-row
+    chunk a CTA: 72 KB of shared memory), a long one (whose plan asks the
+    card how many clusters fit, at 55 KB), then the short one again: each
+    launch keeps the shared memory it needs (one opt-in record per kernel
+    for launches and queries alike) and matches the plain version."""
+    for s in (1024, 4096, 1024):
+        b, kv, d = 4, 8, 128
+        _, (q,) = _inputs(21, [(b, 4 * kv, d)], "bf16", cuda)
+        kq, vq, ks, vs = _int8_cache(22, b, kv, s, d, cuda)
+        lens = torch.tensor([s, s - 1, s // 2, 17], dtype=torch.int32, device=cuda)
+        got = ops.decode_attention(q, kq, vq, lens, k_scale=ks, v_scale=vs, impl="kernel")
+        _close(got, ref.decode_attention_ref(q, kq, vq, lens, k_scale=ks, v_scale=vs), "bf16")
 
 
 @pytest.mark.cuda
@@ -1090,7 +1201,8 @@ def test_decode_kernel_lse(cuda, b, s, h, kv, d, quant, dt):
     step-by-step f32 (out, lse), over lengths 0, S, 1, one chunk + 1 and
     ragged, in bf16 and int8 with an f32 or bf16 q; a row of length 0 gives
     out 0 and lse -inf; the out is the bits of the call without lse."""
-    chunk = decode_plan(b, kv, s, d, 1 if quant else (2 if dt == "bf16" else 4), h // kv).chunk
+    chunk = decode_plan(b, kv, s, d, 1 if quant else (2 if dt == "bf16" else 4), h // kv,
+                        mma=quant and dt == "bf16").chunk
     _, (q, k, v) = _inputs(70, [(b, h, d), (b, kv, s, d), (b, kv, s, d)], dt, cuda)
     scales = {}
     if quant:

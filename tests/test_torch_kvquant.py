@@ -183,6 +183,32 @@ def test_decode_reference_with_scales_matches_jax(n_rep, dt):
         np.testing.assert_allclose(_np(got), _np(want.astype(jnp.float32)), **TOL[dt])
 
 
+def test_decode_int8_bf16_granite_heads_match_jax_op_by_op():
+    """The port's plain int8 decode under a bf16 q at granite's heads (32 q
+    heads over 8 KV heads, D = 128), ragged lengths (1, 15, 17, 63, 65,
+    S): the probabilities times v_scale rounded to bf16 before PV, the
+    reference's rounding point (the tensor-core kernel's too), against
+    JAX's decode_attention_reference run op by op (``jax.disable_jit()``)
+    at bf16's 2e-2; the port's f32 step-by-step oracle (no such rounding)
+    stays within it as well."""
+    b, h, kv, s, d = 6, 32, 8, 80, 128
+    q = _normal((b, h, d), 6)
+    (kq, ks), (vq, vs) = (JKV.quantize_kv(jnp.asarray(_normal((b, kv, s, d), i))) for i in (7, 8))
+    lengths = np.asarray([1, 15, 17, 63, 65, s], np.int32)
+    with jax.disable_jit():
+        want = JL.decode_attention_reference(jnp.asarray(q, jnp.bfloat16), kq, vq,
+                                             jnp.asarray(lengths), k_scale=ks, v_scale=vs)
+    args = [torch.from_numpy(q).to(torch.bfloat16)] + [torch.from_numpy(np.array(a))
+                                                       for a in (kq, vq, lengths)]
+    kw = dict(k_scale=torch.from_numpy(np.array(ks)), v_scale=torch.from_numpy(np.array(vs)))
+    got = ref.decode_attention_ref(*args, **kw)
+    assert got.dtype == torch.bfloat16
+    want = _np(want.astype(jnp.float32))
+    np.testing.assert_allclose(_np(got), want, **TOL["bf16"])
+    oracle, _ = ref.decode_attention_ref(*args, return_lse=True, **kw)
+    np.testing.assert_allclose(_np(oracle), want, **TOL["bf16"])
+
+
 # ---------------------------------------------------------------------------
 # The model
 # ---------------------------------------------------------------------------

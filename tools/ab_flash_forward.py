@@ -96,7 +96,9 @@ def main(argv: list[str] | None = None, worker=worker, script: str = __file__) -
                 saved[side] = Path(tmp) / side
                 saved[side].mkdir()
                 cmd += ["--save", str(saved[side])]
-            p = subprocess.run(cmd, capture_output=True, text=True, check=True)
+            p = subprocess.run(cmd, capture_output=True, text=True)
+            if p.returncode:
+                raise RuntimeError(f"{side} worker exited {p.returncode}:\n{p.stderr[-4000:]}")
             runs.append((side, json.loads(p.stdout.strip().splitlines()[-1])))
         cases = list(runs[0][1])
         differ = [c for c in cases if len({r[c][0] for _, r in runs}) != 1]
