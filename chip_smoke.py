@@ -90,11 +90,10 @@ Run from the root of a checkout.  Phases, each of which must pass:
               after a round trip through the Chrome trace, and one incident
               bundle dumped at the end that parses as a Chrome trace and
               lists the ops; and the host tools' CLIs (repro_torch.obs.report
-              --sim, with --scale-ops, and repro_torch.obs.perfdiff on the
-              smoke baselines), subprocesses started before the build and
-              awaited after it, each exiting 0.  The modelled cluster's 8
-              devices all compute on this one card; the network between
-              them is the flow model.
+              --sim, and with --scale-ops), subprocesses started before the
+              build and awaited after it, each exiting 0.  The modelled
+              cluster's 8 devices all compute on this one card; the network
+              between them is the flow model.
  7b. long     granite-8b whole (phase 4's weights), its caches filled to
               32768 tokens a slot by write_prompt_kv from seeded random K/V
               (no prefill): the captured decode step at 8 slots with the
@@ -2884,8 +2883,6 @@ HOST_TOOLS = {
     "report": ["-m", "repro_torch.obs.report", "--sim", "--duration", "20", "--min-attribution", "0.95"],
     "report_scale_ops": ["-m", "repro_torch.obs.report", "--sim", "--duration", "20", "--scale-ops",
                          "--min-makespan-attribution", "0.95"],
-    "perfdiff": ["-m", "repro_torch.obs.perfdiff", "benchmarks/baselines/smoke",
-                 "benchmarks/baselines/smoke"],
 }
 
 

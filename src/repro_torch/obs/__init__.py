@@ -21,13 +21,16 @@
   * :mod:`repro_torch.obs.flightrec` — anomaly-triggered flight recorder:
     always-on NetEvent ring + deterministic Perfetto-loadable incident
     bundles on SLO page / device failure;
-  * :mod:`repro_torch.obs.perfdiff` — BENCH_*.json perf-regression differ
-    (``python -m repro_torch.obs.perfdiff``).
+  * :mod:`repro_torch.obs.steplog` — the serving engine's step log: one
+    record a decode step, its phases on the host clock and its device time
+    (:data:`STEP_LOG`, process-wide, a bounded ring).
 
 All of it is host code (stdlib and numpy): it makes no tensor and touches no
-device.  Everything here is off by default: :data:`NULL_TRACER` keeps every
-site a no-op, and the runtime and the fleet take ``ledger=None`` and
-``slo_monitor=None`` unless their caller supplies one.
+device.  Everything here but the step log is off by default:
+:data:`NULL_TRACER` keeps every site a no-op, and the runtime and the fleet
+take ``ledger=None`` and ``slo_monitor=None`` unless their caller supplies
+one.  The step log is always on: one tuple a step, read by an operator
+(``STEP_LOG.totals()``) or a benchmark.
 """
 
 from repro_torch.obs.critical_path import (
@@ -50,6 +53,7 @@ from repro_torch.obs.metrics import (
     StatBlock,
 )
 from repro_torch.obs.slo import P2Quantile, SLOMonitor
+from repro_torch.obs.steplog import STEP_LOG, StepLog, StepRecord
 from repro_torch.obs.trace import NULL_TRACER, NetEventBridge, NullTracer, Span, Tracer
 
 __all__ = [
@@ -80,4 +84,7 @@ __all__ = [
     "summarize_scale_ops",
     "format_scale_report",
     "FlightRecorder",
+    "STEP_LOG",
+    "StepLog",
+    "StepRecord",
 ]

@@ -19,6 +19,12 @@ storage, so every buffer it touches keeps its storage for the engine's
 life: admission copies into the slots, the step updates in place, and no
 path may swap the engine's parameter tensors.  On the CPU the same step
 runs eagerly.  Prefill runs eagerly on both.
+
+Every step that decodes writes one record to the process-wide step log
+(``obs.steplog.STEP_LOG``): its phases on the host clock and, where it
+replayed the graph, the replay's device time from two CUDA events recorded
+on the stream around it (outside the graph, read once ``tolist`` has
+returned: no synchronisation of their own).
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as TF
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs.steplog import STEP_LOG, StepRecord, now
 
 
 @dataclasses.dataclass
@@ -72,6 +79,7 @@ class InstanceEngine:
         self.steps = 0
         self._graph: torch.cuda.CUDAGraph | None = None
         self._graph_launches: dict[str, int] = {}  # kernel launches of one replay
+        self._replay_events: tuple[torch.cuda.Event, torch.cuda.Event] | None = None
         self._capture_pending = self.device.type == "cuda"  # at the first admission
 
     # -- the decode step ---------------------------------------------------------
@@ -116,16 +124,23 @@ class InstanceEngine:
                 if collecting:
                     gc.enable()
         self._graph, self._graph_launches = graph, per_step
+        self._replay_events = (torch.cuda.Event(enable_timing=True),
+                               torch.cuda.Event(enable_timing=True))
 
     def _decode(self) -> None:
         """One decode step: a replay of the captured graph on CUDA (its
         launches added to the kernels' counters; a step always follows an
         admission, which captured it), ``_decode_all`` on the CPU or where
-        ``_capture_pending`` was cleared to keep an engine eager."""
+        ``_capture_pending`` was cleared to keep an engine eager.  The
+        replay lies between ``_replay_events`` on the stream it runs on."""
         if self._graph is None:
             self._decode_all()
             return
+        stream = torch.cuda.current_stream(self.device)
+        start, end = self._replay_events
+        start.record(stream)
         self._graph.replay()
+        end.record(stream)
         ops.add_launch_counts(self._graph_launches)
 
     # -- live scaling hooks -----------------------------------------------------
@@ -195,14 +210,22 @@ class InstanceEngine:
         return used / float(self.n_slots * self.max_seq)
 
     def step(self) -> list[ServeRequest]:
-        """One continuous-batching iteration; returns finished requests."""
+        """One continuous-batching iteration; returns finished requests.  A
+        step that decodes writes its record to ``STEP_LOG``."""
+        t_begin = now()
         self._admit()
         finished: list[ServeRequest] = []
         if not self.active:
             return finished
+        live = len(self.active)
+        t_launch = now()
         self._decode()
+        t_launched = now()
         self.steps += 1
         tokens = self.last_tokens.tolist()
+        t_synced = now()
+        device_ms = (self._replay_events[0].elapsed_time(self._replay_events[1])
+                     if self._graph is not None else None)
         for slot, req in list(self.active.items()):
             req.out_tokens.append(tokens[slot])
             if len(req.out_tokens) >= req.max_new_tokens:
@@ -211,6 +234,8 @@ class InstanceEngine:
                 self.active.pop(slot)
                 self.free_slots.append(slot)
                 self.slot_live[slot] = False
+        STEP_LOG.add(StepRecord(t_begin, t_launch, t_launched, t_synced, now(),
+                                live, device_ms))
         return finished
 
     def run_until_done(self, max_steps: int = 10_000) -> list[ServeRequest]:

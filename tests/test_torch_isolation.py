@@ -72,7 +72,7 @@ def test_isolation_covers_the_sharding_modules():
 def test_isolation_covers_the_tools_modules():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("core/zigzag.py", "core/simulator.py", "obs/export.py", "obs/critical_path.py",
-                "obs/flightrec.py", "obs/report.py", "obs/perfdiff.py", "obs/__init__.py"):
+                "obs/flightrec.py", "obs/report.py", "obs/steplog.py", "obs/__init__.py"):
         assert f"src/repro_torch/{mod}" in names, mod
 
 

@@ -1,10 +1,10 @@
 """The port's observability tools (repro_torch.obs.{export, critical_path,
-flightrec, report, perfdiff}) against the JAX package's and its golden files.
+flightrec, report}) against the JAX package's and its golden files.
 
 Both sides are the same host arithmetic, so every comparison is ``==``: the
 Chrome trace and the critical-path report of the seeded traced simulator run
-against tests/golden, each request's TTFT attribution, both CLI gates,
-perfdiff's reports, the incident bundle's bytes, and the scale-op partition
+against tests/golden, each request's TTFT attribution, both CLI gates, the
+incident bundle's bytes, and the scale-op partition
 of the disaggregated runtime on torch engines against the JAX runtime's.  The
 golden files are read, never written.
 """
@@ -14,7 +14,6 @@ import json
 import os
 import pathlib
 import re
-import shutil
 import subprocess
 import sys
 import types
@@ -29,17 +28,15 @@ import jax.numpy as jnp  # noqa: E402
 
 import repro.core.simulator as j_sim  # noqa: E402
 import repro.obs as j_obs  # noqa: E402
-from repro.obs import perfdiff as j_perfdiff  # noqa: E402
 from repro.obs import report as j_report  # noqa: E402
 from repro.workloads import traces as j_traces  # noqa: E402
 import repro_torch.core.simulator as sim  # noqa: E402
 import repro_torch.obs as obs  # noqa: E402
-from repro_torch.obs import perfdiff, report  # noqa: E402
+from repro_torch.obs import report  # noqa: E402
 from repro_torch.workloads import traces  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 GOLDEN_DIR = ROOT / "tests" / "golden"
-SMOKE = ROOT / "benchmarks" / "baselines" / "smoke"
 
 
 @pytest.fixture(scope="module")
@@ -57,12 +54,15 @@ def _asdicts(items):
     return [dataclasses.asdict(x) for x in items]
 
 
+PORT_ONLY = {"STEP_LOG", "StepLog", "StepRecord"}  # the serving engine's step log
+
+
 def test_packages_export_what_the_reference_exports():
     import repro.core as j_core
     import repro_torch.core as core
 
     assert set(core.__all__) == set(j_core.__all__)
-    assert set(obs.__all__) == set(j_obs.__all__)
+    assert set(obs.__all__) == set(j_obs.__all__) | PORT_ONLY
     assert obs.SCALE_SEGMENTS == j_obs.SCALE_SEGMENTS
 
 
@@ -155,7 +155,7 @@ def test_report_cli_runs_without_jax_or_cuda():
             "sys.argv = ['report', '--sim', '--duration', '4', '--rate', '2',"
             " '--min-attribution', '0.95']\n"
             "runpy.run_module('repro_torch.obs.report', run_name='__main__')\n"
-            "import repro_torch.obs.perfdiff, repro_torch.core\n"
+            "import repro_torch.obs, repro_torch.core\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
             "assert not bad, bad\n"
             "assert not torch.cuda.is_initialized()\n")
@@ -167,71 +167,12 @@ def test_report_cli_runs_without_jax_or_cuda():
 
 
 def test_host_modules_import_no_torch():
-    """The tools are host arithmetic: stdlib and numpy, no tensor."""
+    """The tools and the engine's step log are host arithmetic: stdlib and
+    numpy, no tensor."""
     for rel in ("core/simulator.py", "core/zigzag.py", "obs/export.py", "obs/critical_path.py",
-                "obs/flightrec.py", "obs/report.py", "obs/perfdiff.py"):
+                "obs/flightrec.py", "obs/report.py", "obs/steplog.py"):
         text = (ROOT / "src" / "repro_torch" / rel).read_text()
         assert not re.search(r"(?<!\w)torch\b", text), rel
-
-
-# ---------------------------------------------------------------------------
-# perfdiff
-# ---------------------------------------------------------------------------
-
-
-def _perturbed_copy(dst: pathlib.Path) -> pathlib.Path:
-    """The smoke baselines with a regression, an improvement, a drift, a
-    missing and an added metric, a smoke-flag mismatch and an unpaired file."""
-    shutil.copytree(SMOKE, dst)
-    names = sorted(p.name for p in dst.glob("BENCH_*.json"))
-    for i, name in enumerate(names):
-        path = dst / name
-        rec = json.loads(path.read_text())
-        m = rec["metrics"]
-        keys = sorted(m)
-        if i == 0:
-            rec["smoke"] = not rec.get("smoke")
-        for j, k in enumerate(keys[:5]):
-            m[k] = m[k] * (1.5, 0.5, 1.05, 2.0, 0.0)[j]
-        if keys:
-            del m[keys[-1]]
-        m["added_metric_s"] = 1.0
-        path.write_text(json.dumps(rec))
-    (dst / names[-1]).rename(dst / "BENCH_renamed.json")
-    return dst
-
-
-def test_perfdiff_self_diff_equals_jax():
-    got = perfdiff.diff_paths(str(SMOKE), str(SMOKE))
-    want = j_perfdiff.diff_paths(str(SMOKE), str(SMOKE))
-    assert got.diffs and not got.regressions()
-    assert got.as_dict() == want.as_dict()
-    assert got.format(verbose=True) == want.format(verbose=True)
-
-
-@pytest.mark.parametrize("tolerance", [0.1, 0.25])
-def test_perfdiff_perturbed_equals_jax(tmp_path, tolerance):
-    new = _perturbed_copy(tmp_path / "new")
-    got = perfdiff.diff_paths(str(SMOKE), str(new), tolerance=tolerance)
-    want = j_perfdiff.diff_paths(str(SMOKE), str(new), tolerance=tolerance)
-    assert got.regressions() and got.missing() and got.warnings
-    assert got.as_dict() == want.as_dict()
-    assert got.format() == want.format()
-
-
-def test_perfdiff_cli_exit_codes_equal_jax(tmp_path, capsys):
-    new = _perturbed_copy(tmp_path / "new")
-    assert perfdiff.main([str(SMOKE), str(SMOKE)]) == 0
-    assert "PERF GATE: OK" in capsys.readouterr().out
-    for argv in ([str(SMOKE), str(new)], [str(SMOKE), str(new), "--fail-on-missing", "--verbose"],
-                 [str(SMOKE), str(new), "--tolerance", "10"]):
-        got = perfdiff.main(argv)
-        got_out = capsys.readouterr()
-        want = j_perfdiff.main(argv)
-        want_out = capsys.readouterr()
-        assert got == want and (got_out.out, got_out.err) == (want_out.out, want_out.err)
-    assert perfdiff.main([str(SMOKE), str(new)]) == 1
-    assert perfdiff.direction_for("ttft_p99_s") == j_perfdiff.direction_for("ttft_p99_s")
 
 
 # ---------------------------------------------------------------------------

@@ -68,11 +68,10 @@ def test_check_launched_fails_a_real_shortfall(trace, units):
 
 
 def test_host_tools_are_the_cli_gates():
-    """Phase 7's subprocesses: both report gates and the perfdiff self-diff."""
-    assert set(cs.HOST_TOOLS) == {"report", "report_scale_ops", "perfdiff"}
+    """Phase 7's subprocesses: both report gates."""
+    assert set(cs.HOST_TOOLS) == {"report", "report_scale_ops"}
     assert "--min-attribution" in cs.HOST_TOOLS["report"]
     assert "--min-makespan-attribution" in cs.HOST_TOOLS["report_scale_ops"]
-    assert cs.HOST_TOOLS["perfdiff"][-2:] == ["benchmarks/baselines/smoke"] * 2
 
 
 def test_host_tools_fail_on_a_non_zero_exit(tmp_path):
@@ -80,7 +79,9 @@ def test_host_tools_fail_on_a_non_zero_exit(tmp_path):
     assert cs.phase_host_tools(ok, tmp_path)["report"]["last_line"].startswith("attribution gate OK")
     assert (tmp_path / "tool_report.log").read_text() == ok["report"][1]
     with pytest.raises(cs.SmokeFailure):
-        cs.phase_host_tools({**ok, "perfdiff": (1, "PERF GATE: FAIL\n")}, None)
+        cs.phase_host_tools(
+            {**ok, "report_scale_ops": (1, "FAIL: 1 scale op(s) below 95% makespan attribution\n")},
+            None)
 
 
 # ---------------------------------------------------------------------------
